@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's SpGEMM main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
+(plan -> execute) and serving granite-3-2b at full width.
 
 Run from the repository root, with no arguments:
 
@@ -9,33 +10,53 @@ Phases, in order; any failure (build error, launch error, mismatch) ends
 the run with a nonzero exit code and no result line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the block-Gustavson CUDA kernel from source (nvcc, sm_90a);
-3. hold the kernel (K1 single, K2 batched) against its plain PyTorch
-   version at the JAX package's kernel-test shapes: float32 within 1e-5,
-   bfloat16 within 2e-2, small integers bitwise, K2 against a loop of K1
-   bitwise;
-4. main path on poisson3Da at its published size: ``spgemm_plan`` on the
-   card, three ``execute`` calls and one ``execute_batch`` of 4 with fresh
-   values from a numpy seed, each checked against the numpy Gustavson
-   oracle (rtol = atol = 1e-4, the JAX package's own plan-vs-oracle
-   tolerance); the launch counts show K1 and K2 ran;
+2. build both CUDA kernels from source (one nvcc each, side by side,
+   sm_90a): block-Gustavson SpGEMM and flash attention;
+3. hold the SpGEMM kernel (K1 single, K2 batched) against its plain
+   PyTorch version at the JAX package's kernel-test shapes: float32 within
+   1e-5, bfloat16 within 2e-2, small integers bitwise, K2 against a loop
+   of K1 bitwise;
+4. SpGEMM main path on poisson3Da at its published size: ``spgemm_plan``
+   on the card, three ``execute`` calls and one ``execute_batch`` of 4
+   with fresh values from a numpy seed, each checked against the numpy
+   Gustavson oracle (rtol = atol = 1e-4, the JAX package's own
+   plan-vs-oracle tolerance); the launch counts show K1 and K2 ran;
 5. 2cubes_sphere at its published size, one ``execute``, checked the same
    way;
-6. timings with CUDA events (median after warm-up) of each kernel, its
-   plain version and cuSPARSE CSR @ CSR (``torch.sparse``, a yardstick the
-   port never calls), the least time the card could take, and the
-   end-to-end ``execute`` time; one ``{"kernels": [...]}`` line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. hold the flash-attention kernel (K5) against its plain version at the
+   JAX package's K5 test shapes, with windows, a q_offset, fully masked
+   rows, bfloat16, and D = 64 at S = 2048: float32 within 2e-4 (the JAX
+   package's own), bfloat16 within rtol 1e-2, atol 1e-3 (one rounding of
+   the output; see ``ATTN_TOL``);
+7. granite-3-2b at its published widths, float32, weights drawn on the
+   card from seed 0: ``make_prefill_step`` on 4 x 2048 tokens from a numpy
+   seed launches K5 once per layer (40); the logits of every position
+   equal those of the same forward with the plain version in place of the
+   kernel, and teacher-forced ``decode_step`` over the first 512 tokens
+   reproduces them;
+8. the same in bfloat16 (the config's own dtype): the largest logit
+   difference and the share of greedy tokens on which the kernel and the
+   plain version agree; then ``BatchedServer`` answers 8 requests;
+9. timings with CUDA events (median after warm-up) of each kernel, its
+   plain version and one PyTorch call for the same function (cuSPARSE
+   CSR @ CSR, ``scaled_dot_product_attention``: yardsticks the port never
+   calls), the least time the card could take, and end-to-end times:
+   SpGEMM ``execute``, prefill and decode, with the device's busy time,
+   idle share and kernel count per prefill and per decode step under
+   torch.profiler; one ``{"kernels": [...]}`` line;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,14 +65,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.core.schedule import build_spgemm_schedule  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gustavson_spgemm import (  # noqa: E402
     spgemm_scheduled,
     spgemm_scheduled_batch,
     stage_runs,
 )
+from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.models.nn import cast_params  # noqa: E402
+from repro_torch.runtime.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.sparse.convert import to_bcsr, to_bcsv  # noqa: E402
 from repro_torch.sparse.formats import COO, CSR  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse, suite_matrix  # noqa: E402
@@ -71,7 +98,36 @@ ORACLE_TOL = 1e-4
 # HBM bandwidth. The kernel's float32 path uses no tensor cores.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Dense bf16 on the tensor cores: the rate a bf16 attention could reach.
+PEAK_BF16_FLOPS = 989e12
 SOURCE = "src/repro_torch/kernels/csrc/gustavson_spgemm.cu"
+SOURCE_K5 = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+# Flash attention: the JAX package's K5 test shapes (tests/test_kernels.py)
+# and D = 64 at S = 2048, the LM's head width at its prefill length.
+ATTN_SHAPES = [(2, 256, 64), (4, 512, 128), (1, 1024, 128), (2, 2048, 64)]
+# (rtol, atol). Float32: the JAX package's own 2e-4. Bfloat16: the kernel
+# and its plain version both compute in float32 and differ only by the
+# kernel's rounding of its output to bfloat16, at most 2**-8 of it. The
+# JAX package's 5e-2 is as large as a typical |output| here (row i of a
+# causal product averages ~i/e keys, so |o| ~ sqrt(e/i) ~ 0.04) and could
+# not fail a wrong kernel, so the check is held at rtol 1e-2, atol 1e-3.
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
+# SDPA, the yardstick, rounds its probabilities to bfloat16 before P.V, so
+# it differs from the kernel by more than an output rounding; its check
+# only shows that the timed call computes the same function.
+SDPA_TOL = 5e-2
+# The LM path: granite-3-2b at its published widths, prefill of 4 x 2048
+# tokens (a multiple of 512, so every layer takes the flash kernel).
+LM_ARCH = "granite-3-2b"
+LM_BATCH, LM_SEQ = 4, 2048
+DECODE_TOKENS = 512
+# The JAX package's own decode-vs-forward bound (tests/test_models.py).
+# Float32 forwards whose attention sums in another order (the kernel's
+# tiles against one softmax over the whole row), and a decode that
+# recomputes every position one token at a time, drift apart through 40
+# layers of rounding; 2e-2 on logits of order 1 bounds that and no more.
+LM_TOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -117,11 +173,13 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
 def reset_counts() -> None:
     spgemm_scheduled.launches = 0
     spgemm_scheduled_batch.launches = 0
+    flash_attention.launches = 0
 
 
 def counts() -> dict:
     return {"spgemm_scheduled": spgemm_scheduled.launches,
-            "spgemm_scheduled_batch": spgemm_scheduled_batch.launches}
+            "spgemm_scheduled_batch": spgemm_scheduled_batch.launches,
+            "flash_attention": flash_attention.launches}
 
 
 # -- phase 3: kernel against its plain version --------------------------------
@@ -266,7 +324,7 @@ def phase_second_matrix(dev, rng):
     return a, plan
 
 
-# -- phase 6: timings -----------------------------------------------------------
+# -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
     """The kernel's operands at the main path's shapes: packed blocks
@@ -481,6 +539,324 @@ def phase_second_timings(a, plan, dev, rng, extra):
         f"execute end to end {e2e_ms:.3f} ms")
 
 
+# -- phase 6: flash attention against its plain version ------------------------
+
+def attention_inputs(dev, shape, dtype, sq=None, seed=SEED):
+    """q [BH, sq or S, D], k and v [BH, S, D], normal, on the card."""
+    bh, s, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((bh, sq or s, d), generator=g, device=dev).to(dtype)
+    k = torch.randn(shape, generator=g, device=dev).to(dtype)
+    v = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def attention_check(q, k, v, what: str, **kw) -> torch.Tensor:
+    got = flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape, f"K5 {what}: dtype or shape")
+    rtol, atol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol, msg=f"K5 {what}")
+    log(f"  K5 {what}: max_abs_err {float((got.float() - want).abs().max()):.3g}")
+    return got
+
+
+def phase_attention_checks(dev) -> None:
+    for shape in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                attention_check(*attention_inputs(dev, shape, dtype),
+                                f"{shape} {str(dtype)[6:]} causal={causal}", causal=causal)
+    for window in (64, 128, 1024):
+        attention_check(*attention_inputs(dev, (2, 512, 64), torch.float32),
+                        f"(2, 512, 64) window {window}", causal=True, window=window)
+    q, k, v = attention_inputs(dev, (1, 512, 64), torch.float32)
+    part = attention_check(q[:, 256:].contiguous(), k, v, "(1, 512, 64) rows 256.. q_offset 256",
+                           causal=True, q_offset=256)
+    full = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(part, full[:, 256:], rtol=2e-4, atol=2e-4,
+                               msg="K5 q_offset rows against one-shot attention")
+    # Row i sees keys in (i + 136, i + 200] of 0..255: rows 119.. see none,
+    # and the first kv tiles of every row are fully masked.
+    q, k, v = attention_inputs(dev, (2, 256, 64), torch.float32, sq=128)
+    got = attention_check(q, k, v, "(2, 128 of 256, 64) window 64 q_offset 200",
+                          causal=True, window=64, q_offset=200)
+    check(bool(torch.all(got[:, 119:] == 0)) and bool(torch.isfinite(got).all()),
+          "K5 rows without a visible key are not 0")
+
+
+# -- phases 7-8: granite-3-2b -------------------------------------------------
+
+def lm_tokens(cfg, dev) -> torch.Tensor:
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(dev)
+
+
+def plain_attention(q, k, v, causal=True, window=None, q_offset=0, backend="auto"):
+    """``ops.attention`` with the plain version in place of the kernel."""
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset).to(q.dtype)
+
+
+@contextlib.contextmanager
+def plain_attention_in_place():
+    """The model's dense comparison: its attention through the plain
+    version, for this script only (the package has no such switch)."""
+    real = ops.attention
+    ops.attention = plain_attention
+    try:
+        yield
+    finally:
+        ops.attention = real
+
+
+def kernel_and_dense_logits(params, cfg, tokens):
+    """All-position logits through the kernel, then through the plain
+    version; the first run's K5 launches."""
+    reset_counts()
+    with torch.no_grad():
+        full, _ = tr.forward(params, cfg, tokens=tokens)
+        torch.cuda.synchronize()
+        launched = counts()["flash_attention"]
+        with plain_attention_in_place():
+            dense, _ = tr.forward(params, cfg, tokens=tokens)
+    torch.cuda.synchronize()
+    check(launched == cfg.n_layers, f"K5 launches in the forward: {launched}")
+    for name, x in (("kernel", full), ("dense", dense)):
+        check(tuple(x.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_padded)
+              and bool(torch.isfinite(x[..., :cfg.vocab]).all()), f"{name} logits")
+    return full, dense
+
+
+def prefill_main_path(params, cfg, tokens) -> int:
+    """The main path: ``make_prefill_step`` once; returns K5's launches."""
+    prefill = make_prefill_step(cfg)
+    reset_counts()
+    last = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["flash_attention"] == cfg.n_layers,
+          f"K5 launches per prefill: {launched} for {cfg.n_layers} layers")
+    check(tuple(last.shape) == (LM_BATCH, cfg.vocab_padded)
+          and bool(torch.isfinite(last[:, :cfg.vocab]).all()), "prefill logits")
+    return launched["flash_attention"]
+
+
+def phase_lm_float32(dev):
+    cfg = get_config(LM_ARCH).with_(dtype="float32")
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} kv) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}); {n_params} float32 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = lm_tokens(cfg, dev)
+    launches = prefill_main_path(params, cfg, tokens)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
+    full, dense = kernel_and_dense_logits(params, cfg, tokens)
+    err = float((full - dense).abs().max())
+    torch.testing.assert_close(full, dense, rtol=LM_TOL, atol=LM_TOL,
+                               msg="float32 logits: kernel against dense path")
+    log(f"  all-position logits, kernel vs dense path: max_abs_err {err:.3g} "
+        f"(bound {LM_TOL}); logit range [{float(full[..., :cfg.vocab].min()):.3g}, "
+        f"{float(full[..., :cfg.vocab].max()):.3g}]")
+    del dense
+    cache = tr.init_cache(cfg, 1, DECODE_TOKENS, device=dev)
+    step = make_decode_step(cfg)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_TOKENS):
+        logits, cache = step(params, cache, tokens[:1, t:t + 1])
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec = torch.stack(outs, dim=1)
+    derr = float((dec - full[:1, :DECODE_TOKENS]).abs().max())
+    torch.testing.assert_close(dec, full[:1, :DECODE_TOKENS], rtol=LM_TOL, atol=LM_TOL,
+                               msg="teacher-forced decode against the prefill's logits")
+    log(f"  teacher-forced decode of {DECODE_TOKENS} tokens (batch 1): max_abs_err "
+        f"{derr:.3g} against the prefill's logits; {dec_s / DECODE_TOKENS * 1e3:.2f} ms "
+        f"per step")
+    del full, dec, outs, cache
+    params16 = cast_params(params, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    return params16, {
+        "lm_params": n_params, "f32_prefill_k5_launches": launches,
+        "f32_kernel_vs_dense_max_abs": err, "f32_decode_vs_prefill_max_abs": derr,
+        "f32_decode_ms_per_step_batch1": dec_s / DECODE_TOKENS * 1e3,
+    }
+
+
+def phase_lm_bfloat16(params16, dev) -> dict:
+    cfg = get_config(LM_ARCH)
+    tokens = lm_tokens(cfg, dev)
+    launches = prefill_main_path(params16, cfg, tokens)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
+    full, dense = kernel_and_dense_logits(params16, cfg, tokens)
+    v = cfg.vocab
+    dmax = float((full[..., :v].float() - dense[..., :v].float()).abs().max())
+    agree = float((full[..., :v].argmax(-1) == dense[..., :v].argmax(-1)).float().mean())
+    log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
+        f"tokens agree at {agree:.4%} of {LM_BATCH * LM_SEQ} positions")
+    del full, dense
+    server = BatchedServer(cfg, batch_slots=4, max_seq=256, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    for i in range(8):
+        server.submit(Request(i, rng.integers(0, cfg.vocab, 8).tolist(), 16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run_until_done()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(len(done) == 8 and all(r.done and len(r.out) == 16 for r in done),
+          "BatchedServer did not answer every request in full")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "BatchedServer token ids")
+    st = server.stats
+    log(f"  BatchedServer(batch_slots=4, max_seq=256): {len(done)} requests, {st['tokens']} "
+        f"tokens in {st['steps']} steps, {serve_s:.3f} s: {st['tokens'] / serve_s:.1f} "
+        f"tokens/s, {serve_s / st['steps'] * 1e3:.2f} ms per step")
+    log(f"  first requests: " + "; ".join(f"{r.rid}: {r.out[:6]}" for r in done[:2]))
+    del server
+    torch.cuda.empty_cache()
+    return {
+        "bf16_prefill_k5_launches": launches, "bf16_kernel_vs_dense_max_abs": dmax,
+        "bf16_greedy_agreement": agree, "serve_s": serve_s, "serve_steps": st["steps"],
+        "serve_tokens": st["tokens"], "serve_tokens_per_s": st["tokens"] / serve_s,
+        "serve_ms_per_step": serve_s / st["steps"] * 1e3,
+    }
+
+
+def attention_bound(bh, s, d, itemsize, causal=True) -> tuple:
+    """Least time (ms) for attention over [bh, s, d]: 4*d flops per visible
+    (q, k) pair at the bf16 tensor-core peak, against q, k, v read once and
+    o written once at the memory rate; the larger of the two."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4.0 * d * pairs * bh
+    nbytes = 4.0 * bh * s * d * itemsize
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
+
+
+def device_busy(fn, reps: int) -> dict:
+    """``reps`` calls of ``fn`` unprofiled, then ``reps`` more under
+    torch.profiler: the wall time per call of each window, the device's
+    kernel time per call, kernels per call and the five kernels that take
+    the most time. Recording every op costs host time, so the profiled
+    window's idle share is an upper bound; ``idle_share_unprofiled``
+    divides the same device time by the adjacent unprofiled window's wall
+    time, an estimate of the idle share without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_us / reps / 1e3, "device_ms": busy_us / reps / 1e3,
+            "idle_share": 1.0 - busy_us / wall_us,
+            "unprofiled_wall_ms": plain_wall_us / reps / 1e3,
+            "idle_share_unprofiled": max(0.0, 1.0 - busy_us / plain_wall_us),
+            "kernels_per_call": len(kernels) / reps,
+            "top_ms": [[name[:80], us / reps / 1e3] for name, us in top]}
+
+
+def phase_lm_timings(params16, lm, dev, extra) -> dict:
+    """K5 at the prefill's shape (bf16, causal) against its plain version,
+    SDPA and its bound; then prefill and decode end to end."""
+    import torch.nn.functional as F
+
+    cfg = get_config(LM_ARCH)
+    bh, s, d = LM_BATCH * cfg.n_heads, LM_SEQ, cfg.head_dim
+    q, k, v = attention_inputs(dev, (bh, s, d), torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    rtol, atol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol, msg="K5 at the LM shape")
+    err = float((got.float() - want).abs().max())
+    del want
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)
+
+    lib_out = sdpa()[0].float()
+    sdpa_err = float((lib_out - got.float()).abs().max())
+    torch.testing.assert_close(lib_out, got.float(), rtol=SDPA_TOL, atol=SDPA_TOL,
+                               msg="SDPA against K5")
+    del lib_out
+    k5_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), reps=5)
+    sdpa_ms = time_ms(sdpa, reps=20)
+    (b_ms, b_by), flops = attention_bound(bh, s, d, q.element_size())
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    k5_f32_ms = time_ms(lambda: flash_attention(q32, k32, v32, causal=True), reps=10)
+    del q32, k32, v32
+    log(f"  K5 bf16 [{bh}, {s}, {d}] causal: {k5_ms:.4f} ms ({flops / k5_ms / 1e9:.1f} "
+        f"TFLOP/s, {b_ms / k5_ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); plain "
+        f"{plain_ms:.4f} ms; SDPA {sdpa_ms:.4f} ms (max |SDPA - K5| {sdpa_err:.3g}); "
+        f"float32 K5 {k5_f32_ms:.4f} ms")
+
+    tokens = lm_tokens(cfg, dev)
+    prefill = make_prefill_step(cfg)
+    pre_ms = host_ms(lambda: prefill(params16, {"tokens": tokens}), reps=5)
+    step = make_decode_step(cfg)
+    state = {"cache": tr.init_cache(cfg, LM_BATCH, 256, device=dev)}
+
+    def decode_once():
+        _, state["cache"] = step(params16, state["cache"], tokens[:, :1])
+
+    dec_ms = host_ms(decode_once, reps=20, warmup=2)
+    prof_prefill = device_busy(lambda: prefill(params16, {"tokens": tokens}), reps=2)
+    prof_decode = device_busy(decode_once, reps=10)
+    for what, prof in (("prefill", prof_prefill), ("decode step", prof_decode)):
+        log(f"  profiled {what}: wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_ms']:.2f} ms (idle {prof['idle_share']:.1%}); unprofiled "
+            f"wall {prof['unprofiled_wall_ms']:.2f} ms (idle ~"
+            f"{prof['idle_share_unprofiled']:.1%}); {prof['kernels_per_call']:.0f} kernels; "
+            f"top {prof['top_ms']}")
+    extra.update(lm)
+    extra.update({
+        "K5_ms": k5_ms, "K5_plain_ms": plain_ms, "K5_sdpa_ms": sdpa_ms, "K5_bound_ms": b_ms,
+        "K5_bound_by": b_by, "K5_tflops": flops / k5_ms / 1e9, "K5_bound_share": b_ms / k5_ms,
+        "K5_f32_ms": k5_f32_ms, "K5_sdpa_max_abs": sdpa_err, "prefill_bf16_ms": pre_ms,
+        "prefill_tokens_per_s": LM_BATCH * LM_SEQ / (pre_ms / 1e3),
+        "prefill_attention_share": cfg.n_layers * k5_ms / pre_ms,
+        "decode_bf16_ms_per_step": dec_ms, "decode_tokens_per_s": LM_BATCH / (dec_ms / 1e3),
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+    })
+    log(f"  prefill bf16 {LM_BATCH} x {LM_SEQ}: {pre_ms:.2f} ms "
+        f"({extra['prefill_tokens_per_s']:.0f} tokens/s), K5 {cfg.n_layers} x {k5_ms:.3f} ms "
+        f"= {extra['prefill_attention_share']:.1%} of it; decode step bf16 batch "
+        f"{LM_BATCH}: {dec_ms:.2f} ms ({extra['decode_tokens_per_s']:.1f} tokens/s)")
+    return {
+        "name": "flash_attention", "route": "cuda", "source": SOURCE_K5,
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": lm["bf16_prefill_k5_launches"], "max_abs_err": err,
+        "ms": k5_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sdpa_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -504,12 +880,16 @@ def main() -> int:
 
     log("[2] build")
     t0 = time.perf_counter()
-    lib_path = _build.build("gustavson_spgemm")
+    with ThreadPoolExecutor(2) as pool:
+        lib_paths = list(pool.map(_build.build, ("gustavson_spgemm", "flash_attention")))
     _build.load_gustavson()
-    log(f"  built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    _build.load_flash_attention()
+    log(f"  built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib_path in lib_paths:
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {lib_path.name.split('-')[0]}: " + line.strip())
 
     log("[3] kernel vs plain version")
     phase_kernel_checks(dev)
@@ -520,11 +900,22 @@ def main() -> int:
     log("[5] 2cubes_sphere")
     a2, plan2 = phase_second_matrix(dev, rng)
 
-    log("[6] timings")
+    log("[6] flash attention vs plain version")
+    phase_attention_checks(dev)
+
+    log("[7] granite-3-2b, float32: prefill, dense path, teacher-forced decode")
+    params16, lm = phase_lm_float32(dev)
+
+    log("[8] granite-3-2b, bfloat16: prefill, dense path, BatchedServer")
+    lm.update(phase_lm_bfloat16(params16, dev))
+
+    log("[9] timings")
     entries, extra = phase_timings(a, plan, launched, chunk, dev, rng)
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2
+    entries.append(phase_lm_timings(params16, lm, dev, extra))
+    del params16
     extra["total_s"] = time.perf_counter() - t_start
     log("timing " + json.dumps(extra))
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,12 +1,15 @@
-"""Hand-written CUDA kernels for the SpGEMM hot path, with their plain
-PyTorch versions.
+"""Hand-written CUDA kernels, with their plain PyTorch versions.
 
 * ``gustavson_spgemm`` — the paper's FPGA kernel on the GPU: static
   triple-scheduled block-Gustavson SpGEMM, one thread block per output
   tile (``csrc/gustavson_spgemm.cu``), single and batched.
+* ``flash_attention`` — online-softmax prefill attention with causal,
+  window and ``q_offset`` masking, one thread block per (bh, q tile)
+  (``csrc/flash_attention.cu``).
 * ``ref`` — plain PyTorch versions: the CPU path and the kernels'
   tolerance oracle.
-* ``ops`` — the ``spgemm`` shim over the plan/execute API.
+* ``ops`` — the ``spgemm`` shim over the plan/execute API and
+  ``attention``.
 """
 from repro_torch.kernels import ref
 

@@ -17,7 +17,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "load_gustavson"]
+__all__ = ["BUILD_DIR", "build", "load_flash_attention", "load_gustavson"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -25,7 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_BUILD_LOCK = threading.Lock()
+# One lock per library: two sources build side by side, one source once.
+_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,7 +55,9 @@ def build(name: str) -> Path:
         source.read_bytes() + " ".join(NVCC_FLAGS).encode(), digest_size=8
     ).hexdigest()
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    with _BUILD_LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if lib.exists():
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,5 +81,16 @@ def load_gustavson() -> ctypes.CDLL:
     fn = lib.gustavson_spgemm_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    fn.restype = i32
+    return lib
+
+
+@functools.cache
+def load_flash_attention() -> ctypes.CDLL:
+    """The flash-attention kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build("flash_attention")))
+    fn = lib.flash_attention_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr]
     fn.restype = i32
     return lib

@@ -1,17 +1,22 @@
 """Public entry points over the kernels.
 
-Only the sparse x sparse shim is ported; the dense-activation, grouped
-matmul and attention entry points wait for their kernels.
+Ported: the sparse x sparse shim (``spgemm``) and prefill ``attention``
+(the flash kernel). The dense-activation and grouped-matmul entry points
+wait for their kernels.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.core.schedule import SpGEMMSchedule
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.sparse.formats import BCSR, BCSV, CSR
 from repro_torch.spgemm.plan import SpGEMMPlan, spgemm_plan
 
-__all__ = ["spgemm"]
+__all__ = ["attention", "spgemm"]
 
 
 def spgemm(
@@ -40,3 +45,35 @@ def spgemm(
     else:
         plan = spgemm_plan(a, b, backend=backend, device=device)
     return plan.execute()
+
+
+def attention(
+    q: torch.Tensor,  # [BH, Sq, D]
+    k: torch.Tensor,  # [BH, Skv, D]
+    v: torch.Tensor,  # [BH, Skv, D]
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Attention with online softmax; the output has q's dtype.
+
+    ``backend`` is checked as :func:`repro_torch.kernels.backend.resolve_backend`
+    checks it (``"cuda"``, ``"torch"`` or ``"auto"``; ``"torch"`` is refused
+    on the card). The computation is :func:`flash_attention`'s, which
+    launches the kernel for CUDA tensors and takes the plain version for
+    CPU tensors, so both backends give the plain version on the CPU.
+
+    Forward only: the reference's recompute backward (a custom VJP through
+    the plain version) comes with the training slice, so CUDA inputs that
+    require grad raise.
+    """
+    resolve_backend(backend, q.device)
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)
+    ):
+        raise NotImplementedError(
+            "attention has no backward on the card yet: the recompute VJP "
+            "comes with the training slice (ROADMAP queue 1, item 15)"
+        )
+    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -8,9 +8,16 @@ they are never bitwise oracles for float inputs: CUDA's float
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
-__all__ = ["spgemm_scheduled_batch_ref", "spgemm_scheduled_ref"]
+__all__ = [
+    "flash_attention_ref",
+    "spgemm_scheduled_batch_ref",
+    "spgemm_scheduled_ref",
+]
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -80,3 +87,39 @@ def spgemm_scheduled_batch_ref(
         bsz * n_panels, group,
     )
     return panels.reshape((bsz, n_panels) + tuple(panels.shape[1:]))
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [BH, Sq, D]
+    k: torch.Tensor,  # [BH, Skv, D]
+    v: torch.Tensor,  # [BH, Skv, D]
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain softmax attention, the plain version of the flash kernel.
+
+    ``q_offset`` positions the query block inside the kv sequence (prefill
+    continuation / decode). ``window`` is a sliding-window bound: key j is
+    visible to query i iff  i + q_offset - window < j <= i + q_offset
+    (when causal). Masked logits are -inf; rows with no visible key (a
+    window can leave some) are zero, as in the kernel. Computes in float32
+    and returns float32.
+    """
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * s
+    sq, skv = q.shape[1], k.shape[1]
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kj = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    logits = logits.masked_fill(~mask[None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # Fully masked rows give NaN in the softmax; zero them like the kernel.
+    probs = torch.where(mask.any(dim=-1)[None, :, None], probs, 0.0)
+    return torch.einsum("bqk,bkd->bqd", probs, v.float())

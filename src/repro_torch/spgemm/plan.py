@@ -43,6 +43,7 @@ from repro_torch.core.schedule import (
     build_spgemm_schedule,
     schedule_from_arrays,
 )
+from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo, to_coo
 from repro_torch.sparse.formats import BCSR, BCSV, COO, CSR
 from repro_torch.spgemm.cache import pattern_digest
@@ -58,40 +59,6 @@ __all__ = [
 
 # Host staging dtype of packed values; the kernel's float32 input.
 _VALUE_DTYPE = np.float32
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device a plan runs on. ``"cuda"`` (the default) needs a CUDA
-    device and raises without one; there is no fallback to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' was asked for but no CUDA device is available; "
-                "pass device='cpu' to run the plain PyTorch version"
-            )
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
-
-
-def resolve_backend(backend: str = "auto", device="cpu") -> str:
-    """``"cuda"`` is the hand-written kernel, ``"torch"`` its plain
-    version; ``"auto"`` takes the kernel on a CUDA device and the plain
-    version on the CPU. The plain version never runs on a CUDA device."""
-    device = torch.device(device)
-    if backend == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "torch" and device.type == "cuda":
-        raise ValueError(
-            "backend 'torch' is the plain CPU version; on a CUDA device "
-            "plans run the CUDA kernel (backend 'cuda' or 'auto')"
-        )
-    return backend
 
 
 _REPORT_FIELDS = (

@@ -1,21 +1,31 @@
-"""The CUDA block-Gustavson kernel on the card, against its plain PyTorch
-version. Needs no JAX, so it runs on a machine with the card:
+"""The CUDA kernels on the card, against their plain PyTorch versions:
+block-Gustavson SpGEMM (K1, K2) and flash attention (K5), and the LM
+forward through K5. Needs no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test is marked ``cuda`` and skips where no CUDA device is present
-(a CUDA kernel has no CPU mode). Tolerances: 1e-5 for float32, 2e-2 for
-bfloat16, the JAX package's own; bitwise with small-integer values, where
-every float32 sum is exact whatever the order. The plain version runs on
-the card with TF32 off, so its float32 products are full float32.
+(a CUDA kernel has no CPU mode). Tolerances are the JAX package's own:
+1e-5 for float32 and 2e-2 for bfloat16 SpGEMM, bitwise with small-integer
+values (where every float32 sum is exact whatever the order); 2e-4 for
+float32 attention. Bfloat16 attention is held at rtol 1e-2, atol 1e-3:
+the kernel and its plain version both compute in float32 and differ only
+by the kernel's rounding of its output to bfloat16 (at most 2**-8 of it),
+while the JAX package's 5e-2 is as large as a typical |output| at these
+shapes and could not fail a wrong kernel. The plain versions run on the
+card with TF32 off, so their float32 products are full float32.
 """
 import numpy as np
 import pytest
 import torch
 
+import copy
+
+from repro_torch.configs.registry import get_reduced
 from repro_torch.core.gustavson import spgemm_gustavson
 from repro_torch.core.schedule import build_spgemm_schedule
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gustavson_spgemm import (
     spgemm_scheduled,
     spgemm_scheduled_batch,
@@ -24,6 +34,7 @@ from repro_torch.kernels.gustavson_spgemm import (
 from repro_torch.sparse.convert import to_bcsr, to_bcsv
 from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.random import random_block_sparse, suite_matrix
+from repro_torch.models import transformer as tr
 from repro_torch.spgemm import spgemm_plan
 
 pytestmark = pytest.mark.cuda
@@ -130,3 +141,102 @@ def test_plan_on_card_matches_cpu_plan_and_oracle(cuda):
     np.testing.assert_allclose(got.todense(), oracle.todense(), rtol=1e-4, atol=1e-4)
     assert torch.equal(on_card.device_indptr().cpu(),
                        torch.from_numpy(got.indptr.astype(np.int32)))
+
+
+# -- flash attention (K5) -------------------------------------------------------
+
+# (rtol, atol); see the module docstring for bfloat16's.
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _attn_inputs(device, shape, dtype, sq=None, seed=3):
+    bh, s, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((bh, sq or s, d), generator=g, device=device).to(dtype)
+    k = torch.randn(shape, generator=g, device=device).to(dtype)
+    v = torch.randn(shape, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def _attn_check(q, k, v, **kw):
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    rtol, atol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("bh,s,d", [(2, 256, 64), (4, 512, 128), (1, 1024, 128),
+                                    (2, 2048, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_vs_plain(cuda, bh, s, d, causal, dtype):
+    _attn_check(*_attn_inputs(cuda, (bh, s, d), dtype), causal=causal)
+
+
+@pytest.mark.parametrize("window", [64, 128, 1024])
+def test_flash_kernel_window(cuda, window):
+    _attn_check(*_attn_inputs(cuda, (2, 512, 64), torch.float32), causal=True, window=window)
+
+
+def test_flash_kernel_q_offset(cuda):
+    q, k, v = _attn_inputs(cuda, (1, 512, 64), torch.float32)
+    part = _attn_check(q[:, 256:].contiguous(), k, v, causal=True, q_offset=256)
+    full = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(part, full[:, 256:], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_fully_masked_rows(cuda, causal):
+    """Rows 119.. of q see no key (window 64, q_offset 200, 256 keys); the
+    first kv tiles of many rows are fully masked."""
+    q, k, v = _attn_inputs(cuda, (2, 256, 64), torch.float32, sq=128)
+    got = _attn_check(q, k, v, causal=causal, window=64, q_offset=200)
+    assert torch.all(got[:, 119:] == 0)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("sq,skv,d", [(100, 200, 8), (65, 130, 72), (64, 64, 256),
+                                      (1, 3, 16)])
+def test_flash_kernel_ragged_and_head_dims(cuda, sq, skv, d):
+    q, k, v = _attn_inputs(cuda, (3, skv, d), torch.float32, sq=sq)
+    _attn_check(q, k, v, causal=True, q_offset=skv - sq)
+    _attn_check(q, k, v, causal=False, window=17)
+
+
+def test_flash_kernel_refusals(cuda):
+    q, k, v = _attn_inputs(cuda, (1, 64, 264), torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda, (1, 64, 12), torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda, (1, 64, 64), torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.attention(q.requires_grad_(), k, v)
+
+
+def test_lm_forward_on_card_through_the_kernel(cuda):
+    """The reduced granite at S = 512 on the card: every layer's prefill
+    attention launches K5, and the logits equal the port's CPU forward
+    (the plain version) on the same weights."""
+    cfg = get_reduced("granite-3-2b").with_(dtype="float32")
+    params = tr.init_lm(0, cfg, device="cpu")
+    on_card = copy.deepcopy(params).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 512)))
+    want, _ = tr.forward(params, cfg, tokens=toks)
+    before = flash_attention.launches
+    got, _ = tr.forward(on_card, cfg, tokens=toks.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,35 @@
+"""The port stands alone: importing every module of ``repro_torch`` and
+everything ``chip_smoke.py`` imports loads neither JAX nor the JAX package.
+
+Runs in a fresh interpreter, so that nothing this test process imported
+(the parity tests import both packages) can hide an import.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, {os.path.join(ROOT, 'src')!r})
+        sys.path.insert(0, {ROOT!r})
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # its imports only: main() runs under __main__
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
+        print(len(names), bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25, out.stdout

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
-(plan -> execute) and serving granite-3-2b at full width.
+(plan -> execute), serving granite-3-2b at full width, the ``ops`` entry
+points of the block-sparse SpMM and the grouped matmul, and serving
+qwen3-moe-30b-a3b at full width through the grouped matmul.
 
 Run from the repository root, with no arguments:
 
@@ -10,8 +12,9 @@ Phases, in order; any failure (build error, launch error, mismatch) ends
 the run with a nonzero exit code and no result line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels from source (one nvcc each, side by side,
-   sm_90a): block-Gustavson SpGEMM and flash attention;
+2. build the four CUDA kernels from source (one nvcc each, side by side,
+   sm_90a): block-Gustavson SpGEMM (K1, K2), flash attention (K5),
+   block-sparse SpMM (K3) and grouped matmul (K4);
 3. hold the SpGEMM kernel (K1 single, K2 batched) against its plain
    PyTorch version at the JAX package's kernel-test shapes: float32 within
    1e-5, bfloat16 within 2e-2, small integers bitwise, K2 against a loop
@@ -43,8 +46,37 @@ the run with a nonzero exit code and no result line:
    calls), the least time the card could take, and end-to-end times:
    SpGEMM ``execute``, prefill and decode, with the device's busy time,
    idle share and kernel count per prefill and per decode step under
-   torch.profiler; one ``{"kernels": [...]}`` line;
-10. the last line: ``{"ok": true, "device": {...}}``.
+   torch.profiler; granite's weights are then freed;
+10. hold the block-sparse SpMM (K3) against its plain version: the JAX
+    package's K3 test shapes in float32 and bfloat16, an empty column
+    panel and small integers (bitwise), then granite-3-2b's SparseLinear
+    down projection at full width (x 8192 x 8192 bf16, W 8192 x 2048 in
+    128 x 128 blocks at density 0.25 from ``sparse_block_mask``) through
+    ``ops.sparse_dense_matmul``, whose launch is counted; all within 1e-3
+    (see ``BSR_TOL``); timed beside its plain version and ``torch.matmul``
+    with the masked dense weight;
+11. hold the grouped matmul (K4) against its plain version within 1e-4:
+    the JAX package's K4 test shapes, small integers (bitwise), and
+    qwen3-moe-30b-a3b's expert shapes at prefill (128 experts x 640 slots,
+    D 2048 <-> F 768) and decode (8 slots, tile 8); timed beside its plain
+    version and ``torch.bmm`` over [E, C, D] x [E, D, F];
+12. qwen3-moe-30b-a3b at its published widths, float32, depth cut to 4
+    layers (full depth in float32 takes 120 GB), weights drawn on the card
+    from seed 0: ``make_prefill_step`` on 4 x 2048 tokens launches K4 12
+    times and K5 4 times; the logits of every position equal those of the
+    same forward with the plain K4 and K5 in place within 2e-2, and
+    teacher-forced ``decode_step`` over the first 512 tokens reproduces
+    them within 2e-2; differing expert choices and dropped pairs are
+    printed;
+13. qwen3-moe-30b-a3b at full width and depth (48 layers), weights stored
+    in bfloat16 (the config's ``param_dtype``; the reference casts every
+    weight to the compute dtype at use): the prefill launches K4 144 times
+    and K5 48 times, with finite logits; the largest logit difference and
+    greedy agreement against the plain path; decode at batch 4 and
+    ``BatchedServer`` answering 8 requests; prefill, decode and server
+    times with the device's busy share; one ``{"kernels": [...]}`` line
+    with K1-K5;
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
@@ -69,18 +101,21 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.core.schedule import build_spgemm_schedule  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.bsr_spmm import bsr_spmm  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.gustavson_spgemm import (  # noqa: E402
     spgemm_scheduled,
     spgemm_scheduled_batch,
     stage_runs,
 )
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
-from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.models import moe, transformer as tr  # noqa: E402
+from repro_torch.models.mlp import sparse_block_mask  # noqa: E402
 from repro_torch.models.nn import cast_params  # noqa: E402
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.sparse.convert import to_bcsr, to_bcsv  # noqa: E402
-from repro_torch.sparse.formats import COO, CSR  # noqa: E402
+from repro_torch.sparse.formats import BCSV, COO, CSR  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse, suite_matrix  # noqa: E402
 from repro_torch.spgemm import spgemm_plan  # noqa: E402
 
@@ -102,6 +137,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 SOURCE = "src/repro_torch/kernels/csrc/gustavson_spgemm.cu"
 SOURCE_K5 = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE_K3 = "src/repro_torch/kernels/csrc/bsr_spmm.cu"
+SOURCE_K4 = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 
 # Flash attention: the JAX package's K5 test shapes (tests/test_kernels.py)
 # and D = 64 at S = 2048, the LM's head width at its prefill length.
@@ -128,6 +165,26 @@ DECODE_TOKENS = 512
 # recomputes every position one token at a time, drift apart through 40
 # layers of rounding; 2e-2 on logits of order 1 bounds that and no more.
 LM_TOL = 2e-2
+
+# K3: the JAX package's test shapes (tests/test_kernels.py), (m, k, n, bk, bn).
+BSR_SHAPES = [(64, 256, 256, 128, 128), (200, 384, 512, 128, 128), (128, 256, 384, 128, 128)]
+# K3 and its plain version both form float32 sums of float32 products of
+# the same inputs (bf16 inputs are widened exactly) and write float32, so
+# bfloat16 is held at the float32 tolerance, 1e-3 (the JAX package's own;
+# its 0.15 for bf16 compares against an oracle on unrounded inputs).
+BSR_TOL = 1e-3
+# granite-3-2b's SparseLinear down projection: d_ff x d_model in 128 x 128
+# blocks at the config's density, applied to 4 x 2048 tokens.
+BSR_FULL = dict(m=LM_BATCH * LM_SEQ, k=8192, n=2048, block=128, density=0.25)
+# K4: the JAX package's test shapes (t, d, f, e, tm) and its 1e-4 (outputs
+# of order 1: weights scaled by 1/sqrt(D)).
+GMM_SHAPES = [(256, 128, 256, 2, 128), (512, 256, 128, 4, 128), (1024, 128, 384, 8, 128)]
+GMM_TOL = 1e-4
+# The library calls round their output to bf16 (2**-8 of outputs of order
+# 1): their checks only show that the timed call computes the function.
+LIB_TOL = 3e-2
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_F32_LAYERS = 4
 
 
 def log(msg: str) -> None:
@@ -170,16 +227,16 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+KERNELS = (spgemm_scheduled, spgemm_scheduled_batch, flash_attention, bsr_spmm, moe_gmm)
+
+
 def reset_counts() -> None:
-    spgemm_scheduled.launches = 0
-    spgemm_scheduled_batch.launches = 0
-    flash_attention.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def counts() -> dict:
-    return {"spgemm_scheduled": spgemm_scheduled.launches,
-            "spgemm_scheduled_batch": spgemm_scheduled_batch.launches,
-            "flash_attention": flash_attention.launches}
+    return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 # -- phase 3: kernel against its plain version --------------------------------
@@ -599,48 +656,107 @@ def plain_attention(q, k, v, causal=True, window=None, q_offset=0, backend="auto
                                    q_offset=q_offset).to(q.dtype)
 
 
+def plain_grouped_matmul(x, w, tile_expert, *, tm=128, backend="auto"):
+    """``ops.grouped_matmul`` with the plain version in place of the kernel."""
+    return ref.moe_gmm_ref(x, w, tile_expert, tm)
+
+
 @contextlib.contextmanager
-def plain_attention_in_place():
-    """The model's dense comparison: its attention through the plain
-    version, for this script only (the package has no such switch)."""
-    real = ops.attention
-    ops.attention = plain_attention
+def plain_kernels_in_place():
+    """The model's dense comparison: its attention and its expert matmuls
+    through the plain versions, for this script only (the package has no
+    such switch)."""
+    real = ops.attention, ops.grouped_matmul
+    ops.attention, ops.grouped_matmul = plain_attention, plain_grouped_matmul
     try:
         yield
     finally:
-        ops.attention = real
+        ops.attention, ops.grouped_matmul = real
+
+
+@contextlib.contextmanager
+def recording_routes(store: list):
+    """Append the experts every MoE layer chooses ([T, k]) to ``store``."""
+    real = moe.route
+
+    def spy(p, xf, cfg):
+        out = real(p, xf, cfg)
+        store.append(out[1])
+        return out
+
+    moe.route = spy
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def moe_layers(cfg) -> int:
+    return sum(cfg.block_pattern[i % cfg.period].ff == "moe" for i in range(cfg.n_layers))
+
+
+def check_launches(launched: dict, cfg, what: str) -> None:
+    """One K5 launch per layer and three K4 launches per MoE layer."""
+    check(launched["flash_attention"] == cfg.n_layers
+          and launched["moe_gmm"] == 3 * moe_layers(cfg),
+          f"{what}: launches {launched} for {cfg.n_layers} layers")
 
 
 def kernel_and_dense_logits(params, cfg, tokens):
-    """All-position logits through the kernel, then through the plain
-    version; the first run's K5 launches."""
+    """All-position logits through the kernels, then through the plain
+    versions, and the experts each run's MoE layers chose."""
+    routes, plain_routes = [], []
     reset_counts()
     with torch.no_grad():
-        full, _ = tr.forward(params, cfg, tokens=tokens)
+        with recording_routes(routes):
+            full, _ = tr.forward(params, cfg, tokens=tokens)
         torch.cuda.synchronize()
-        launched = counts()["flash_attention"]
-        with plain_attention_in_place():
+        launched = counts()
+        with plain_kernels_in_place(), recording_routes(plain_routes):
             dense, _ = tr.forward(params, cfg, tokens=tokens)
     torch.cuda.synchronize()
-    check(launched == cfg.n_layers, f"K5 launches in the forward: {launched}")
+    check_launches(launched, cfg, "the forward")
     for name, x in (("kernel", full), ("dense", dense)):
         check(tuple(x.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_padded)
               and bool(torch.isfinite(x[..., :cfg.vocab]).all()), f"{name} logits")
-    return full, dense
+    return full, dense, routes, plain_routes
 
 
-def prefill_main_path(params, cfg, tokens) -> int:
-    """The main path: ``make_prefill_step`` once; returns K5's launches."""
+def prefill_main_path(params, cfg, tokens) -> dict:
+    """The main path: ``make_prefill_step`` once; returns its launches."""
     prefill = make_prefill_step(cfg)
     reset_counts()
     last = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     launched = counts()
-    check(launched["flash_attention"] == cfg.n_layers,
-          f"K5 launches per prefill: {launched} for {cfg.n_layers} layers")
+    check_launches(launched, cfg, "prefill")
     check(tuple(last.shape) == (LM_BATCH, cfg.vocab_padded)
           and bool(torch.isfinite(last[:, :cfg.vocab]).all()), "prefill logits")
-    return launched["flash_attention"]
+    return launched
+
+
+def teacher_forced_decode(params, cfg, tokens, full, dev) -> tuple:
+    """``decode_step`` at batch 1 over the first DECODE_TOKENS tokens of
+    sequence 0, against the prefill's logits of those positions; returns
+    (max abs difference, ms per step). Gated at LM_TOL."""
+    cache = tr.init_cache(cfg, 1, DECODE_TOKENS, device=dev)
+    step = make_decode_step(cfg)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_TOKENS):
+        logits, cache = step(params, cache, tokens[:1, t:t + 1])
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec = torch.stack(outs, dim=1)
+    derr = float((dec.float() - full[:1, :DECODE_TOKENS].float()).abs().max())
+    log(f"  teacher-forced decode of {DECODE_TOKENS} tokens (batch 1): max_abs_err "
+        f"{derr:.3g} against the prefill's logits; {dec_s / DECODE_TOKENS * 1e3:.2f} ms "
+        f"per step")
+    torch.testing.assert_close(dec, full[:1, :DECODE_TOKENS], rtol=LM_TOL, atol=LM_TOL,
+                               msg="teacher-forced decode against the prefill's logits")
+    return derr, dec_s / DECODE_TOKENS * 1e3
 
 
 def phase_lm_float32(dev):
@@ -654,9 +770,9 @@ def phase_lm_float32(dev):
         f"(padded {cfg.vocab_padded}); {n_params} float32 parameters drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     tokens = lm_tokens(cfg, dev)
-    launches = prefill_main_path(params, cfg, tokens)
+    launches = prefill_main_path(params, cfg, tokens)["flash_attention"]
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
-    full, dense = kernel_and_dense_logits(params, cfg, tokens)
+    full, dense, _, _ = kernel_and_dense_logits(params, cfg, tokens)
     err = float((full - dense).abs().max())
     torch.testing.assert_close(full, dense, rtol=LM_TOL, atol=LM_TOL,
                                msg="float32 logits: kernel against dense path")
@@ -664,43 +780,37 @@ def phase_lm_float32(dev):
         f"(bound {LM_TOL}); logit range [{float(full[..., :cfg.vocab].min()):.3g}, "
         f"{float(full[..., :cfg.vocab].max()):.3g}]")
     del dense
-    cache = tr.init_cache(cfg, 1, DECODE_TOKENS, device=dev)
-    step = make_decode_step(cfg)
-    outs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(DECODE_TOKENS):
-        logits, cache = step(params, cache, tokens[:1, t:t + 1])
-        outs.append(logits[:, 0])
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
-    dec = torch.stack(outs, dim=1)
-    derr = float((dec - full[:1, :DECODE_TOKENS]).abs().max())
-    torch.testing.assert_close(dec, full[:1, :DECODE_TOKENS], rtol=LM_TOL, atol=LM_TOL,
-                               msg="teacher-forced decode against the prefill's logits")
-    log(f"  teacher-forced decode of {DECODE_TOKENS} tokens (batch 1): max_abs_err "
-        f"{derr:.3g} against the prefill's logits; {dec_s / DECODE_TOKENS * 1e3:.2f} ms "
-        f"per step")
-    del full, dec, outs, cache
+    derr, dec_ms = teacher_forced_decode(params, cfg, tokens, full, dev)
+    del full
     params16 = cast_params(params, torch.bfloat16)
     del params
     torch.cuda.empty_cache()
     return params16, {
         "lm_params": n_params, "f32_prefill_k5_launches": launches,
         "f32_kernel_vs_dense_max_abs": err, "f32_decode_vs_prefill_max_abs": derr,
-        "f32_decode_ms_per_step_batch1": dec_s / DECODE_TOKENS * 1e3,
+        "f32_decode_ms_per_step_batch1": dec_ms,
     }
+
+
+def logit_drift(full, dense, v) -> tuple:
+    """Largest |logit difference| and the share of positions whose greedy
+    token agrees, one sequence at a time (a float32 copy of all of
+    qwen3's logits would take 5 GB each)."""
+    dmax, agree = 0.0, 0.0
+    for b in range(full.shape[0]):
+        a, d = full[b, :, :v].float(), dense[b, :, :v].float()
+        dmax = max(dmax, float((a - d).abs().max()))
+        agree += float((a.argmax(-1) == d.argmax(-1)).float().sum())
+    return dmax, agree / (full.shape[0] * full.shape[1])
 
 
 def phase_lm_bfloat16(params16, dev) -> dict:
     cfg = get_config(LM_ARCH)
     tokens = lm_tokens(cfg, dev)
-    launches = prefill_main_path(params16, cfg, tokens)
+    launches = prefill_main_path(params16, cfg, tokens)["flash_attention"]
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
-    full, dense = kernel_and_dense_logits(params16, cfg, tokens)
-    v = cfg.vocab
-    dmax = float((full[..., :v].float() - dense[..., :v].float()).abs().max())
-    agree = float((full[..., :v].argmax(-1) == dense[..., :v].argmax(-1)).float().mean())
+    full, dense, _, _ = kernel_and_dense_logits(params16, cfg, tokens)
+    dmax, agree = logit_drift(full, dense, cfg.vocab)
     log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
         f"tokens agree at {agree:.4%} of {LM_BATCH * LM_SEQ} positions")
     del full, dense
@@ -857,6 +967,371 @@ def phase_lm_timings(params16, lm, dev, extra) -> dict:
     }
 
 
+# -- phase 10: block-sparse SpMM (K3) ------------------------------------------
+
+def bsr_weight(k, n, bk, bn, seed, integer=False, kill_panel=None):
+    """A weight of the JAX package's K3 tests (density 0.5 from a numpy
+    seed), dense and as BCSV."""
+    wd = random_block_sparse(k, n, (bk, bn), 0.5, seed=seed)
+    if kill_panel is not None:
+        wd[:, kill_panel * bn:(kill_panel + 1) * bn] = 0.0
+    if integer:
+        rng = np.random.default_rng(seed + 100)
+        wd = np.where(wd != 0, rng.integers(-3, 4, wd.shape), 0).astype(np.float32)
+    return wd, to_bcsv(wd, (bk, bn), group=1)
+
+
+def bsr_check(x, w: BCSV, what: str) -> tuple:
+    """K3 through ``ops.sparse_dense_matmul`` against its plain version on
+    the same operands (W's blocks in x's dtype on the card)."""
+    got = ops.sparse_dense_matmul(x, w)
+    blocks = torch.from_numpy(w.blocks).to(x.device, x.dtype)
+    want = ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, w.shape[1])
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == want.shape, f"K3 {what}: dtype or shape")
+    err = float((got - want).abs().max())
+    log(f"  K3 {what}: max_abs_err {err:.3g}")
+    torch.testing.assert_close(got, want, rtol=BSR_TOL, atol=BSR_TOL, msg=f"K3 {what}")
+    return got, err
+
+
+def granite_sparse_weight(dev) -> BCSV:
+    """granite-3-2b's SparseLinear down projection at full width: the block
+    mask from ``sparse_block_mask`` (a generator on the card, seed 0) and
+    normal block values from a numpy seed, scaled so outputs are of order
+    1. Row-major mask order is BCSV's order for group 1."""
+    c = BSR_FULL
+    b = c["block"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mask = sparse_block_mask(gen, c["k"], c["n"], b, c["density"]).cpu().numpy()
+    brow, bcol = np.nonzero(mask)
+    per_panel = float(mask.sum(0).mean())
+    blocks = np.random.default_rng(SEED).standard_normal((brow.size, b, b), dtype=np.float32)
+    blocks *= np.float32(1.0 / np.sqrt(b * per_panel))
+    group_ptr = np.concatenate([[0], np.cumsum(np.bincount(brow, minlength=mask.shape[0]))])
+    return BCSV(blocks, brow, bcol, group_ptr, (c["k"], c["n"]), 1)
+
+
+def bsr_bound(m, n, w: BCSV, itemsize) -> tuple:
+    """Least time (ms) for y = x @ W: 2*M*bk*bn flops per block at the
+    tensor-core peak of the input type (bf16) or the float32 peak, against
+    x's block columns that W uses, W's blocks and their indices read once
+    and y (float32) written once; the larger of the two."""
+    bk, bn = w.block_shape
+    flops = 2.0 * m * bk * bn * w.nnzb
+    used_cols = np.unique(w.brow).size * bk
+    nbytes = itemsize * (m * used_cols + w.nnzb * bk * bn) + 4.0 * m * n + 4.0 * 2 * w.nnzb
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
+
+
+def phase_bsr(dev) -> dict:
+    for m, k, n, bk, bn in BSR_SHAPES:
+        x = np.random.default_rng(0).standard_normal((m, k), dtype=np.float32)
+        _, w = bsr_weight(k, n, bk, bn, seed=7)
+        for dtype in (torch.float32, torch.bfloat16):
+            bsr_check(torch.from_numpy(x).to(dev, dtype), w,
+                      f"({m}, {k}, {n}) blocks ({bk}, {bn}) {str(dtype)[6:]}")
+    _, w = bsr_weight(256, 512, 128, 128, seed=8, kill_panel=1)
+    x = np.random.default_rng(1).standard_normal((64, 256), dtype=np.float32)
+    got, _ = bsr_check(torch.from_numpy(x).to(dev), w, "(64, 256, 512) column panel 1 empty")
+    check(bool((got[:, 128:256] == 0).all()), "K3: the empty column panel is not zero")
+    wd, w = bsr_weight(384, 512, 128, 128, seed=5, integer=True)
+    xi = np.random.default_rng(3).integers(-3, 4, (200, 384)).astype(np.float32)
+    got = ops.sparse_dense_matmul(torch.from_numpy(xi).to(dev), w)
+    check(torch.equal(got.cpu(), torch.from_numpy(xi @ wd)), "K3 small integers not bitwise")
+    log("  K3 (200, 384, 512) small integers: bitwise equal to x @ W")
+
+    # The main path's shape: granite-3-2b's SparseLinear down projection.
+    c = BSR_FULL
+    w = granite_sparse_weight(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((c["m"], c["k"]), generator=g, device=dev).to(torch.bfloat16)
+    reset_counts()
+    y = ops.sparse_dense_matmul(x, w)
+    torch.cuda.synchronize()
+    launches = counts()["bsr_spmm"]
+    check(launches == 1, f"K3 launches in ops.sparse_dense_matmul: {launches}")
+    blocks = torch.from_numpy(w.blocks).to(dev, torch.bfloat16)
+    want = ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, c["n"])
+    err = float((y - want).abs().max())
+    log(f"  K3 granite-3-2b SparseLinear [{c['m']}, {c['k']}] x [{c['k']}, {c['n']}] bf16, "
+        f"{w.nnzb} blocks of {c['block']}^2 (density {w.nnzb / (c['k'] * c['n'] / c['block'] ** 2):.4f}):"
+        f" ops.sparse_dense_matmul launches {launches}, max_abs_err {err:.3g} vs plain "
+        f"(|y| max {float(want.abs().max()):.3g})")
+    torch.testing.assert_close(y, want, rtol=BSR_TOL, atol=BSR_TOL, msg="K3 at granite's shape")
+    del want
+    # Operands as the kernel takes them, for timing the wrapper alone.
+    order = np.lexsort((w.brow, w.bcol))
+    brow, bcol = w.brow[order], w.bcol[order]
+    sorted_blocks = blocks[torch.from_numpy(order).to(dev)].contiguous()
+    flags = np.zeros(w.nnzb, np.int32)
+    kernel = lambda: bsr_spmm(x, sorted_blocks, brow, bcol, flags, n=c["n"])  # noqa: E731
+    # The yardstick: the reference's serving path, a dense product with the
+    # masked weight (cuBLAS bf16); the port never calls it.
+    b = c["block"]
+    dense_w = torch.zeros((c["k"] // b, c["n"] // b, b, b), dtype=torch.bfloat16, device=dev)
+    dense_w[torch.from_numpy(w.brow).long(), torch.from_numpy(w.bcol).long()] = blocks
+    dense_w = dense_w.permute(0, 2, 1, 3).reshape(c["k"], c["n"])
+    lib_err = float((torch.matmul(x, dense_w).float() - y).abs().max())
+    check(lib_err <= LIB_TOL * max(1.0, float(y.abs().max())), f"matmul vs K3: {lib_err}")
+    k_ms = time_ms(kernel, reps=10)
+    p_ms = time_ms(lambda: ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, c["n"]), reps=5)
+    lib_ms = time_ms(lambda: torch.matmul(x, dense_w), reps=20)
+    (b_ms, b_by), flops = bsr_bound(c["m"], c["n"], w, 2)
+    log(f"  K3 timing: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.2%} of "
+        f"the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; torch.matmul with the "
+        f"masked dense weight {lib_ms:.4f} ms (max |matmul - K3| {lib_err:.3g})")
+    return {
+        "name": "bsr_spmm", "route": "cuda", "source": SOURCE_K3,
+        "replaces": "src/repro/kernels/bsr_spmm.py:77", "launches": launches,
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    }, {"K3_nnzb": w.nnzb, "K3_tflops": flops / k_ms / 1e9, "K3_matmul_max_abs": lib_err}
+
+
+# -- phase 11: grouped matmul (K4) ---------------------------------------------
+
+def gmm_inputs(dev, t, d, f, e, tm, dtype, seed, integer=False, te=None):
+    """x [t, d], w [e, d, f] on the card (normal, w scaled by 1/sqrt(d) so
+    outputs are of order 1; or small integers) and sorted tile experts."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        x = torch.randint(-3, 4, (t, d), generator=g, device=dev).float()
+        w = torch.randint(-3, 4, (e, d, f), generator=g, device=dev).float()
+    else:
+        x = torch.randn((t, d), generator=g, device=dev)
+        w = torch.randn((e, d, f), generator=g, device=dev) / d ** 0.5
+    if te is None:
+        te = torch.randint(0, e, (t // tm,), generator=g, device=dev).sort().values.int()
+    return x.to(dtype), w.to(dtype), te
+
+
+def gmm_check(x, w, te, tm, what) -> tuple:
+    got = ops.grouped_matmul(x, w, te, tm=tm)
+    want = ref.moe_gmm_ref(x, w, te, tm)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == want.shape, f"K4 {what}: dtype or shape")
+    err = float((got - want).abs().max())
+    log(f"  K4 {what}: max_abs_err {err:.3g}")
+    torch.testing.assert_close(got, want, rtol=GMM_TOL, atol=GMM_TOL, msg=f"K4 {what}")
+    return got, err
+
+
+def gmm_bound(t, d, f, e, tm, itemsize) -> tuple:
+    """Least time (ms) for the grouped matmul: 2*T*D*F flops at the
+    tensor-core peak of the input type (bf16) or the float32 peak, against
+    x, w and the tile experts read once and out (float32) written once."""
+    flops = 2.0 * t * d * f
+    nbytes = itemsize * (t * d + e * d * f) + 4.0 * t * f + 4.0 * t / tm
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
+
+
+def phase_gmm(dev) -> tuple:
+    for t, d, f, e, tm in GMM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gmm_check(*gmm_inputs(dev, t, d, f, e, tm, dtype, SEED), tm,
+                      f"({t}, {d}, {f}) E {e} tm {tm} {str(dtype)[6:]}")
+    for tm in (128, 8):
+        x, w, te = gmm_inputs(dev, 1024, 128, 384, 8, tm, torch.float32, 1, integer=True)
+        got = ops.grouped_matmul(x, w, te, tm=tm)
+        check(torch.equal(got, ref.moe_gmm_ref(x, w, te, tm)),
+              f"K4 small integers not bitwise at tm {tm}")
+        log(f"  K4 (1024, 128, 384) E 8 tm {tm} small integers: bitwise equal to plain")
+
+    # qwen3-moe-30b-a3b's expert shapes: 128 experts, prefill 4 x 2048
+    # tokens (capacity 640, tile 128), decode at batch 4 (capacity 8, tile 8).
+    cfg = get_config(MOE_ARCH)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_ff
+    timing, extra = {}, {}
+    for name, cap, (din, dout), dtypes in (
+            ("prefill gate/up", 640, (d, f), (torch.float32, torch.bfloat16)),
+            ("prefill down", 640, (f, d), (torch.bfloat16,)),
+            ("decode gate/up", 8, (d, f), (torch.bfloat16,)),
+            ("decode down", 8, (f, d), (torch.bfloat16,))):
+        tm = moe._tile_rows(cap)
+        te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(cap // tm)
+        for dtype in dtypes:
+            x, w, _ = gmm_inputs(dev, e * cap, din, dout, e, tm, dtype, SEED, te=te)
+            got, err = gmm_check(x, w, te, tm, f"qwen3 {name} [{e * cap}, {din}] x "
+                                 f"[{e}, {din}, {dout}] tm {tm} {str(dtype)[6:]}")
+            if dtype != torch.bfloat16:
+                continue
+            k_ms = time_ms(lambda: moe_gmm(x, w, te, tm=tm), reps=10)
+            (b_ms, b_by), flops = gmm_bound(e * cap, din, dout, e, tm, 2)
+            extra[f"K4_{name.replace(' ', '_').replace('/', '')}_ms"] = k_ms
+            extra[f"K4_{name.replace(' ', '_').replace('/', '')}_bound_ms"] = b_ms
+            log(f"  K4 timing, {name} bf16: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+                f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by})")
+            if name == "prefill gate/up":
+                # The yardstick: the reference's einsum twin as one batched
+                # product over [E, C, D] x [E, D, F] (cuBLAS bf16).
+                xb = x.view(e, cap, din)
+                lib_err = float((torch.bmm(xb, w).float().view(e * cap, dout) - got)
+                                .abs().max())
+                check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())),
+                      f"bmm vs K4: {lib_err}")
+                p_ms = time_ms(lambda: ref.moe_gmm_ref(x, w, te, tm), reps=5)
+                lib_ms = time_ms(lambda: torch.bmm(xb, w), reps=20)
+                log(f"  K4 prefill gate/up: plain {p_ms:.4f} ms; torch.bmm over [E, C, D] x "
+                    f"[E, D, F] {lib_ms:.4f} ms (max |bmm - K4| {lib_err:.3g})")
+                timing = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib_ms}
+                extra.update({"K4_tflops": flops / k_ms / 1e9, "K4_bmm_max_abs": lib_err})
+            del x, w, got
+    torch.cuda.empty_cache()
+    return timing, extra
+
+
+# -- phases 12-13: qwen3-moe-30b-a3b --------------------------------------------
+
+def choice_diff(routes, plain_routes, e: int) -> int:
+    """(token, slot) expert choices of one run that the other did not make,
+    summed over the MoE layers."""
+    n = 0
+    for a, b in zip(routes, plain_routes):
+        ha = torch.nn.functional.one_hot(a, e).sum(1)
+        hb = torch.nn.functional.one_hot(b, e).sum(1)
+        n += int((ha - hb).clamp(min=0).sum())
+    return n
+
+
+def dropped_pairs(routes, e: int, cap: int) -> tuple:
+    """(token, slot) pairs dropped for capacity over the MoE layers, and
+    the first token (flat index, batch-major) that lost a pair."""
+    n, first = 0, None
+    for r in routes:
+        over = (torch.bincount(r.reshape(-1), minlength=e) - cap).clamp(min=0)
+        n += int(over.sum())
+        for ex in torch.nonzero(over).reshape(-1).tolist():
+            tok = int(torch.nonzero(r.reshape(-1) == ex)[cap]) // r.shape[1]
+            first = tok if first is None else min(first, tok)
+    return n, first
+
+
+def describe_lm(cfg, params, t0) -> int:
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} kv) of {cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} of "
+        f"{cfg.expert_ff}, vocab {cfg.vocab}; {n_params} {cfg.param_dtype} parameters drawn "
+        f"on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    return n_params
+
+
+def moe_kernel_vs_plain(params, cfg, tokens) -> tuple:
+    """Logits of every position through K4/K5 and through their plain
+    versions, the expert choices that differ and the dropped pairs."""
+    full, dense, routes, plain_routes = kernel_and_dense_logits(params, cfg, tokens)
+    diff = choice_diff(routes, plain_routes, cfg.n_experts)
+    drops, first = dropped_pairs(routes, cfg.n_experts, moe._capacity(tokens.numel(), cfg))
+    dmax, agree = logit_drift(full, dense, cfg.vocab)
+    log(f"  all-position logits, kernels vs plain versions: max |dlogit| {dmax:.3g}, greedy "
+        f"tokens agree at {agree:.4%} of {LM_BATCH * LM_SEQ} positions; expert choices that "
+        f"differ: {diff} of {len(routes) * tokens.numel() * cfg.top_k}; pairs dropped for "
+        f"capacity {moe._capacity(tokens.numel(), cfg)}: {drops} (first token {first})")
+    return full, dense, {"max_abs": dmax, "greedy_agreement": agree, "choices_differ": diff,
+                         "dropped_pairs": drops, "first_dropped_token": first}
+
+
+def phase_moe_float32(dev) -> dict:
+    cfg = get_config(MOE_ARCH).with_(dtype="float32", n_layers=MOE_F32_LAYERS)
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    describe_lm(cfg, params, t0)
+    tokens = lm_tokens(cfg, dev)
+    launched = prefill_main_path(params, cfg, tokens)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K4 launches "
+        f"{launched['moe_gmm']}, K5 launches {launched['flash_attention']}")
+    full, dense, stats = moe_kernel_vs_plain(params, cfg, tokens)
+    torch.testing.assert_close(full, dense, rtol=LM_TOL, atol=LM_TOL,
+                               msg="float32 logits: kernels against the plain versions")
+    del dense
+    derr, dec_ms = teacher_forced_decode(params, cfg, tokens, full, dev)
+    del full, params
+    torch.cuda.empty_cache()
+    return {"moe_f32_layers": cfg.n_layers, "moe_f32_k4_launches": launched["moe_gmm"],
+            "moe_f32_k5_launches": launched["flash_attention"],
+            **{f"moe_f32_{k}": v for k, v in stats.items()},
+            "moe_f32_decode_vs_prefill_max_abs": derr, "moe_f32_decode_ms_per_step": dec_ms}
+
+
+def phase_moe_bfloat16(dev) -> tuple:
+    cfg = get_config(MOE_ARCH).with_(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = describe_lm(cfg, params, t0)
+    tokens = lm_tokens(cfg, dev)
+    launched = prefill_main_path(params, cfg, tokens)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K4 launches "
+        f"{launched['moe_gmm']}, K5 launches {launched['flash_attention']}")
+    full, dense, stats = moe_kernel_vs_plain(params, cfg, tokens)
+    del full, dense
+    torch.cuda.empty_cache()
+    server = BatchedServer(cfg, batch_slots=4, max_seq=256, device=dev, params=params)
+    rng = np.random.default_rng(SEED)
+    for i in range(8):
+        server.submit(Request(i, rng.integers(0, cfg.vocab, 8).tolist(), 16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run_until_done()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(len(done) == 8 and all(r.done and len(r.out) == 16 for r in done),
+          "BatchedServer did not answer every request in full")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "BatchedServer token ids")
+    st = server.stats
+    log(f"  BatchedServer(batch_slots=4, max_seq=256): {len(done)} requests, {st['tokens']} "
+        f"tokens in {st['steps']} steps, {serve_s:.3f} s: {st['tokens'] / serve_s:.1f} "
+        f"tokens/s, {serve_s / st['steps'] * 1e3:.2f} ms per step")
+    log("  first requests: " + "; ".join(f"{r.rid}: {r.out[:6]}" for r in done[:2]))
+    del server
+    return params, cfg, launched, {
+        "moe_params": n_params, "moe_bf16_k4_launches": launched["moe_gmm"],
+        "moe_bf16_k5_launches": launched["flash_attention"],
+        **{f"moe_bf16_{k}": v for k, v in stats.items()},
+        "moe_serve_s": serve_s, "moe_serve_steps": st["steps"], "moe_serve_tokens": st["tokens"],
+        "moe_serve_tokens_per_s": st["tokens"] / serve_s,
+        "moe_serve_ms_per_step": serve_s / st["steps"] * 1e3,
+    }
+
+
+def phase_moe_timings(params, cfg, dev) -> dict:
+    """qwen3-moe-30b-a3b prefill and decode at batch 4, end to end and
+    under the profiler."""
+    tokens = lm_tokens(cfg, dev)
+    prefill = make_prefill_step(cfg)
+    pre_ms = host_ms(lambda: prefill(params, {"tokens": tokens}), reps=3)
+    step = make_decode_step(cfg)
+    state = {"cache": tr.init_cache(cfg, LM_BATCH, 256, device=dev)}
+
+    def decode_once():
+        _, state["cache"] = step(params, state["cache"], tokens[:, :1])
+
+    dec_ms = host_ms(decode_once, reps=10, warmup=2)
+    prof_prefill = device_busy(lambda: prefill(params, {"tokens": tokens}), reps=1)
+    prof_decode = device_busy(decode_once, reps=5)
+    for what, prof in (("prefill", prof_prefill), ("decode step", prof_decode)):
+        log(f"  qwen3 profiled {what}: wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_ms']:.2f} ms (idle {prof['idle_share']:.1%}); unprofiled wall "
+            f"{prof['unprofiled_wall_ms']:.2f} ms (idle ~{prof['idle_share_unprofiled']:.1%}); "
+            f"{prof['kernels_per_call']:.0f} kernels; top {prof['top_ms']}")
+    out = {"moe_prefill_bf16_ms": pre_ms,
+           "moe_prefill_tokens_per_s": LM_BATCH * LM_SEQ / (pre_ms / 1e3),
+           "moe_decode_bf16_ms_per_step": dec_ms,
+           "moe_decode_tokens_per_s": LM_BATCH / (dec_ms / 1e3),
+           "moe_profile_prefill": prof_prefill, "moe_profile_decode": prof_decode}
+    log(f"  qwen3 prefill bf16 {LM_BATCH} x {LM_SEQ}: {pre_ms:.2f} ms "
+        f"({out['moe_prefill_tokens_per_s']:.0f} tokens/s); decode step bf16 batch "
+        f"{LM_BATCH}: {dec_ms:.2f} ms ({out['moe_decode_tokens_per_s']:.1f} tokens/s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -880,10 +1355,11 @@ def main() -> int:
 
     log("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        lib_paths = list(pool.map(_build.build, ("gustavson_spgemm", "flash_attention")))
-    _build.load_gustavson()
-    _build.load_flash_attention()
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        lib_paths = list(pool.map(_build.build, _build.SOURCES))
+    for load in (_build.load_gustavson, _build.load_flash_attention, _build.load_bsr_spmm,
+                 _build.load_moe_gmm):
+        load()
     log(f"  built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for lib_path in lib_paths:
@@ -914,8 +1390,34 @@ def main() -> int:
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2
-    entries.append(phase_lm_timings(params16, lm, dev, extra))
+    k5_entry = phase_lm_timings(params16, lm, dev, extra)
     del params16
+    torch.cuda.empty_cache()
+
+    log("[10] block-sparse SpMM (K3) vs plain version; granite's SparseLinear at full width")
+    k3_entry, k3_extra = phase_bsr(dev)
+    extra.update(k3_extra)
+
+    log("[11] grouped matmul (K4) vs plain version; qwen3's expert shapes")
+    k4_timing, k4_extra = phase_gmm(dev)
+    extra.update(k4_extra)
+
+    log(f"[12] {MOE_ARCH}, float32, {MOE_F32_LAYERS} layers: prefill, plain path, "
+        "teacher-forced decode")
+    extra.update(phase_moe_float32(dev))
+
+    log(f"[13] {MOE_ARCH}, bfloat16 weights, 48 layers: prefill, plain path, BatchedServer, "
+        "timings")
+    params, cfg, moe_launched, moe_info = phase_moe_bfloat16(dev)
+    extra.update(moe_info)
+    extra.update(phase_moe_timings(params, cfg, dev))
+    del params
+    k4_entry = {
+        "name": "moe_gmm", "route": "cuda", "source": SOURCE_K4,
+        "replaces": "src/repro/kernels/moe_gmm.py:49", "launches": moe_launched["moe_gmm"],
+        **k4_timing,
+    }
+    entries += [k3_entry, k4_entry, k5_entry]
     extra["total_s"] = time.perf_counter() - t_start
     log("timing " + json.dumps(extra))
     print(json.dumps({"kernels": entries}), flush=True)

@@ -2,9 +2,11 @@
 
 Same module layout and public names as ``repro``; every module here
 imports ``torch`` and numpy only. Ported so far: the host sparse layer
-(``sparse``), the symbolic phase and the Gustavson oracle (``core``), the
-block-Gustavson and flash-attention CUDA kernels with their plain PyTorch
-versions (``kernels``), plan/execute SpGEMM (``spgemm``), and LM serving
-for text models of attention + MLP blocks (``configs``, ``models``,
+(``sparse``), the symbolic phase and the Gustavson oracle (``core``), a
+CUDA kernel for each of ``repro``'s Pallas kernels (block-Gustavson
+SpGEMM, block-sparse SpMM, grouped expert matmul, flash attention) with
+their plain PyTorch versions and ``ops`` entry points (``kernels``),
+plan/execute SpGEMM (``spgemm``), and LM serving for text models of
+attention + MLP or MoE blocks (``configs``, ``models``,
 ``runtime.steps``, ``launch.serve``).
 """

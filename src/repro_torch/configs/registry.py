@@ -1,8 +1,11 @@
 """Architecture registry of the port.
 
-It lists only the architectures the port can run: their blocks (attention
-and MLP) are ported. The reference registry (``repro.configs.registry``)
-lists nine more, which wait for the MoE, SSM and vision modules.
+It lists only the architectures the port runs: text models whose blocks
+(attention with an MLP or an MoE) are ported. Of the eight more that the
+reference registry (``repro.configs.registry``) lists, four need only
+their config files (command-r-35b, yi-9b, h2o-danube-3-4b and the MoE
+llama4-scout-17b-a16e) and four wait for the SSM or frontend modules
+(mamba2-130m, jamba-v0.1-52b, hubert-xlarge, paligemma-3b).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ __all__ = ["ARCHS", "get_config", "get_reduced"]
 
 ARCHS: Dict[str, str] = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
 }
 
 

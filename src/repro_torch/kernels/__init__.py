@@ -6,10 +6,14 @@
 * ``flash_attention`` — online-softmax prefill attention with causal,
   window and ``q_offset`` masking, one thread block per (bh, q tile)
   (``csrc/flash_attention.cu``).
+* ``bsr_spmm`` — dense activations times a block-sparse weight, one
+  thread block per (row tile, column panel) (``csrc/bsr_spmm.cu``).
+* ``moe_gmm`` — the grouped expert matmul over expert-sorted row tiles,
+  one thread block per (row tile, column tile) (``csrc/moe_gmm.cu``).
 * ``ref`` — plain PyTorch versions: the CPU path and the kernels'
   tolerance oracle.
-* ``ops`` — the ``spgemm`` shim over the plan/execute API and
-  ``attention``.
+* ``ops`` — the entry points: the ``spgemm`` shim over the plan/execute
+  API, ``sparse_dense_matmul``, ``grouped_matmul`` and ``attention``.
 """
 from repro_torch.kernels import ref
 

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface. It is compiled at first
 use with ``nvcc`` for ``sm_90a`` into a shared library under the
 repository's ``build/kernels/`` and loaded with ``ctypes``. The library's
-file name carries a digest of the source and the flags, so an edited source
-builds anew and an unchanged one is reused. A failed build raises.
+file name carries a digest of the source, the shared headers (``*.cuh``)
+and the flags, so an edited source or header builds anew and an unchanged
+one is reused. A failed build raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "load_flash_attention", "load_gustavson"]
+__all__ = [
+    "BUILD_DIR",
+    "SOURCES",
+    "build",
+    "load_bsr_spmm",
+    "load_flash_attention",
+    "load_gustavson",
+    "load_moe_gmm",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -25,6 +34,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Every kernel source under csrc/.
+SOURCES = ("gustavson_spgemm", "flash_attention", "bsr_spmm", "moe_gmm")
 # One lock per library: two sources build side by side, one source once.
 _LOCKS: dict = {}
 _LOCKS_GUARD = threading.Lock()
@@ -51,9 +62,11 @@ def build(name: str) -> Path:
     shared library's path. The compiler's output, register and shared
     memory use included, is kept beside it as ``<library>.log``."""
     source = _CSRC / f"{name}.cu"
-    digest = hashlib.blake2b(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode(), digest_size=8
-    ).hexdigest()
+    h = hashlib.blake2b(source.read_bytes(), digest_size=8)
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(name, threading.Lock())
@@ -92,5 +105,27 @@ def load_flash_attention() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr]
+    fn.restype = i32
+    return lib
+
+
+@functools.cache
+def load_bsr_spmm() -> ctypes.CDLL:
+    """The block-sparse SpMM kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build("bsr_spmm")))
+    fn = lib.bsr_spmm_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    fn.restype = i32
+    return lib
+
+
+@functools.cache
+def load_moe_gmm() -> ctypes.CDLL:
+    """The grouped-matmul kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build("moe_gmm")))
+    fn = lib.moe_gmm_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     fn.restype = i32
     return lib

@@ -1,22 +1,33 @@
-"""Public entry points over the kernels.
+"""Public entry points over the kernels, the port of ``repro.kernels.ops``.
 
-Ported: the sparse x sparse shim (``spgemm``) and prefill ``attention``
-(the flash kernel). The dense-activation and grouped-matmul entry points
-wait for their kernels.
+* ``spgemm``: sparse x sparse, a shim over the plan/execute API (K1);
+* ``sparse_dense_matmul``: dense activations x a block-sparse weight
+  (K3, the SparseLinear forward);
+* ``grouped_matmul``: the MoE expert compute over expert-sorted tokens
+  (K4);
+* ``attention``: prefill attention (the flash kernel, K5).
+
+Each takes ``backend`` as :func:`repro_torch.kernels.backend.resolve_backend`
+checks it and runs where its tensors lie: the kernel for CUDA tensors, its
+plain version for CPU tensors (``spgemm`` takes ``device``, since its
+inputs are host arrays).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.schedule import SpGEMMSchedule
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.bsr_spmm import bsr_spmm, plan_bsr
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.sparse.formats import BCSR, BCSV, CSR
 from repro_torch.spgemm.plan import SpGEMMPlan, spgemm_plan
 
-__all__ = ["attention", "spgemm"]
+__all__ = ["attention", "grouped_matmul", "sparse_dense_matmul", "spgemm"]
 
 
 def spgemm(
@@ -45,6 +56,76 @@ def spgemm(
     else:
         plan = spgemm_plan(a, b, backend=backend, device=device)
     return plan.execute()
+
+
+def _bsr_operands(w: BCSV) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """W's blocks in the SpMM kernel's order, with every column panel
+    covered: (blocks, brow, bcol, flags), host arrays.
+
+    W is stored row-group-major (BCSV over K); the kernel wants
+    column-panel-major (:func:`plan_bsr`), and a zero block at block-row 0
+    for every column panel that has none, re-sorted into place, since the
+    reference's kernel never writes a panel it does not visit.
+    """
+    bk, bn = w.block_shape
+    n = w.shape[1]
+    order, brow, bcol, flags = plan_bsr(w.brow, w.bcol)
+    blocks = w.blocks[order]
+    present = np.zeros(n // bn, bool)
+    present[bcol] = True
+    missing = np.nonzero(~present)[0].astype(np.int32)
+    if missing.size:
+        blocks = np.concatenate(
+            [blocks, np.zeros((missing.size, bk, bn), blocks.dtype)]
+        )
+        brow = np.concatenate([brow, np.zeros(missing.size, np.int32)])
+        bcol = np.concatenate([bcol, missing])
+        flags = np.concatenate([flags, np.full(missing.size, 3, np.int32)])
+        order2 = np.lexsort((brow, bcol))
+        blocks, brow, bcol, flags = (
+            blocks[order2], brow[order2], bcol[order2], flags[order2]
+        )
+    return blocks, brow, bcol, flags
+
+
+def sparse_dense_matmul(
+    x: torch.Tensor,  # [M, K]
+    w: BCSV,  # [K, N] block-sparse weight
+    *,
+    backend: str = "auto",
+    tm: int = 128,
+) -> torch.Tensor:
+    """y = x @ W with W block-sparse (zero column panels handled); returns
+    [M, N] float32.
+
+    W's blocks (host numpy) go to x's device in x's dtype; M is padded to
+    a multiple of ``tm`` for the kernel and the padding sliced off.
+    """
+    resolve_backend(backend, x.device)
+    k, n = w.shape
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
+    blocks, brow, bcol, flags = _bsr_operands(w)
+    m = int(x.shape[0])
+    pad_m = (-m) % tm
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad_m)) if pad_m else x
+    y = bsr_spmm(xp.contiguous(), torch.from_numpy(blocks).to(x.device, x.dtype),
+                 brow, bcol, flags, n=n, tm=tm)
+    return y[:m] if pad_m else y
+
+
+def grouped_matmul(
+    x: torch.Tensor,  # [T, D] tokens sorted by expert (padded per expert)
+    w: torch.Tensor,  # [E, D, F]
+    tile_expert,  # [T // tm]
+    *,
+    tm: int = 128,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """out[tile i] = x[tile i] @ w[tile_expert[i]] over ``tm``-row tiles;
+    returns [T, F] float32 (:func:`moe_gmm`)."""
+    resolve_backend(backend, x.device)
+    return moe_gmm(x, w, tile_expert, tm=tm)
 
 
 def attention(

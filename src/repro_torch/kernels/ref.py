@@ -14,10 +14,17 @@ from typing import Optional
 import torch
 
 __all__ = [
+    "bsr_spmm_ref",
     "flash_attention_ref",
+    "moe_gmm_ref",
     "spgemm_scheduled_batch_ref",
     "spgemm_scheduled_ref",
 ]
+
+# Tiles of W that moe_gmm_ref gathers at once: it holds at most this many
+# float32 weights beside its inputs (256 MB), where gathering one [D, F]
+# weight per tile at once would take 4 GB at the MoE prefill's shape.
+_GMM_GATHER_FLOATS = 1 << 26
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -87,6 +94,46 @@ def spgemm_scheduled_batch_ref(
         bsz * n_panels, group,
     )
     return panels.reshape((bsz, n_panels) + tuple(panels.shape[1:]))
+
+
+def bsr_spmm_ref(
+    x: torch.Tensor,  # [M, K] dense activations
+    w_blocks: torch.Tensor,  # [nnzb, bk, bn]
+    w_brow,  # [nnzb] K-block index (numpy array or tensor)
+    w_bcol,  # [nnzb] N-block index
+    n: int,
+) -> torch.Tensor:
+    """y = x @ W with W block-sparse: densify W, then one float32 matmul.
+    Returns [M, n] float32."""
+    dev = x.device
+    bk, bn = int(w_blocks.shape[1]), int(w_blocks.shape[2])
+    k = int(x.shape[1])
+    w = torch.zeros((k // bk, n // bn, bk, bn), dtype=torch.float32, device=dev)
+    w[_as_index(w_brow, dev), _as_index(w_bcol, dev)] = w_blocks.float()
+    w = w.permute(0, 2, 1, 3).reshape(k, n)
+    return x.float() @ w
+
+
+def moe_gmm_ref(
+    x: torch.Tensor,  # [T, D] tokens sorted (grouped) by expert
+    w: torch.Tensor,  # [E, D, F]
+    tile_expert,  # [T // tm] expert of each token tile (numpy array or tensor)
+    tm: int,
+) -> torch.Tensor:
+    """Grouped matmul: each ``tm``-row tile of x times its expert's W, in
+    float32. Tiles are multiplied a chunk at a time (one batched product
+    per chunk of tiles, their weights gathered), so that the gathered
+    weights stay under ``_GMM_GATHER_FLOATS``. Returns [T, F] float32."""
+    t, d = int(x.shape[0]), int(x.shape[1])
+    f = int(w.shape[2])
+    nt = t // tm
+    te = _as_index(tile_expert, x.device)
+    xt = x.reshape(nt, tm, d).float()
+    out = torch.empty((nt, tm, f), dtype=torch.float32, device=x.device)
+    step = max(1, _GMM_GATHER_FLOATS // max(1, d * f))
+    for i in range(0, nt, step):
+        out[i:i + step] = torch.bmm(xt[i:i + step], w[te[i:i + step]].float())
+    return out.reshape(t, f)
 
 
 def flash_attention_ref(

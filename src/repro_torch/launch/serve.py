@@ -13,6 +13,7 @@ once at start-up, where the reference's ``dense`` casts them on every
 call: the values are the same.
 
     python -m repro_torch.launch.serve --arch granite-3-2b
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""Decoder blocks: pre-norm attention + MLP, composed per the config's
-``block_pattern``.
+"""Decoder blocks: pre-norm attention + MLP or MoE, composed per the
+config's ``block_pattern``.
 
-The port of ``repro.models.blocks`` for ``attn`` mixers and ``mlp`` (or
-``none``) feed-forwards. SSM mixers and MoE feed-forwards wait for their
-modules and raise.
+The port of ``repro.models.blocks`` for ``attn`` mixers and ``mlp``,
+``moe`` (or ``none``) feed-forwards. SSM mixers wait for their module and
+raise.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from repro_torch.models.attention import attn_decode, attn_forward, attn_t
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.mlp import mlp_forward, mlp_t
+from repro_torch.models.moe import moe_forward, moe_t
 from repro_torch.models.nn import rmsnorm, rmsnorm_t
 
 __all__ = ["block_t", "block_forward", "block_decode"]
@@ -24,11 +25,7 @@ def _check_spec(spec: BlockSpec) -> None:
         raise NotImplementedError(
             "SSM (Mamba2/SSD) mixers are not ported yet (ROADMAP queue 1, item 16)"
         )
-    if spec.ff == "moe":
-        raise NotImplementedError(
-            "MoE feed-forwards are not ported yet (ROADMAP queue 1, item 16)"
-        )
-    if spec.mixer != "attn" or spec.ff not in ("mlp", "none"):
+    if spec.mixer != "attn" or spec.ff not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown block spec {spec}")
 
 
@@ -37,7 +34,7 @@ def block_t(cfg: ModelConfig, spec: BlockSpec) -> Dict:
     t = {"ln1": rmsnorm_t(cfg.d_model), "mixer": attn_t(cfg)}
     if spec.ff != "none":
         t["ln2"] = rmsnorm_t(cfg.d_model)
-        t["ff"] = mlp_t(cfg)
+        t["ff"] = mlp_t(cfg) if spec.ff == "mlp" else moe_t(cfg)
     return t
 
 
@@ -56,7 +53,10 @@ def block_forward(
     if spec.ff == "none":
         return x, aux
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_forward(p["ff"], h, cfg), aux
+    if spec.ff == "mlp":
+        return x + mlp_forward(p["ff"], h, cfg), aux
+    h, aux = moe_forward(p["ff"], h, cfg)
+    return x + h, aux
 
 
 def block_decode(
@@ -76,4 +76,7 @@ def block_decode(
     if spec.ff == "none":
         return x, (ck, cv)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_forward(p["ff"], h, cfg), (ck, cv)
+    if spec.ff == "mlp":
+        return x + mlp_forward(p["ff"], h, cfg), (ck, cv)
+    h, _ = moe_forward(p["ff"], h, cfg)
+    return x + h, (ck, cv)

@@ -1,0 +1,127 @@
+"""Mixture-of-Experts with sort-based capacity dispatch.
+
+The port of ``repro.models.moe`` on one device. Tokens are routed top-k in
+float32, the (token, slot) pairs stably sorted by expert (the paper's CSV
+vector-major order at expert granularity), each expert keeps its first
+``capacity`` pairs, and the kept tokens are scattered into a capacity-
+slotted dispatch tensor [E, C, D]. Capacity-dropped pairs contribute
+nothing (standard Switch behaviour).
+
+The expert compute goes through :func:`repro_torch.kernels.ops.grouped_matmul`
+(K4) on the dispatch tensor flattened to [E*C, D], whose tiles of ``tm``
+rows each belong to one expert (``tile_expert = arange(E).repeat_interleave(C
+// tm)``). That is exactly the reference's batched einsum over [E, C, D],
+whose docstring has the TPU dispatch to the same kernel. K4's float32
+result is cast to the compute dtype, where the reference's einsum returns
+it. On CPU tensors the same routing runs with K4's plain version.
+
+Expert parallelism (the reference's ``shard_map`` over the ``expert`` mesh
+axis) is not ported: one card holds every expert.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mlp import _act
+from repro_torch.models.nn import Param
+
+__all__ = ["moe_t", "moe_forward", "route"]
+
+# Row tiles the grouped matmul may take, largest first; C is a multiple of 8.
+_TILE_ROWS = (128, 64, 32, 16, 8)
+
+
+def moe_t(cfg: ModelConfig) -> Dict:
+    """Router and expert weights. The expert leaves [E, D, F] and [E, F, D]
+    are drawn with std 1/sqrt(fan-in) of their own contraction axis
+    (D, resp. F): the port's default takes shape[0] as the fan-in, which
+    for them is the expert count."""
+    d, f, e = cfg.d_model, cfg.expert_ff, cfg.n_experts
+    up = f"normal:{d ** -0.5}"
+    t: Dict = {
+        "router": {"w": Param((d, e), "normal:0.02")},
+        "wd": {"w": Param((e, f, d), f"normal:{f ** -0.5}")},
+    }
+    if cfg.mlp_gated:
+        t["wg"] = {"w": Param((e, d, f), up)}
+    t["wu"] = {"w": Param((e, d, f), up)}
+    return t
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)  # multiple of 8, ≥ 8
+
+
+def _tile_rows(cap: int) -> int:
+    return next(tm for tm in _TILE_ROWS if cap % tm == 0)
+
+
+def route(p, xf: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing of tokens xf [T, D] in float32. Returns (gates [T, k]
+    softmaxed over the chosen experts, experts [T, k] int64, the
+    Switch/GShard load-balance loss)."""
+    e = cfg.n_experts
+    logits = xf.float() @ p["router"]["w"].float()
+    gates, experts = torch.topk(logits, cfg.top_k, dim=-1)
+    gates = torch.softmax(gates, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(experts[:, 0], e).float().mean(dim=0)
+    return gates, experts, e * torch.sum(me * ce)
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor, te: torch.Tensor, tm: int,
+             cfg: ModelConfig) -> torch.Tensor:
+    """One expert matmul through K4, cast back to x's dtype."""
+    return kops.grouped_matmul(x, w.to(x.dtype), te, tm=tm,
+                               backend=cfg.kernel_backend).to(x.dtype)
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (y, aux_loss)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    dev, dt = x.device, x.dtype
+    xf = x.reshape(t, d)
+    gates, experts, aux = route(p, xf, cfg)
+
+    # CSV order: stable-sort the pairs by expert; position within the group.
+    e_flat = experts.reshape(-1)
+    g_flat = gates.reshape(-1)
+    tok_flat = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(e_flat, stable=True)
+    e_sort, g_sort, tok_sort = e_flat[order], g_flat[order], tok_flat[order]
+    group_start = torch.searchsorted(e_sort, torch.arange(e, device=dev), right=False)
+    pos = torch.arange(t * k, device=dev) - group_start[e_sort]
+    cap = _capacity(t, cfg)
+    keep = pos < cap
+
+    slot_e = torch.where(keep, e_sort, e - 1)
+    slot_c = torch.where(keep, pos, cap - 1)
+    dispatch = torch.zeros((e, cap, d), dtype=dt, device=dev)
+    dispatch.index_put_((slot_e, slot_c),
+                        torch.where(keep[:, None], xf[tok_sort], 0).to(dt), accumulate=True)
+
+    # Expert compute: the grouped matmul over [E*C, D], one expert per tile.
+    tm = _tile_rows(cap)
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(cap // tm)
+    xd = dispatch.reshape(e * cap, d)
+    act = _act(cfg.act)
+    if cfg.mlp_gated:
+        h = act(_grouped(xd, p["wg"]["w"], te, tm, cfg)) * _grouped(xd, p["wu"]["w"], te, tm, cfg)
+    else:
+        h = act(_grouped(xd, p["wu"]["w"], te, tm, cfg))
+    y_exp = _grouped(h, p["wd"]["w"], te, tm, cfg).reshape(e, cap, d)
+
+    # Combine: gather each kept pair's expert output, weight it by its gate.
+    gathered = y_exp[torch.where(keep, e_sort, 0), torch.where(keep, pos, 0)]  # [T*k, D]
+    contrib = torch.where(keep[:, None], gathered * g_sort[:, None].to(dt), 0)
+    y = torch.zeros((t, d), dtype=dt, device=dev).index_add_(0, tok_sort, contrib)
+    return y.reshape(b, s, d), aux.float()

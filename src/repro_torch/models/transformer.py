@@ -1,8 +1,9 @@
 """The LM assembly: embedding -> layers -> norm -> tied head.
 
 The port of ``repro.models.transformer`` for text-only models whose blocks
-are attention + MLP. The reference scans over layer periods with stacked
-parameters; the port keeps one parameter tree per layer
+are attention + MLP or attention + MoE; ``forward`` sums the MoE layers'
+load-balance losses into its aux output, as the reference does. The
+reference scans over layer periods with stacked parameters; the port keeps one parameter tree per layer
 (``params["layers"]``, an ``nn.ModuleList`` of ``n_layers`` trees, layer
 ``i`` of pattern position ``i % period``) and loops over them in Python.
 The reference's remat policy (``cfg.remat``) trades memory for recompute

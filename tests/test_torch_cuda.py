@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
-block-Gustavson SpGEMM (K1, K2) and flash attention (K5), and the LM
-forward through K5. Needs no JAX, so it runs on a machine with the card:
+block-Gustavson SpGEMM (K1, K2), flash attention (K5), the block-sparse
+SpMM (K3) and the grouped expert matmul (K4), and the LM forwards through
+K5 and K4. Needs no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,8 +13,12 @@ float32 attention. Bfloat16 attention is held at rtol 1e-2, atol 1e-3:
 the kernel and its plain version both compute in float32 and differ only
 by the kernel's rounding of its output to bfloat16 (at most 2**-8 of it),
 while the JAX package's 5e-2 is as large as a typical |output| at these
-shapes and could not fail a wrong kernel. The plain versions run on the
-card with TF32 off, so their float32 products are full float32.
+shapes and could not fail a wrong kernel. K3 and K4 write float32 sums of
+float32 products of the same inputs as their plain versions, in float32
+and in bfloat16 alike, so both are held at the JAX package's float32
+tolerances (1e-3 for K3, 1e-4 for K4; inputs scaled so outputs are of
+order 1 to 10). The plain versions run on the card with TF32 off, so
+their float32 products are full float32.
 """
 import numpy as np
 import pytest
@@ -25,7 +30,9 @@ from repro_torch.configs.registry import get_reduced
 from repro_torch.core.gustavson import spgemm_gustavson
 from repro_torch.core.schedule import build_spgemm_schedule
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bsr_spmm import bsr_spmm
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.gustavson_spgemm import (
     spgemm_scheduled,
     spgemm_scheduled_batch,
@@ -240,3 +247,133 @@ def test_lm_forward_on_card_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- block-sparse SpMM (K3) -----------------------------------------------------
+
+BSR_SHAPES = [(64, 256, 256, 128, 128), (200, 384, 512, 128, 128), (128, 256, 384, 128, 128),
+              (100, 96, 192, 32, 64), (256, 512, 384, 64, 192)]
+
+
+def _bsr_case(m, k, n, bk, bn, seed, integer=False, kill_panel=None):
+    rng = np.random.default_rng(seed)
+    wd = random_block_sparse(k, n, (bk, bn), 0.5, seed=seed)
+    if kill_panel is not None:
+        wd[:, kill_panel * bn:(kill_panel + 1) * bn] = 0.0
+    if integer:
+        wd = np.where(wd != 0, rng.integers(-3, 4, wd.shape), 0).astype(np.float32)
+        x = rng.integers(-3, 4, (m, k)).astype(np.float32)
+    else:
+        x = rng.standard_normal((m, k)).astype(np.float32)
+    return x, wd, to_bcsv(wd, (bk, bn), group=1)
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", BSR_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_vs_plain(cuda, m, k, n, bk, bn, dtype):
+    x, _, w = _bsr_case(m, k, n, bk, bn, seed=7)
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    before = bsr_spmm.launches
+    got = ops.sparse_dense_matmul(xt, w, tm=32)
+    assert bsr_spmm.launches == before + 1
+    want = ops.sparse_dense_matmul(xt.cpu(), w, tm=32)  # the plain version
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", BSR_SHAPES)
+def test_bsr_kernel_small_integers_bitwise(cuda, m, k, n, bk, bn):
+    x, wd, w = _bsr_case(m, k, n, bk, bn, seed=3, integer=True)
+    got = ops.sparse_dense_matmul(torch.from_numpy(x).to(cuda), w, tm=32)
+    assert torch.equal(got.cpu(), torch.from_numpy(x @ wd))
+
+
+def test_bsr_kernel_empty_column_panel(cuda):
+    x, wd, w = _bsr_case(64, 256, 512, 128, 128, seed=8, kill_panel=1)
+    got = ops.sparse_dense_matmul(torch.from_numpy(x).to(cuda), w).cpu()
+    assert torch.all(got[:, 128:256] == 0)
+    torch.testing.assert_close(got, torch.from_numpy(x @ wd), rtol=1e-3, atol=1e-3)
+
+
+def test_bsr_kernel_refusals(cuda):
+    x, _, w = _bsr_case(64, 96, 128, 24, 32, seed=1)
+    blocks = torch.from_numpy(w.blocks).to(cuda)
+    order = np.lexsort((w.brow, w.bcol))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bsr_spmm(torch.from_numpy(x).to(cuda), blocks[order], w.brow[order], w.bcol[order],
+                 np.zeros(w.nnzb, np.int32), n=128, tm=64)
+
+
+# -- grouped matmul (K4) ---------------------------------------------------------
+
+GMM_SHAPES = [(256, 128, 256, 2, 128), (512, 256, 128, 4, 128), (1024, 128, 384, 8, 128),
+              (96, 48, 200, 5, 8), (192, 64, 132, 3, 16), (320, 32, 64, 4, 32),
+              (384, 96, 260, 3, 64)]
+
+
+def _gmm_case(t, d, f, e, tm, seed, dtype, device, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:
+        x = rng.integers(-3, 4, (t, d)).astype(np.float32)
+        w = rng.integers(-3, 4, (e, d, f)).astype(np.float32)
+    else:
+        x = rng.standard_normal((t, d)).astype(np.float32)
+        w = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    te = rng.integers(0, e, t // tm).astype(np.int32)
+    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(w).to(device, dtype),
+            torch.from_numpy(te).to(device))
+
+
+@pytest.mark.parametrize("t,d,f,e,tm", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_vs_plain(cuda, t, d, f, e, tm, dtype):
+    x, w, te = _gmm_case(t, d, f, e, tm, 2, dtype, cuda)
+    before = moe_gmm.launches
+    got = ops.grouped_matmul(x, w, te, tm=tm)
+    assert moe_gmm.launches == before + 1
+    want = ref.moe_gmm_ref(x, w, te, tm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (t, f)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,d,f,e,tm", GMM_SHAPES)
+def test_gmm_kernel_small_integers_bitwise(cuda, t, d, f, e, tm):
+    x, w, te = _gmm_case(t, d, f, e, tm, 4, torch.float32, cuda, integer=True)
+    got = moe_gmm(x, w, te.cpu().numpy(), tm=tm)
+    assert torch.equal(got, ref.moe_gmm_ref(x, w, te, tm))
+
+
+def test_gmm_kernel_refusals_and_bad_experts(cuda):
+    x, w, te = _gmm_case(64, 32, 16, 3, 8, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="tm a multiple of 8"):
+        moe_gmm(x, w, torch.zeros(16, dtype=torch.int32, device=cuda), tm=4)
+    with pytest.raises(ValueError, match="D a multiple of 16"):
+        moe_gmm(x[:, :24].contiguous(), w[:, :24].contiguous(), te, tm=8)
+    with pytest.raises(ValueError, match=r"outside \[0, 3\)"):
+        moe_gmm(x, w, np.full(8, 3, np.int32), tm=8)
+    bad = te.clone()
+    bad[2] = 7  # built on the card: not checked on the host; NaN rows, no stray reads
+    got = moe_gmm(x, w, bad, tm=8).cpu()
+    assert torch.isnan(got[16:24]).all() and torch.isfinite(got[:16]).all()
+    assert torch.isfinite(got[24:]).all()
+
+
+def test_moe_forward_on_card_through_the_kernel(cuda):
+    """The reduced qwen3-moe-30b-a3b at S = 512 on the card: every MoE
+    layer launches K4 three times, every attention layer K5 once, and the
+    logits equal the port's CPU forward (the plain versions) on the same
+    weights."""
+    cfg = get_reduced("qwen3-moe-30b-a3b").with_(dtype="float32")
+    params = tr.init_lm(0, cfg, device="cpu")
+    on_card = copy.deepcopy(params).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 512)))
+    want, want_aux = tr.forward(params, cfg, tokens=toks)
+    before_k4, before_k5 = moe_gmm.launches, flash_attention.launches
+    got, aux = tr.forward(on_card, cfg, tokens=toks.to(cuda))
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before_k4 + 3 * cfg.n_layers
+    assert flash_attention.launches == before_k5 + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)

@@ -24,7 +24,7 @@ def test_port_and_chip_smoke_import_no_jax():
         import chip_smoke  # its imports only: main() runs under __main__
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
-        print(len(names), bad)
+        print(len(names), bad, " ".join(names))
         sys.exit(1 if bad else 0)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -33,3 +33,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr[-4000:]
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 25, out.stdout
+    # Every kernel wrapper and the MoE layer are among the modules imported.
+    for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
+                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
+                 "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b"):
+        assert name in out.stdout.split(), name

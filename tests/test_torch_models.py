@@ -1,8 +1,9 @@
 """Port parity of the LM stack: every module on the serving path of the
 port (``repro_torch.models``, ``runtime.steps``) against the JAX package's
-function, on the reduced granite-3-2b in float32, with the same weights
-carried across by ``params_from_jax`` and inputs made with numpy from a
-seed.
+function, on the reduced granite-3-2b in float32, and the whole model on
+the reduced qwen3-moe-30b-a3b (MoE layers; the layer itself is held in
+tests/test_torch_moe.py), with the same weights carried across by
+``params_from_jax`` and inputs made with numpy from a seed.
 
 The JAX side runs with ``kernel_backend="jnp"`` (its dense and blocked
 attention) and with ``"pallas_interpret"`` (its flash kernel K5 in
@@ -47,6 +48,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step  # noqa: E402
 
 ARCH = "granite-3-2b"
+MOE_ARCH = "qwen3-moe-30b-a3b"
 TOL = 1e-4
 # (JAX kernel_backend, port kernel_backend) pairs that take the same branch.
 BACKENDS = [("jnp", "auto"), ("pallas_interpret", "cuda")]
@@ -247,7 +249,7 @@ def test_block_forward(model, r_backend, p_backend):
     assert float(aux) == float(r_aux) == 0.0
 
 
-@pytest.mark.parametrize("spec", [BlockSpec("ssm", "mlp"), BlockSpec("attn", "moe")])
+@pytest.mark.parametrize("spec", [BlockSpec("ssm", "mlp")])
 def test_unported_blocks_raise(spec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         blocks.block_t(get_reduced(ARCH), spec)
@@ -363,3 +365,119 @@ def test_cast_params_leaves_input_alone(model):
     assert ported["embed"]["table"].dtype == torch.float32
     same = nn.cast_params(ported, torch.float32)["embed"]["table"]
     assert same.data_ptr() == ported["embed"]["table"].data_ptr()
+
+
+# -- the MoE model (qwen3-moe-30b-a3b, reduced) --------------------------------
+
+@pytest.fixture(scope="module")
+def moe_model():
+    r_cfg = r_get_reduced(MOE_ARCH).with_(dtype="float32")
+    params = r_tr.init_lm(jax.random.PRNGKey(0), r_cfg)
+    p_cfg = get_reduced(MOE_ARCH).with_(dtype="float32")
+    ported = params_from_jax(jax.tree.map(np.asarray, params), p_cfg, device="cpu")
+    return r_cfg, params, p_cfg, ported
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_moe_config_matches_reference(reduced):
+    r_cfg = r_get_reduced(MOE_ARCH) if reduced else r_get_config(MOE_ARCH)
+    p_cfg = get_reduced(MOE_ARCH) if reduced else get_config(MOE_ARCH)
+    r_fields, p_fields = dataclasses.asdict(r_cfg), dataclasses.asdict(p_cfg)
+    assert set(r_fields) == set(p_fields)
+    for name in r_fields:
+        if name != "kernel_backend":
+            assert p_fields[name] == r_fields[name], name
+    assert p_cfg.param_counts() == r_cfg.param_counts()
+    if not reduced:
+        assert p_cfg.param_counts()["total"] == 30_079_125_504
+
+
+def test_moe_template_matches_reference_at_full_width():
+    cfg = get_config(MOE_ARCH)
+    shapes = jax.eval_shape(lambda: r_tr.init_lm(jax.random.PRNGKey(0), r_get_config(MOE_ARCH)))
+    r_total = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+
+    def sizes(t):
+        if isinstance(t, nn.Param):
+            yield int(np.prod(t.shape))
+        else:
+            for v in (t.values() if isinstance(t, dict) else t):
+                yield from sizes(v)
+
+    assert sum(sizes(tr.lm_template(cfg))) == r_total
+
+
+def test_moe_params_from_jax_carries_expert_leaves(moe_model):
+    _, params, _, ported = moe_model
+    for i in range(2):
+        for leaf in ("router", "wg", "wu", "wd"):
+            want = np.asarray(params["layers"][0]["ff"][leaf]["w"][i])
+            assert np.array_equal(ported["layers"][i]["ff"][leaf]["w"].numpy(), want), leaf
+
+
+@pytest.mark.parametrize("s", [8, 512])
+@pytest.mark.parametrize("r_backend,p_backend", BACKENDS)
+def test_moe_forward(moe_model, s, r_backend, p_backend):
+    r_cfg, params, p_cfg, ported = moe_model
+    toks = _tokens(r_cfg, 2, s, seed=15)
+    want, r_aux = r_tr.forward(params, r_cfg.with_(kernel_backend=r_backend),
+                               tokens=jnp.asarray(toks))
+    got, aux = tr.forward(ported, p_cfg.with_(kernel_backend=p_backend),
+                          tokens=torch.from_numpy(toks).long())
+    assert tuple(got.shape) == (2, s, r_cfg.vocab_padded)
+    _close(got, want)
+    assert abs(float(aux) - float(r_aux)) <= 1e-5 * max(1.0, abs(float(r_aux)))
+    assert float(aux) > 0.0
+
+
+def test_moe_prefill_step(moe_model):
+    r_cfg, params, p_cfg, ported = moe_model
+    toks = _tokens(r_cfg, 2, 512, seed=16)
+    want = r_make_prefill_step(r_cfg.with_(kernel_backend="pallas_interpret"))(
+        params, {"tokens": jnp.asarray(toks)})
+    got = make_prefill_step(p_cfg.with_(kernel_backend="cuda"))(
+        ported, {"tokens": torch.from_numpy(toks).long()})
+    _close(got, want)
+
+
+def test_moe_decode_step(moe_model):
+    r_cfg, params, p_cfg, ported = moe_model
+    s = 6
+    toks = _tokens(r_cfg, 2, s, seed=17)
+    r_cache = r_tr.init_cache(r_cfg, 2, max_seq=8)
+    cache = tr.init_cache(p_cfg, 2, max_seq=8, device="cpu")
+    step = make_decode_step(p_cfg)
+    for t in range(s):
+        want, r_cache = r_tr.decode_step(params, r_cache, r_cfg, jnp.asarray(toks[:, t:t + 1]))
+        got, cache = step(ported, cache, torch.from_numpy(toks[:, t:t + 1]).long())
+        _close(got, want)
+    _close(cache["kv"]["k"], r_cache["kv"]["k"].reshape(cache["kv"]["k"].shape))
+
+
+def test_moe_decode_matches_forward(moe_model):
+    """Teacher-forced decode reproduces the forward inside the port, with
+    the capacity raised so that token dropping (which legitimately differs
+    between a 16-token forward and a 2-token step) cannot enter, as in the
+    JAX package's own check (tests/test_models.py), at its 2e-2."""
+    _, _, p_cfg, ported = moe_model
+    cfg = p_cfg.with_(capacity_factor=64.0)
+    s = 8
+    toks = torch.from_numpy(_tokens(cfg, 2, s, seed=18)).long()
+    full, _ = tr.forward(ported, cfg, tokens=toks)
+    cache = tr.init_cache(cfg, 2, max_seq=16, device="cpu")
+    steps = []
+    for t in range(s):
+        lg, cache = tr.decode_step(ported, cache, cfg, toks[:, t:t + 1])
+        steps.append(lg[:, 0])
+    np.testing.assert_allclose(_np(torch.stack(steps, dim=1)), _np(full), rtol=2e-2, atol=2e-2)
+
+
+def test_moe_init_lm():
+    cfg = get_reduced(MOE_ARCH).with_(d_model=256, d_ff_expert=128, n_experts=4,
+                                      param_dtype="bfloat16")
+    p = tr.init_lm(0, cfg, device="cpu")
+    wg = p["layers"][0]["ff"]["wg"]["w"]
+    assert tuple(wg.shape) == (4, 256, 128) and wg.dtype == torch.bfloat16
+    assert abs(float(wg.float().std()) - 256 ** -0.5) < 0.1 * 256 ** -0.5
+    wd = p["layers"][1]["ff"]["wd"]["w"]
+    assert abs(float(wd.float().std()) - 128 ** -0.5) < 0.1 * 128 ** -0.5

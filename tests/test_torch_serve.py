@@ -1,6 +1,7 @@
 """Port parity of the batched server: the port's ``BatchedServer`` against
-the JAX package's on the reduced granite-3-2b in float32, serving the JAX
-server's own weights (carried across by ``params_from_jax``).
+the JAX package's on the reduced granite-3-2b and the reduced
+qwen3-moe-30b-a3b (MoE layers) in float32, serving the JAX server's own
+weights (carried across by ``params_from_jax``).
 
 Five requests of different prompt lengths over two slots, so that requests
 queue and slots are reused at a shared decode position. Greedy decoding
@@ -21,6 +22,7 @@ from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 ARCH = "granite-3-2b"
+MOE_ARCH = "qwen3-moe-30b-a3b"
 PROMPT_LENS = [3, 7, 1, 5, 4]
 MAX_NEW = [4, 2, 6, 3, 5]
 
@@ -38,16 +40,25 @@ def _serve(server, requests):
     return {r.rid: (r.out, r.done) for r in done}
 
 
-@pytest.fixture(scope="module")
-def served():
-    r_cfg = r_get_reduced(ARCH).with_(dtype="float32")
+def _serve_both(arch):
+    r_cfg = r_get_reduced(arch).with_(dtype="float32")
     ref = RServer(r_cfg, batch_slots=2, max_seq=64, seed=0)
     want = _serve(ref, _requests(RRequest, r_cfg.vocab))
-    cfg = get_reduced(ARCH).with_(dtype="float32")
+    cfg = get_reduced(arch).with_(dtype="float32")
     params = params_from_jax(jax.tree.map(np.asarray, ref.params), cfg, device="cpu")
     port = BatchedServer(cfg, batch_slots=2, max_seq=64, device="cpu", params=params)
     got = _serve(port, _requests(Request, cfg.vocab))
     return ref, want, port, got
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _serve_both(ARCH)
+
+
+@pytest.fixture(scope="module")
+def moe_served():
+    return _serve_both(MOE_ARCH)
 
 
 def test_outputs_identical(served):
@@ -74,3 +85,10 @@ def test_server_holds_weights_in_compute_dtype():
     server.submit(Request(0, [1, 2, 3], 2))
     (req,) = server.run_until_done()
     assert len(req.out) == 2 and all(0 <= t < cfg.vocab for t in req.out)
+
+
+def test_moe_outputs_and_stats_identical(moe_served):
+    ref, want, port, got = moe_served
+    assert got == want
+    assert all(len(got[i][0]) == m and got[i][1] for i, m in enumerate(MAX_NEW))
+    assert port.stats == ref.stats

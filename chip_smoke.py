@@ -12,9 +12,12 @@ Phases, in order; any failure (build error, launch error, mismatch) ends
 the run with a nonzero exit code and no result line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the four CUDA kernels from source (one nvcc each, side by side,
-   sm_90a): block-Gustavson SpGEMM (K1, K2), flash attention (K5),
-   block-sparse SpMM (K3) and grouped matmul (K4);
+2. build the four CUDA sources (one nvcc each, side by side, sm_90a):
+   block-Gustavson SpGEMM (K1, K2), flash attention (K5: float32 FMA and
+   bfloat16 mma.sync kernels), block-sparse SpMM (K3) and grouped matmul
+   (K4: float32 FMA and bfloat16 wgmma/TMA kernels); print every kernel's
+   registers and spills (ptxas) and the tensor-core kernels' dynamic
+   shared memory;
 3. hold the SpGEMM kernel (K1 single, K2 batched) against its plain
    PyTorch version at the JAX package's kernel-test shapes: float32 within
    1e-5, bfloat16 within 2e-2, small integers bitwise, K2 against a loop
@@ -28,13 +31,15 @@ the run with a nonzero exit code and no result line:
    way;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
-   rows, bfloat16, and D = 64 at S = 2048: float32 within 2e-4 (the JAX
-   package's own), bfloat16 within rtol 1e-2, atol 1e-3 (one rounding of
-   the output; see ``ATTN_TOL``);
+   rows and ragged lengths and head widths, in float32 and bfloat16, and
+   D = 64 at S = 2048: float32 within 2e-4 (the JAX
+   package's own), bfloat16 within rtol 1e-2, atol 1e-3 (see
+   ``ATTN_TOL``);
 7. granite-3-2b at its published widths, float32, weights drawn on the
    card from seed 0: ``make_prefill_step`` on 4 x 2048 tokens from a numpy
-   seed launches K5 once per layer (40); the logits of every position
-   equal those of the same forward with the plain version in place of the
+   seed launches K5 once per layer (40; the bfloat16 prefill of phase 8
+   launches the tensor-core kernel as many times); the logits of every
+   position equal those of the same forward with the plain version in place of the
    kernel, and teacher-forced ``decode_step`` over the first 512 tokens
    reproduces them;
 8. the same in bfloat16 (the config's own dtype): the largest logit
@@ -58,8 +63,10 @@ the run with a nonzero exit code and no result line:
 11. hold the grouped matmul (K4) against its plain version within 1e-4:
     the JAX package's K4 test shapes, small integers (bitwise), and
     qwen3-moe-30b-a3b's expert shapes at prefill (128 experts x 640 slots,
-    D 2048 <-> F 768) and decode (8 slots, tile 8); timed beside its plain
-    version and ``torch.bmm`` over [E, C, D] x [E, D, F];
+    D 2048 <-> F 768) and decode (8 slots, tile 8); each of the four bf16
+    shapes timed beside its plain version and ``torch.bmm`` over
+    [E, C, D] x [E, D, F], and the host time of the tensor maps that every
+    bf16 launch encodes;
 12. qwen3-moe-30b-a3b at its published widths, float32, depth cut to 4
     layers (full depth in float32 takes 120 GB), weights drawn on the card
     from seed 0: ``make_prefill_step`` on 4 x 2048 tokens launches K4 12
@@ -71,7 +78,7 @@ the run with a nonzero exit code and no result line:
 13. qwen3-moe-30b-a3b at full width and depth (48 layers), weights stored
     in bfloat16 (the config's ``param_dtype``; the reference casts every
     weight to the compute dtype at use): the prefill launches K4 144 times
-    and K5 48 times, with finite logits; the largest logit difference and
+    and K5 48 times, all on the tensor-core kernels, with finite logits; the largest logit difference and
     greedy agreement against the plain path; decode at batch 4 and
     ``BatchedServer`` answering 8 requests; prefill, decode and server
     times with the device's busy share; one ``{"kernels": [...]}`` line
@@ -143,12 +150,16 @@ SOURCE_K4 = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 # Flash attention: the JAX package's K5 test shapes (tests/test_kernels.py)
 # and D = 64 at S = 2048, the LM's head width at its prefill length.
 ATTN_SHAPES = [(2, 256, 64), (4, 512, 128), (1, 1024, 128), (2, 2048, 64)]
-# (rtol, atol). Float32: the JAX package's own 2e-4. Bfloat16: the kernel
-# and its plain version both compute in float32 and differ only by the
-# kernel's rounding of its output to bfloat16, at most 2**-8 of it. The
-# JAX package's 5e-2 is as large as a typical |output| here (row i of a
-# causal product averages ~i/e keys, so |o| ~ sqrt(e/i) ~ 0.04) and could
-# not fail a wrong kernel, so the check is held at rtol 1e-2, atol 1e-3.
+# (rtol, atol). Float32: the JAX package's own 2e-4. Bfloat16: the plain
+# version computes in float32; the kernel forms Q K^T on the tensor cores
+# (bf16 products, exact in float32, summed in float32), multiplies V by
+# the float32 probabilities split into two bf16 halves (hi + lo, P carried
+# to ~2**-17; P rounded once to bf16 would move short rows whose weights
+# cancel past atol) and rounds its output to bfloat16, at most 2**-8 of
+# it. The JAX package's 5e-2 is as large as a typical |output| here (row i
+# of a causal product averages ~i/e keys, so |o| ~ sqrt(e/i) ~ 0.04) and
+# could not fail a wrong kernel, so the check is held at rtol 1e-2, atol
+# 1e-3.
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
 # SDPA, the yardstick, rounds its probabilities to bfloat16 before P.V, so
 # it differs from the kernel by more than an output rounding; its check
@@ -230,13 +241,21 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
 KERNELS = (spgemm_scheduled, spgemm_scheduled_batch, flash_attention, bsr_spmm, moe_gmm)
 
 
+# Wrappers whose bfloat16 calls run a tensor-core kernel of their own.
+TC_KERNELS = (flash_attention, moe_gmm)
+
+
 def reset_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in TC_KERNELS:
+        fn.bf16_launches = 0
 
 
 def counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    out = {fn.__name__: fn.launches for fn in KERNELS}
+    out.update({f"{fn.__name__}_bf16": fn.bf16_launches for fn in TC_KERNELS})
+    return out
 
 
 # -- phase 3: kernel against its plain version --------------------------------
@@ -625,22 +644,31 @@ def phase_attention_checks(dev) -> None:
             for causal in (True, False):
                 attention_check(*attention_inputs(dev, shape, dtype),
                                 f"{shape} {str(dtype)[6:]} causal={causal}", causal=causal)
-    for window in (64, 128, 1024):
-        attention_check(*attention_inputs(dev, (2, 512, 64), torch.float32),
-                        f"(2, 512, 64) window {window}", causal=True, window=window)
-    q, k, v = attention_inputs(dev, (1, 512, 64), torch.float32)
-    part = attention_check(q[:, 256:].contiguous(), k, v, "(1, 512, 64) rows 256.. q_offset 256",
-                           causal=True, q_offset=256)
-    full = ref.flash_attention_ref(q, k, v, causal=True)
-    torch.testing.assert_close(part, full[:, 256:], rtol=2e-4, atol=2e-4,
-                               msg="K5 q_offset rows against one-shot attention")
-    # Row i sees keys in (i + 136, i + 200] of 0..255: rows 119.. see none,
-    # and the first kv tiles of every row are fully masked.
-    q, k, v = attention_inputs(dev, (2, 256, 64), torch.float32, sq=128)
-    got = attention_check(q, k, v, "(2, 128 of 256, 64) window 64 q_offset 200",
-                          causal=True, window=64, q_offset=200)
-    check(bool(torch.all(got[:, 119:] == 0)) and bool(torch.isfinite(got).all()),
-          "K5 rows without a visible key are not 0")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for window in (64, 128, 1024):
+            attention_check(*attention_inputs(dev, (2, 512, 64), dtype),
+                            f"(2, 512, 64) {name} window {window}", causal=True, window=window)
+        q, k, v = attention_inputs(dev, (1, 512, 64), dtype)
+        part = attention_check(q[:, 256:].contiguous(), k, v,
+                               f"(1, 512, 64) {name} rows 256.. q_offset 256",
+                               causal=True, q_offset=256)
+        full = ref.flash_attention_ref(q, k, v, causal=True)
+        rtol, atol = ATTN_TOL[dtype]
+        torch.testing.assert_close(part.float(), full[:, 256:], rtol=rtol, atol=atol,
+                                   msg="K5 q_offset rows against one-shot attention")
+        # Row i sees keys in (i + 136, i + 200] of 0..255: rows 119.. see
+        # none, and the first kv tiles of every row are fully masked.
+        q, k, v = attention_inputs(dev, (2, 256, 64), dtype, sq=128)
+        got = attention_check(q, k, v, f"(2, 128 of 256, 64) {name} window 64 q_offset 200",
+                              causal=True, window=64, q_offset=200)
+        check(bool(torch.all(got[:, 119:] == 0)) and bool(torch.isfinite(got).all()),
+              "K5 rows without a visible key are not 0")
+        # Ragged lengths and head widths below the kernels' own (zero-padded).
+        for sq, skv, d in ((65, 130, 72), (100, 200, 8), (64, 64, 256)):
+            q, k, v = attention_inputs(dev, (3, skv, d), dtype, sq=sq)
+            attention_check(q, k, v, f"({sq} of {skv}, D {d}) {name} q_offset {skv - sq}",
+                            causal=True, q_offset=skv - sq)
 
 
 # -- phases 7-8: granite-3-2b -------------------------------------------------
@@ -696,10 +724,16 @@ def moe_layers(cfg) -> int:
 
 
 def check_launches(launched: dict, cfg, what: str) -> None:
-    """One K5 launch per layer and three K4 launches per MoE layer."""
+    """One K5 launch per layer and three K4 launches per MoE layer; with a
+    bfloat16 compute dtype every one of them on the tensor-core kernels,
+    with float32 none."""
     check(launched["flash_attention"] == cfg.n_layers
           and launched["moe_gmm"] == 3 * moe_layers(cfg),
           f"{what}: launches {launched} for {cfg.n_layers} layers")
+    bf16 = cfg.dtype == "bfloat16"
+    for name in ("flash_attention", "moe_gmm"):
+        check(launched[f"{name}_bf16"] == (launched[name] if bf16 else 0),
+              f"{what}: {name} launches {launched} with compute dtype {cfg.dtype}")
 
 
 def kernel_and_dense_logits(params, cfg, tokens):
@@ -923,8 +957,8 @@ def phase_lm_timings(params16, lm, dev, extra) -> dict:
     del q32, k32, v32
     log(f"  K5 bf16 [{bh}, {s}, {d}] causal: {k5_ms:.4f} ms ({flops / k5_ms / 1e9:.1f} "
         f"TFLOP/s, {b_ms / k5_ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); plain "
-        f"{plain_ms:.4f} ms; SDPA {sdpa_ms:.4f} ms (max |SDPA - K5| {sdpa_err:.3g}); "
-        f"float32 K5 {k5_f32_ms:.4f} ms")
+        f"{plain_ms:.4f} ms; SDPA {sdpa_ms:.4f} ms (K5 / SDPA {k5_ms / sdpa_ms:.2f}x; max "
+        f"|SDPA - K5| {sdpa_err:.3g}); float32 K5 {k5_f32_ms:.4f} ms")
 
     tokens = lm_tokens(cfg, dev)
     prefill = make_prefill_step(cfg)
@@ -1160,27 +1194,37 @@ def phase_gmm(dev) -> tuple:
                                  f"[{e}, {din}, {dout}] tm {tm} {str(dtype)[6:]}")
             if dtype != torch.bfloat16:
                 continue
+            # The yardstick: the reference's einsum twin as one batched
+            # product over [E, C, D] x [E, D, F] (cuBLAS bf16).
+            xb = x.view(e, cap, din)
+            lib_err = float((torch.bmm(xb, w).float().view(e * cap, dout) - got).abs().max())
+            check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())), f"bmm vs K4: {lib_err}")
             k_ms = time_ms(lambda: moe_gmm(x, w, te, tm=tm), reps=10)
+            p_ms = time_ms(lambda: ref.moe_gmm_ref(x, w, te, tm), reps=5)
+            lib_ms = time_ms(lambda: torch.bmm(xb, w), reps=20)
             (b_ms, b_by), flops = gmm_bound(e * cap, din, dout, e, tm, 2)
-            extra[f"K4_{name.replace(' ', '_').replace('/', '')}_ms"] = k_ms
-            extra[f"K4_{name.replace(' ', '_').replace('/', '')}_bound_ms"] = b_ms
+            key = f"K4_{name.replace(' ', '_').replace('/', '')}"
+            extra.update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms, f"{key}_bmm_ms": lib_ms,
+                          f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                          f"{key}_tflops": flops / k_ms / 1e9, f"{key}_max_abs_err": err,
+                          f"{key}_bmm_max_abs": lib_err})
             log(f"  K4 timing, {name} bf16: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
-                f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by})")
+                f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; "
+                f"torch.bmm over [E, C, D] x [E, D, F] {lib_ms:.4f} ms (K4 / bmm "
+                f"{k_ms / lib_ms:.2f}x; max |bmm - K4| {lib_err:.3g})")
             if name == "prefill gate/up":
-                # The yardstick: the reference's einsum twin as one batched
-                # product over [E, C, D] x [E, D, F] (cuBLAS bf16).
-                xb = x.view(e, cap, din)
-                lib_err = float((torch.bmm(xb, w).float().view(e * cap, dout) - got)
-                                .abs().max())
-                check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())),
-                      f"bmm vs K4: {lib_err}")
-                p_ms = time_ms(lambda: ref.moe_gmm_ref(x, w, te, tm), reps=5)
-                lib_ms = time_ms(lambda: torch.bmm(xb, w), reps=20)
-                log(f"  K4 prefill gate/up: plain {p_ms:.4f} ms; torch.bmm over [E, C, D] x "
-                    f"[E, D, F] {lib_ms:.4f} ms (max |bmm - K4| {lib_err:.3g})")
                 timing = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": lib_ms}
-                extra.update({"K4_tflops": flops / k_ms / 1e9, "K4_bmm_max_abs": lib_err})
+            if name == "decode gate/up":
+                # Host time the two tensor maps add to every launch.
+                lib, reps = _build.load_moe_gmm(), 1000
+                t0 = time.perf_counter()
+                rc = lib.moe_gmm_encode_maps(x.data_ptr(), w.data_ptr(), e * cap, din, dout, e,
+                                             tm, reps)
+                enc_us = (time.perf_counter() - t0) / reps * 1e6
+                check(rc == 0, f"tensor-map encoding failed: cudaError_t {rc}")
+                extra["K4_tensor_map_encode_us"] = enc_us
+                log(f"  K4 tensor maps (x and w) encoded on the host: {enc_us:.2f} us per launch")
             del x, w, got
     torch.cuda.empty_cache()
     return timing, extra
@@ -1366,6 +1410,11 @@ def main() -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {lib_path.name.split('-')[0]}: " + line.strip())
+    k4_lib, k5_lib = _build.load_moe_gmm(), _build.load_flash_attention()
+    log("  dynamic shared memory of the tensor-core kernels (bytes per block): K4 bf16 "
+        + ", ".join(f"tm {tm}: {k4_lib.moe_gmm_smem_bytes(1, tm)}" for tm in (128, 64, 32, 16, 8))
+        + "; K5 bf16 " + ", ".join(f"D {d}: {k5_lib.flash_attention_smem_bytes(1, d)}"
+                                   for d in (64, 128, 256)))
 
     log("[3] kernel vs plain version")
     phase_kernel_checks(dev)

@@ -5,7 +5,9 @@ use with ``nvcc`` for ``sm_90a`` into a shared library under the
 repository's ``build/kernels/`` and loaded with ``ctypes``. The library's
 file name carries a digest of the source, the shared headers (``*.cuh``)
 and the flags, so an edited source or header builds anew and an unchanged
-one is reused. A failed build raises.
+one is reused. A failed build raises. No library is linked against the
+CUDA library libcuda: the grouped matmul's bfloat16 path takes
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint`` at run time.
 """
 from __future__ import annotations
 
@@ -106,6 +108,8 @@ def load_flash_attention() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr]
     fn.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32, i32]
+    lib.flash_attention_smem_bytes.restype = i32
     return lib
 
 
@@ -128,4 +132,9 @@ def load_moe_gmm() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     fn.restype = i32
+    enc = lib.moe_gmm_encode_maps
+    enc.argtypes = [ptr] * 2 + [i32] * 6
+    enc.restype = i32
+    lib.moe_gmm_smem_bytes.argtypes = [i32, i32]
+    lib.moe_gmm_smem_bytes.restype = i32
     return lib

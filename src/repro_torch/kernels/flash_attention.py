@@ -3,19 +3,27 @@
 The port of ``repro.kernels.flash_attention`` (the TPU kernel K5).
 Online-softmax attention over ``[BH, S, D]`` with causal masking, a
 sliding window and a ``q_offset`` (chunked prefill against a longer kv
-sequence); rows that see no key give 0. The CUDA kernel gives each thread
-block one (bh, 64-row q tile) and loops over kv tiles of 64 keys inside
-the block, skipping tiles that the causal diagonal or the window masks
-wholly. Its tiles are its own, so it matches the TPU kernel within
-tolerance, not bit for bit; the reference's ``bq``, ``bk`` and
+sequence); rows that see no key give 0. Each thread block owns one (bh,
+q tile) and loops over kv tiles of 64 keys, skipping tiles that the
+causal diagonal or the window masks wholly.
+
+The kernel is chosen by the operands' type, a static rule with no
+fallback. Float32 runs on float32 FMAs over 64-row q tiles (float32
+parity rules out TF32). Bfloat16 runs on the tensor cores (``mma.sync``)
+over 128-row q tiles, with K and V double-buffered by ``cp.async``; it
+multiplies P by V as two bf16 halves (hi + lo) of the float32
+probabilities, so that the output stays within the float32 result's
+tolerance. The tiles are the kernels' own, so they match the TPU kernel
+within tolerance, not bit for bit; the reference's ``bq``, ``bk`` and
 ``interpret`` options have no counterpart.
 
-:func:`flash_attention` launches the kernel for CUDA tensors and raises on
+:func:`flash_attention` launches a kernel for CUDA tensors and raises on
 anything it does not accept (D above 256 or not a multiple of 8, mixed
 devices or types, non-contiguous or misshapen operands). For CPU tensors
 it computes the same result with the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`. Its ``launches``
-attribute counts kernel launches.
+attribute counts kernel launches, ``bf16_launches`` those of the
+tensor-core kernel among them.
 """
 from __future__ import annotations
 
@@ -87,6 +95,7 @@ def _launch(q, k, v, causal, window, q_offset, scale) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
     flash_attention.launches += 1
+    flash_attention.bf16_launches += int(q.dtype == torch.bfloat16)
     return out
 
 
@@ -112,3 +121,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.bf16_launches = 0

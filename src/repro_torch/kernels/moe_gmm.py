@@ -5,17 +5,24 @@ expert, in tiles of ``tm`` rows that each belong to one expert, times that
 expert's weight, ``out[tile i] = x[tile i] @ w[tile_expert[i]]``, summed in
 float32 over the whole of D.
 
-The CUDA kernel gives each thread block one (row tile, 128-column tile)
-and loops over D itself; its row tile is the largest of 128, 64, 32, 16, 8
-that divides ``tm``, so it never straddles two experts. The reference's
-``bd`` and ``bf`` are the TPU kernel's VMEM block sizes and have no
-counterpart: the CUDA kernel's tiles are its own and change the result
-only by summation order. Nor has ``interpret``.
+The kernel is chosen by the operands' type, a static rule with no
+fallback. Float32 runs on float32 FMAs (float32 parity rules out TF32):
+one thread block per (row tile, 128-column tile), looping over D.
+Bfloat16 runs on the tensor cores: wgmma on tiles that TMA streams
+through shared memory, computing the transposed product so that the
+tile's tokens are wgmma's N; TMA needs w's rows padded to a multiple of 8
+values, so for F % 8 != 0 this wrapper pads a copy of w (no model shape
+does). Either kernel's row tile is the largest of 128, 64, 32, 16, 8 that
+divides ``tm``, so it never straddles two experts. The reference's ``bd``
+and ``bf`` are the TPU kernel's VMEM block sizes and have no counterpart:
+the CUDA kernels' tiles are their own and change the result only by
+summation order. Nor has ``interpret``.
 
-:func:`moe_gmm` launches the kernel for CUDA tensors and raises on
-anything it does not accept. For CPU tensors it computes the same result
-with the plain version, :func:`repro_torch.kernels.ref.moe_gmm_ref`. Its
-``launches`` attribute counts kernel launches.
+:func:`moe_gmm` launches a kernel for CUDA tensors and raises on anything
+it does not accept. For CPU tensors it computes the same result with the
+plain version, :func:`repro_torch.kernels.ref.moe_gmm_ref`. Its
+``launches`` attribute counts kernel launches, ``bf16_launches`` those of
+the tensor-core kernel among them.
 """
 from __future__ import annotations
 
@@ -71,6 +78,9 @@ def _launch(x, w, te: torch.Tensor, tm: int) -> torch.Tensor:
     out = torch.empty((t, f), dtype=torch.float32, device=x.device)
     if t == 0:
         return out
+    if x.dtype == torch.bfloat16 and f % 8:
+        # TMA reads w through 16-byte row strides: pad its rows to 8 values.
+        w = torch.nn.functional.pad(w, (0, 8 - f % 8))
     lib = load_moe_gmm()
     with torch.cuda.device(x.device):
         err = lib.moe_gmm_launch(
@@ -80,6 +90,7 @@ def _launch(x, w, te: torch.Tensor, tm: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: cudaError_t {err}")
     moe_gmm.launches += 1
+    moe_gmm.bf16_launches += int(x.dtype == torch.bfloat16)
     return out
 
 
@@ -114,3 +125,4 @@ def moe_gmm(
 
 
 moe_gmm.launches = 0
+moe_gmm.bf16_launches = 0

@@ -10,10 +10,11 @@ Every test is marked ``cuda`` and skips where no CUDA device is present
 1e-5 for float32 and 2e-2 for bfloat16 SpGEMM, bitwise with small-integer
 values (where every float32 sum is exact whatever the order); 2e-4 for
 float32 attention. Bfloat16 attention is held at rtol 1e-2, atol 1e-3:
-the kernel and its plain version both compute in float32 and differ only
-by the kernel's rounding of its output to bfloat16 (at most 2**-8 of it),
-while the JAX package's 5e-2 is as large as a typical |output| at these
-shapes and could not fail a wrong kernel. K3 and K4 write float32 sums of
+the plain version computes in float32; the kernel's tensor cores form
+exact float32 products of the bf16 inputs, carry P to ~2**-17 (two bf16
+halves) and round the output to bfloat16 (at most 2**-8 of it), while the
+JAX package's 5e-2 is as large as a typical |output| at these shapes and
+could not fail a wrong kernel. K3 and K4 write float32 sums of
 float32 products of the same inputs as their plain versions, in float32
 and in bfloat16 alike, so both are held at the JAX package's float32
 tolerances (1e-3 for K3, 1e-4 for K4; inputs scaled so outputs are of
@@ -186,33 +187,47 @@ def test_flash_kernel_vs_plain(cuda, bh, s, d, causal, dtype):
 
 
 @pytest.mark.parametrize("window", [64, 128, 1024])
-def test_flash_kernel_window(cuda, window):
-    _attn_check(*_attn_inputs(cuda, (2, 512, 64), torch.float32), causal=True, window=window)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window(cuda, window, dtype):
+    _attn_check(*_attn_inputs(cuda, (2, 512, 64), dtype), causal=True, window=window)
 
 
-def test_flash_kernel_q_offset(cuda):
-    q, k, v = _attn_inputs(cuda, (1, 512, 64), torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_q_offset(cuda, dtype):
+    q, k, v = _attn_inputs(cuda, (1, 512, 64), dtype)
     part = _attn_check(q[:, 256:].contiguous(), k, v, causal=True, q_offset=256)
     full = ref.flash_attention_ref(q, k, v, causal=True)
-    torch.testing.assert_close(part, full[:, 256:], rtol=2e-4, atol=2e-4)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(part.float(), full[:, 256:], rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_fully_masked_rows(cuda, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_fully_masked_rows(cuda, causal, dtype):
     """Rows 119.. of q see no key (window 64, q_offset 200, 256 keys); the
     first kv tiles of many rows are fully masked."""
-    q, k, v = _attn_inputs(cuda, (2, 256, 64), torch.float32, sq=128)
+    q, k, v = _attn_inputs(cuda, (2, 256, 64), dtype, sq=128)
     got = _attn_check(q, k, v, causal=causal, window=64, q_offset=200)
     assert torch.all(got[:, 119:] == 0)
     assert torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("sq,skv,d", [(100, 200, 8), (65, 130, 72), (64, 64, 256),
-                                      (1, 3, 16)])
-def test_flash_kernel_ragged_and_head_dims(cuda, sq, skv, d):
-    q, k, v = _attn_inputs(cuda, (3, skv, d), torch.float32, sq=sq)
+                                      (1, 3, 16), (200, 333, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_and_head_dims(cuda, sq, skv, d, dtype):
+    q, k, v = _attn_inputs(cuda, (3, skv, d), dtype, sq=sq)
     _attn_check(q, k, v, causal=True, q_offset=skv - sq)
     _attn_check(q, k, v, causal=False, window=17)
+
+
+def test_flash_kernel_launch_counts_by_dtype(cuda):
+    """``bf16_launches`` counts the tensor-core kernel's launches only."""
+    before, before_tc = flash_attention.launches, flash_attention.bf16_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_attention(*_attn_inputs(cuda, (1, 128, 64), dtype))
+    assert flash_attention.launches == before + 2
+    assert flash_attention.bf16_launches == before_tc + 1
 
 
 def test_flash_kernel_refusals(cuda):
@@ -339,9 +354,15 @@ def test_gmm_kernel_vs_plain(cuda, t, d, f, e, tm, dtype):
 
 
 @pytest.mark.parametrize("t,d,f,e,tm", GMM_SHAPES)
-def test_gmm_kernel_small_integers_bitwise(cuda, t, d, f, e, tm):
-    x, w, te = _gmm_case(t, d, f, e, tm, 4, torch.float32, cuda, integer=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_small_integers_bitwise(cuda, t, d, f, e, tm, dtype):
+    """Small integers are exact in bf16 and every sum is exact in float32,
+    whatever the order: bitwise, F = 132 and 260 included (the bf16 path
+    pads w's rows to a multiple of 8 there)."""
+    x, w, te = _gmm_case(t, d, f, e, tm, 4, dtype, cuda, integer=True)
+    before = moe_gmm.bf16_launches
     got = moe_gmm(x, w, te.cpu().numpy(), tm=tm)
+    assert moe_gmm.bf16_launches == before + (dtype == torch.bfloat16)
     assert torch.equal(got, ref.moe_gmm_ref(x, w, te, tm))
 
 
@@ -355,9 +376,30 @@ def test_gmm_kernel_refusals_and_bad_experts(cuda):
         moe_gmm(x, w, np.full(8, 3, np.int32), tm=8)
     bad = te.clone()
     bad[2] = 7  # built on the card: not checked on the host; NaN rows, no stray reads
-    got = moe_gmm(x, w, bad, tm=8).cpu()
-    assert torch.isnan(got[16:24]).all() and torch.isfinite(got[:16]).all()
-    assert torch.isfinite(got[24:]).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        got = moe_gmm(x.to(dtype), w.to(dtype), bad, tm=8).cpu()
+        assert torch.isnan(got[16:24]).all() and torch.isfinite(got[:16]).all()
+        assert torch.isfinite(got[24:]).all()
+
+
+@pytest.mark.parametrize("tm,din,dout", [(128, 2048, 768), (128, 768, 2048), (8, 2048, 768),
+                                         (8, 768, 2048)])
+def test_gmm_kernel_qwen3_tiles(cuda, tm, din, dout):
+    """qwen3-moe-30b-a3b's expert widths (gate/up D 2048 -> F 768, down
+    768 -> 2048) at the prefill's tile (tm 128) and decode's (tm 8), bf16,
+    over 6 tiles of 4 experts; tile 3's expert is out of range (built on
+    the card): its rows are NaN, every other row matches the plain
+    version."""
+    e, nt = 4, 6
+    x, w, _ = _gmm_case(nt * tm, din, dout, e, tm, 9, torch.bfloat16, cuda)
+    te = torch.tensor([0, 0, 1, e + 3, 2, 3], dtype=torch.int32, device=cuda)
+    got = moe_gmm(x, w, te, tm=tm)
+    good = torch.ones(nt * tm, dtype=torch.bool, device=cuda)
+    good[3 * tm:4 * tm] = False
+    want = ref.moe_gmm_ref(x[good], w, te[te < e], tm)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[~good]).all()
+    torch.testing.assert_close(got[good], want, rtol=1e-4, atol=1e-4)
 
 
 def test_moe_forward_on_card_through_the_kernel(cuda):

@@ -13,22 +13,29 @@ the run with a nonzero exit code and no result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the four CUDA sources (one nvcc each, side by side, sm_90a):
-   block-Gustavson SpGEMM (K1, K2), flash attention (K5: float32 FMA and
-   bfloat16 mma.sync kernels), block-sparse SpMM (K3) and grouped matmul
-   (K4: float32 FMA and bfloat16 wgmma/TMA kernels); print every kernel's
-   registers and spills (ptxas) and the tensor-core kernels' dynamic
-   shared memory;
+   block-Gustavson SpGEMM (K1, K2: a cp.async ring, float32 or bfloat16
+   blocks), flash attention (K5: float32 FMA and bfloat16 mma.sync
+   kernels), block-sparse SpMM (K3: float32 FMA and bfloat16 wgmma/TMA
+   kernels) and grouped matmul (K4: the same pair); print every kernel's
+   registers and spills (ptxas), the dynamic shared memory of the
+   tensor-core kernels and of K1's ring per tile, and the blocks one SM
+   holds;
 3. hold the SpGEMM kernel (K1 single, K2 batched) against its plain
-   PyTorch version at the JAX package's kernel-test shapes: float32 within
-   1e-5, bfloat16 within 2e-2, small integers bitwise, K2 against a loop
-   of K1 bitwise;
+   PyTorch version at the JAX package's kernel-test shapes and a 128^3
+   tile, and on tiles whose runs hold 0, 1, 3 and 8 triples: float32
+   within 1e-5, bfloat16 within 2e-2, small integers bitwise, K2 against a
+   loop of K1 bitwise;
 4. SpGEMM main path on poisson3Da at its published size: ``spgemm_plan``
    on the card, three ``execute`` calls and one ``execute_batch`` of 4
    with fresh values from a numpy seed, each checked against the numpy
    Gustavson oracle (rtol = atol = 1e-4, the JAX package's own
    plan-vs-oracle tolerance); the launch counts show K1 and K2 ran;
 5. 2cubes_sphere at its published size, one ``execute``, checked the same
-   way;
+   way; then (5b) a plan of poisson3Da built on bfloat16 values (a
+   bfloat16 sparse CSR tensor): three ``execute`` calls with float32
+   values launch K1 three times, all with bfloat16 blocks, each checked
+   against the oracle on the bf16-rounded values; K1 on bfloat16 blocks
+   timed beside its plain version;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -53,13 +60,15 @@ the run with a nonzero exit code and no result line:
    idle share and kernel count per prefill and per decode step under
    torch.profiler; granite's weights are then freed;
 10. hold the block-sparse SpMM (K3) against its plain version: the JAX
-    package's K3 test shapes in float32 and bfloat16, an empty column
-    panel and small integers (bitwise), then granite-3-2b's SparseLinear
-    down projection at full width (x 8192 x 8192 bf16, W 8192 x 2048 in
-    128 x 128 blocks at density 0.25 from ``sparse_block_mask``) through
-    ``ops.sparse_dense_matmul``, whose launch is counted; all within 1e-3
-    (see ``BSR_TOL``); timed beside its plain version and ``torch.matmul``
-    with the masked dense weight;
+    package's K3 test shapes and the port's card-test shapes in float32
+    and bfloat16, an empty column panel and small integers (bitwise, both
+    types), bf16 blocks whose rows are padded (bn % 8 != 0), then
+    granite-3-2b's SparseLinear down projection at full width (x 8192 x
+    8192 bf16, W 8192 x 2048 in 128 x 128 blocks at density 0.25 from
+    ``sparse_block_mask``) through ``ops.sparse_dense_matmul``, whose
+    launch is counted; all within 1e-3 (see ``BSR_TOL``); the ``ops``
+    call and the kernel alone on indices staged once timed beside its
+    plain version and ``torch.matmul`` with the masked dense weight;
 11. hold the grouped matmul (K4) against its plain version within 1e-4:
     the JAX package's K4 test shapes, small integers (bitwise), and
     qwen3-moe-30b-a3b's expert shapes at prefill (128 experts x 640 slots,
@@ -77,7 +86,8 @@ the run with a nonzero exit code and no result line:
     printed;
 13. qwen3-moe-30b-a3b at full width and depth (48 layers), weights stored
     in bfloat16 (the config's ``param_dtype``; the reference casts every
-    weight to the compute dtype at use): the prefill launches K4 144 times
+    weight to the compute dtype at use) but for the 48 routers, kept in
+    float32 as the reference routes: the prefill launches K4 144 times
     and K5 48 times, all on the tensor-core kernels, with finite logits; the largest logit difference and
     greedy agreement against the plain path; decode at batch 4 and
     ``BatchedServer`` answering 8 requests; prefill, decode and server
@@ -108,10 +118,11 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.core.schedule import build_spgemm_schedule  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.bsr_spmm import bsr_spmm  # noqa: E402
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_staged, stage_bsr_index  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.gustavson_spgemm import (  # noqa: E402
+    runs_case,
     spgemm_scheduled,
     spgemm_scheduled_batch,
     stage_runs,
@@ -128,12 +139,16 @@ from repro_torch.spgemm import spgemm_plan  # noqa: E402
 
 SEED = 0
 TILE, GROUP = 64, 4
-# The JAX package's kernel-test shapes (tests/test_kernels.py).
+# The JAX package's kernel-test shapes (tests/test_kernels.py) and a 128^3
+# tile, the largest a plan takes.
 KERNEL_SHAPES = [
     ((128, 128, 128), (32, 32, 32), 1),
     ((256, 128, 192), (64, 64, 64), 2),
     ((256, 384, 256), (64, 64, 128), 4),
+    ((256, 512, 256), (128, 128, 128), 2),
 ]
+# Tiles whose runs hold 0, 1, 3 and 8 triples (phase 3).
+RUN_TILES = [(32, 32, 32), (64, 64, 64), (64, 64, 128), (128, 128, 128)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ORACLE_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
@@ -177,8 +192,10 @@ DECODE_TOKENS = 512
 # layers of rounding; 2e-2 on logits of order 1 bounds that and no more.
 LM_TOL = 2e-2
 
-# K3: the JAX package's test shapes (tests/test_kernels.py), (m, k, n, bk, bn).
-BSR_SHAPES = [(64, 256, 256, 128, 128), (200, 384, 512, 128, 128), (128, 256, 384, 128, 128)]
+# K3: the JAX package's test shapes (tests/test_kernels.py) and the port's
+# card-test shapes (ragged M, bk 32 and 64, bn 64 and 192), (m, k, n, bk, bn).
+BSR_SHAPES = [(64, 256, 256, 128, 128), (200, 384, 512, 128, 128), (128, 256, 384, 128, 128),
+              (100, 96, 192, 32, 64), (256, 512, 384, 64, 192)]
 # K3 and its plain version both form float32 sums of float32 products of
 # the same inputs (bf16 inputs are widened exactly) and write float32, so
 # bfloat16 is held at the float32 tolerance, 1e-3 (the JAX package's own;
@@ -207,8 +224,9 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` timed runs."""
+def time_samples(fn, reps: int, warmup: int = 2) -> list:
+    """Device times of ``fn`` in ms, one call between two events, over
+    ``reps`` timed runs after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -221,7 +239,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of ``fn`` in ms over ``reps`` timed calls."""
+    return float(np.median(time_samples(fn, reps, warmup)))
 
 
 def host_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -241,8 +264,9 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
 KERNELS = (spgemm_scheduled, spgemm_scheduled_batch, flash_attention, bsr_spmm, moe_gmm)
 
 
-# Wrappers whose bfloat16 calls run a tensor-core kernel of their own.
-TC_KERNELS = (flash_attention, moe_gmm)
+# Wrappers that count their launches on bfloat16 operands (K3, K4, K5:
+# a tensor-core kernel of their own; K1, K2: bfloat16 blocks).
+TC_KERNELS = (spgemm_scheduled, spgemm_scheduled_batch, flash_attention, bsr_spmm, moe_gmm)
 
 
 def reset_counts() -> None:
@@ -308,6 +332,35 @@ def phase_kernel_checks(dev) -> None:
                 sch.panel, sch.sub_row, sch.n_panels, sch.group, 3)
             torch.testing.assert_close(batch, plain, rtol=TOL[dtype], atol=TOL[dtype])
             log(f"  K2 bsz 3 {shape} {str(dtype)[6:]}: bitwise equal to looped K1")
+    for tile in RUN_TILES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = []
+            for integer in (False, True):
+                a, b, sch = runs_case(tile, integer)
+                runs = stage_runs(sch, dev)
+                check(np.diff(runs.ptr.cpu().numpy()).tolist() == [0, 1, 3, 8],
+                      f"K1 run lengths at {tile}")
+                at = torch.from_numpy(a.blocks).to(dev, dtype)
+                bt = torch.from_numpy(b.blocks).to(dev, dtype)
+                got = spgemm_scheduled(at, bt, runs)
+                want = ref.spgemm_scheduled_ref(at, bt, sch.a_slot, sch.b_slot, sch.panel,
+                                                sch.sub_row, sch.n_panels, sch.group)
+                torch.cuda.synchronize()
+                check(bool((got[0, :tile[0]] == 0).all()), f"K1 empty run at {tile} not zero")
+                if integer:
+                    check(torch.equal(got, want), f"K1 runs at {tile} {dtype}: not bitwise")
+                else:
+                    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+                errs.append(float((got - want).abs().max()))
+                sets = [(a.blocks * (i + 1)) for i in range(3)]
+                a3 = torch.from_numpy(np.stack(sets)).to(dev, dtype)
+                batch = spgemm_scheduled_batch(a3.flatten(0, 1), bt.repeat(3, 1, 1), runs, bsz=3)
+                for i in range(3):
+                    check(torch.equal(batch[i], spgemm_scheduled(a3[i], bt, runs)),
+                          f"K2 element {i} differs from K1 on the runs at {tile}")
+            log(f"  K1 runs of 0, 1, 3 and 8 triples, tile {tile} {str(dtype)[6:]}: "
+                f"max_abs_err {errs[0]:.3g}, small integers bitwise; K2 bitwise equal to "
+                f"looped K1")
 
 
 # -- phases 4-5: the main path ------------------------------------------------
@@ -400,6 +453,57 @@ def phase_second_matrix(dev, rng):
     return a, plan
 
 
+def phase_bf16_plan(a: CSR, dev, rng) -> dict:
+    """poisson3Da through a plan built on bfloat16 values: the plan keeps
+    bfloat16, rounds each execute's float32 values to it and launches K1
+    on bfloat16 blocks; C against the oracle on the rounded values."""
+    t = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int64)),
+                                torch.from_numpy(a.indices.astype(np.int64)),
+                                torch.from_numpy(a.data.astype(np.float32)).bfloat16(), a.shape,
+                                check_invariants=False)
+    plan = spgemm_plan(t, t, tile=TILE, group=GROUP, device=dev)
+    check(plan.value_dtypes == (torch.bfloat16, torch.bfloat16),
+          f"bf16 plan value dtypes {plan.value_dtypes}")
+    singles = [(rng.standard_normal(a.nnz, dtype=np.float32),
+                rng.standard_normal(a.nnz, dtype=np.float32)) for _ in range(3)]
+    reset_counts()
+    outs = [plan.execute(av, bv) for av, bv in singles]
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["spgemm_scheduled"] == 3 and launched["spgemm_scheduled_bf16"] == 3,
+          f"bf16 plan: K1 launches {launched}")
+
+    def rounded(v):
+        return torch.from_numpy(v).bfloat16().float().numpy()
+
+    errs = [check_against_oracle(c, a, rounded(av), rounded(bv), f"bf16 plan execute {i}")
+            for i, (c, (av, bv)) in enumerate(zip(outs, singles))]
+    log(f"  poisson3Da bf16 plan: 3 execute, launches {launched}; vs the oracle on the "
+        f"bf16-rounded values: max_abs_err {max(errs):.3g}")
+    a_blocks, b_blocks, runs = kernel_inputs(plan, dev, rng, 1)
+    a_blocks, b_blocks = a_blocks.bfloat16(), b_blocks.bfloat16()
+    got = spgemm_scheduled(a_blocks, b_blocks, runs)
+    plain = ref.spgemm_scheduled_ref(a_blocks, b_blocks, runs.a_slot, runs.b_slot,
+                                     runs.panel, runs.sub_row, runs.n_panels, runs.group)
+    torch.testing.assert_close(got, plain, rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    err = float((got - plain).abs().max())
+    del got, plain
+    (b_ms, b_by), flops, _ = bound(plan, 1)
+    k_ms = time_ms(lambda: spgemm_scheduled(a_blocks, b_blocks, runs), reps=20)
+    p_ms = time_ms(lambda: ref.spgemm_scheduled_ref(
+        a_blocks, b_blocks, runs.a_slot, runs.b_slot, runs.panel, runs.sub_row,
+        runs.n_panels, runs.group), reps=5)
+    vals = singles[0]
+    e2e_ms = host_ms(lambda: plan.execute(*vals), reps=5)
+    log(f"  K1 poisson3Da, bf16 blocks: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / k_ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; "
+        f"max_abs_err {err:.3g}; execute end to end {e2e_ms:.3f} ms")
+    return {"K1_bf16_ms": k_ms, "K1_bf16_plain_ms": p_ms, "K1_bf16_bound_ms": b_ms,
+            "K1_bf16_bound_by": b_by, "K1_bf16_max_abs_err": err,
+            "bf16_plan_oracle_max_abs": max(errs), "bf16_plan_execute_ms": e2e_ms,
+            "bf16_plan_k1_launches": launched["spgemm_scheduled"]}
+
+
 # -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
@@ -419,17 +523,21 @@ def kernel_inputs(plan, dev, rng, bsz):
 
 def bound(plan, bsz) -> tuple:
     """Least time (ms) the card could take for the kernel's work on this
-    plan: each input read once, each output written once, the flops at the
-    float32 peak outside the tensor cores; the larger of the two."""
+    plan: each input read once (at the plan's value size: 4 bytes, or 2 for
+    bfloat16), each float32 output written once, the flops at the card's
+    peak for the input type (bfloat16's tensor-core peak for a plan on
+    bfloat16 blocks, else float32's); the larger of the two."""
     ex = plan._executor
     bm, bk = ex.a_shape[1], ex.a_shape[2]
     bn = ex.b_shape[2]
     flops = 2.0 * plan.report.num_triples * bm * bk * bn * bsz
     runs = ex._runs
-    nbytes = bsz * 4 * (np.prod(ex.a_shape) + np.prod(ex.b_shape)
-                        + plan.report.n_panels * GROUP * bm * bn) \
+    item_a, item_b = (dt.itemsize for dt in plan.value_dtypes)
+    nbytes = bsz * (item_a * np.prod(ex.a_shape) + item_b * np.prod(ex.b_shape)
+                    + 4 * plan.report.n_panels * GROUP * bm * bn) \
         + 4 * (runs.ptr.numel() + runs.a_slot.numel() + runs.b_slot.numel())
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    bf16 = plan.value_dtypes == (torch.bfloat16, torch.bfloat16)
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
     t_bytes = float(nbytes) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops, nbytes
 
@@ -554,8 +662,10 @@ def breakdown(plan, dev, rng, reps: int) -> dict:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plan._rebind(av, plan._a_blocks, plan._a_scatter, r.nnz_a, "a_vals", plan._a_shape)
-        plan._rebind(bv, plan._b_blocks, plan._b_scatter, r.nnz_b, "b_vals", plan._b_shape)
+        plan._rebind(av, plan._a_blocks, plan._a_scatter, r.nnz_a, "a_vals", plan._a_shape,
+                     plan._a_dtype)
+        plan._rebind(bv, plan._b_blocks, plan._b_scatter, r.nnz_b, "b_vals", plan._b_shape,
+                     plan._b_dtype)
         t1 = time.perf_counter()
         a_d, b_d = torch.from_numpy(av).to(dev), torch.from_numpy(bv).to(dev)
         torch.cuda.synchronize()
@@ -610,9 +720,9 @@ def phase_second_timings(a, plan, dev, rng, extra):
         "2cubes_bound_by": b_by, "2cubes_library_ms": lib_ms,
         "2cubes_execute_ms": e2e_ms, "2cubes_K1_tflops": flops / k_ms / 1e9,
     })
-    log(f"  K1 2cubes_sphere: {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), bound "
-        f"{b_ms:.3f} ms ({b_by}), plain {p_ms:.3f} ms, cuSPARSE {lib_ms:.3f} ms; "
-        f"execute end to end {e2e_ms:.3f} ms")
+    log(f"  K1 2cubes_sphere: {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / k_ms:.1%} of the bound {b_ms:.3f} ms, {b_by}), plain {p_ms:.3f} ms, "
+        f"cuSPARSE {lib_ms:.3f} ms; execute end to end {e2e_ms:.3f} ms")
 
 
 # -- phase 6: flash attention against its plain version ------------------------
@@ -1067,15 +1177,26 @@ def phase_bsr(dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             bsr_check(torch.from_numpy(x).to(dev, dtype), w,
                       f"({m}, {k}, {n}) blocks ({bk}, {bn}) {str(dtype)[6:]}")
+    # bf16 blocks whose rows the wrapper pads (bn % 8 != 0; TMA reads
+    # 16-byte rows).
+    for m, bn in ((100, 20), (64, 132)):
+        x = np.random.default_rng(2).standard_normal((m, 96), dtype=np.float32)
+        _, w = bsr_weight(96, 3 * bn, 32, bn, seed=12)
+        bsr_check(torch.from_numpy(x).to(dev, torch.bfloat16), w,
+                  f"({m}, 96, {3 * bn}) blocks (32, {bn}) bfloat16, rows padded")
     _, w = bsr_weight(256, 512, 128, 128, seed=8, kill_panel=1)
     x = np.random.default_rng(1).standard_normal((64, 256), dtype=np.float32)
-    got, _ = bsr_check(torch.from_numpy(x).to(dev), w, "(64, 256, 512) column panel 1 empty")
-    check(bool((got[:, 128:256] == 0).all()), "K3: the empty column panel is not zero")
+    for dtype in (torch.float32, torch.bfloat16):
+        got, _ = bsr_check(torch.from_numpy(x).to(dev, dtype), w,
+                           f"(64, 256, 512) column panel 1 empty {str(dtype)[6:]}")
+        check(bool((got[:, 128:256] == 0).all()), "K3: the empty column panel is not zero")
     wd, w = bsr_weight(384, 512, 128, 128, seed=5, integer=True)
     xi = np.random.default_rng(3).integers(-3, 4, (200, 384)).astype(np.float32)
-    got = ops.sparse_dense_matmul(torch.from_numpy(xi).to(dev), w)
-    check(torch.equal(got.cpu(), torch.from_numpy(xi @ wd)), "K3 small integers not bitwise")
-    log("  K3 (200, 384, 512) small integers: bitwise equal to x @ W")
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ops.sparse_dense_matmul(torch.from_numpy(xi).to(dev, dtype), w)
+        check(torch.equal(got.cpu(), torch.from_numpy(xi @ wd)),
+              f"K3 small integers not bitwise in {dtype}")
+        log(f"  K3 (200, 384, 512) {str(dtype)[6:]} small integers: bitwise equal to x @ W")
 
     # The main path's shape: granite-3-2b's SparseLinear down projection.
     c = BSR_FULL
@@ -1085,8 +1206,10 @@ def phase_bsr(dev) -> dict:
     reset_counts()
     y = ops.sparse_dense_matmul(x, w)
     torch.cuda.synchronize()
-    launches = counts()["bsr_spmm"]
-    check(launches == 1, f"K3 launches in ops.sparse_dense_matmul: {launches}")
+    launched = counts()
+    launches = launched["bsr_spmm"]
+    check(launches == 1 and launched["bsr_spmm_bf16"] == 1,
+          f"K3 launches in ops.sparse_dense_matmul: {launched}")
     blocks = torch.from_numpy(w.blocks).to(dev, torch.bfloat16)
     want = ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, c["n"])
     err = float((y - want).abs().max())
@@ -1096,33 +1219,54 @@ def phase_bsr(dev) -> dict:
         f"(|y| max {float(want.abs().max()):.3g})")
     torch.testing.assert_close(y, want, rtol=BSR_TOL, atol=BSR_TOL, msg="K3 at granite's shape")
     del want
-    # Operands as the kernel takes them, for timing the wrapper alone.
+    # Operands as the kernel takes them, its indices staged on the card
+    # once, for timing the kernel alone.
     order = np.lexsort((w.brow, w.bcol))
     brow, bcol = w.brow[order], w.bcol[order]
     sorted_blocks = blocks[torch.from_numpy(order).to(dev)].contiguous()
-    flags = np.zeros(w.nnzb, np.int32)
-    kernel = lambda: bsr_spmm(x, sorted_blocks, brow, bcol, flags, n=c["n"])  # noqa: E731
+    b = c["block"]
+    index = stage_bsr_index(brow, bcol, k_blocks=c["k"] // b, n_panels=c["n"] // b, device=dev)
+    check(torch.equal(bsr_spmm_staged(x, sorted_blocks, index, n=c["n"]), y),
+          "K3 on staged indices differs from ops.sparse_dense_matmul")
+    kernel = lambda: bsr_spmm_staged(x, sorted_blocks, index, n=c["n"])  # noqa: E731
     # The yardstick: the reference's serving path, a dense product with the
     # masked weight (cuBLAS bf16); the port never calls it.
-    b = c["block"]
     dense_w = torch.zeros((c["k"] // b, c["n"] // b, b, b), dtype=torch.bfloat16, device=dev)
     dense_w[torch.from_numpy(w.brow).long(), torch.from_numpy(w.bcol).long()] = blocks
     dense_w = dense_w.permute(0, 2, 1, 3).reshape(c["k"], c["n"])
     lib_err = float((torch.matmul(x, dense_w).float() - y).abs().max())
     check(lib_err <= LIB_TOL * max(1.0, float(y.abs().max())), f"matmul vs K3: {lib_err}")
-    k_ms = time_ms(kernel, reps=10)
-    p_ms = time_ms(lambda: ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, c["n"]), reps=5)
-    lib_ms = time_ms(lambda: torch.matmul(x, dense_w), reps=20)
     (b_ms, b_by), flops = bsr_bound(c["m"], c["n"], w, 2)
-    log(f"  K3 timing: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.2%} of "
-        f"the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; torch.matmul with the "
-        f"masked dense weight {lib_ms:.4f} ms (max |matmul - K3| {lib_err:.3g})")
+    # Kernel and yardstick in turns (matmul, kernel, kernel, matmul), one
+    # call per event pair as every kernel here is timed; each time is the
+    # median of its two turns' samples.
+    matmul = lambda: torch.matmul(x, dense_w)  # noqa: E731
+    lib_a = time_samples(matmul, reps=10)
+    k_a = time_samples(kernel, reps=10)
+    k_b = time_samples(kernel, reps=10)
+    lib_b = time_samples(matmul, reps=10)
+    k_ms, lib_ms = float(np.median(k_a + k_b)), float(np.median(lib_a + lib_b))
+    # The wrapper call that stages its indices on every call, as K3's
+    # timings before the staged split measured it.
+    flags = np.zeros(w.nnzb, np.int32)
+    wrap_ms = time_ms(lambda: bsr_spmm(x, sorted_blocks, brow, bcol, flags, n=c["n"]), reps=10)
+    ops_ms = time_ms(lambda: ops.sparse_dense_matmul(x, w), reps=10)
+    p_ms = time_ms(lambda: ref.bsr_spmm_ref(x, blocks, w.brow, w.bcol, c["n"]), reps=5)
+    log(f"  K3 timing, kernel alone on staged indices: {k_ms:.4f} ms (turns "
+        f"{np.median(k_a):.4f} / {np.median(k_b):.4f}; {flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by}); torch.matmul with the masked "
+        f"dense weight {lib_ms:.4f} ms (turns {np.median(lib_a):.4f} / {np.median(lib_b):.4f}; "
+        f"K3 / matmul {k_ms / lib_ms:.2f}x; max |matmul - K3| {lib_err:.3g}); the wrapper "
+        f"bsr_spmm (index staging included) {wrap_ms:.4f} ms; ops.sparse_dense_matmul (host staging included) {ops_ms:.4f} ms; plain {p_ms:.4f} ms")
     return {
         "name": "bsr_spmm", "route": "cuda", "source": SOURCE_K3,
         "replaces": "src/repro/kernels/bsr_spmm.py:77", "launches": launches,
         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
-    }, {"K3_nnzb": w.nnzb, "K3_tflops": flops / k_ms / 1e9, "K3_matmul_max_abs": lib_err}
+    }, {"K3_nnzb": w.nnzb, "K3_tflops": flops / k_ms / 1e9, "K3_matmul_max_abs": lib_err,
+        "K3_ops_ms": ops_ms, "K3_wrapper_ms": wrap_ms, "K3_kernel_ms_turns": [float(np.median(k_a)), float(np.median(k_b))],
+        "K3_matmul_ms_turns": [float(np.median(lib_a)), float(np.median(lib_b))],
+        "K3_bound_share": b_ms / k_ms}
 
 
 # -- phase 11: grouped matmul (K4) ---------------------------------------------
@@ -1304,20 +1448,48 @@ def phase_moe_float32(dev) -> dict:
             "moe_f32_decode_vs_prefill_max_abs": derr, "moe_f32_decode_ms_per_step": dec_ms}
 
 
+def float32_routers(params, cfg, dev) -> int:
+    """Redraw every MoE layer's router in float32 (normal, std 0.02, the
+    template's rule; a generator on the card, seed SEED): the reference
+    routes with a float32 weight, and ``BatchedServer`` keeps it float32.
+    Returns the router parameters' count."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = 0
+    for layer in params["layers"]:
+        if "router" not in layer["ff"]:
+            continue
+        w = layer["ff"]["router"]["w"]
+        w.data = torch.randn(tuple(w.shape), generator=gen, device=dev).mul_(0.02)
+        n += w.numel()
+    return n
+
+
 def phase_moe_bfloat16(dev) -> tuple:
     cfg = get_config(MOE_ARCH).with_(param_dtype="bfloat16")
     t0 = time.perf_counter()
     params = tr.init_lm(SEED, cfg, device=dev)
+    n_router = float32_routers(params, cfg, dev)
     torch.cuda.synchronize()
     n_params = describe_lm(cfg, params, t0)
+    routers = [layer["ff"]["router"]["w"] for layer in params["layers"]]
+    check(len(routers) == moe_layers(cfg) and all(w.dtype == torch.float32 for w in routers),
+          "qwen3 routers are not float32")
+    log(f"  {len(routers)} routers kept in float32 ({n_router} parameters, "
+        f"{4 * n_router / 1e6:.1f} MB); every other weight bfloat16")
     tokens = lm_tokens(cfg, dev)
     launched = prefill_main_path(params, cfg, tokens)
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K4 launches "
         f"{launched['moe_gmm']}, K5 launches {launched['flash_attention']}")
     full, dense, stats = moe_kernel_vs_plain(params, cfg, tokens)
     del full, dense
+    pairs = moe_layers(cfg) * tokens.numel() * cfg.top_k
+    log(f"  expert choices that differ between the kernels and the plain versions, float32 "
+        f"routers: {stats['choices_differ'] / pairs:.2%} of {pairs} (with bf16 routers, "
+        f"measured before: 0.77 %)")
     torch.cuda.empty_cache()
     server = BatchedServer(cfg, batch_slots=4, max_seq=256, device=dev, params=params)
+    check(all(layer["ff"]["router"]["w"].dtype == torch.float32
+              for layer in server.params["layers"]), "BatchedServer's routers are not float32")
     rng = np.random.default_rng(SEED)
     for i in range(8):
         server.submit(Request(i, rng.integers(0, cfg.vocab, 8).tolist(), 16))
@@ -1411,10 +1583,25 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {lib_path.name.split('-')[0]}: " + line.strip())
     k4_lib, k5_lib = _build.load_moe_gmm(), _build.load_flash_attention()
+    k3_lib, k1_lib = _build.load_bsr_spmm(), _build.load_gustavson()
     log("  dynamic shared memory of the tensor-core kernels (bytes per block): K4 bf16 "
         + ", ".join(f"tm {tm}: {k4_lib.moe_gmm_smem_bytes(1, tm)}" for tm in (128, 64, 32, 16, 8))
+        + "; K3 bf16 " + ", ".join(f"M {m}: {k3_lib.bsr_spmm_smem_bytes(1, m)} "
+                                   f"({k3_lib.bsr_spmm_blocks_per_sm(1, m)} blocks per SM)"
+                                   for m in (BSR_FULL["m"], 128, 64, 32, 16, 8))
         + "; K5 bf16 " + ", ".join(f"D {d}: {k5_lib.flash_attention_smem_bytes(1, d)}"
                                    for d in (64, 128, 256)))
+    ring = {}
+    for dt, name in ((0, "float32"), (1, "bfloat16")):
+        for tile in RUN_TILES:
+            smem = k1_lib.gustavson_spgemm_smem_bytes(dt, *tile)
+            blocks = k1_lib.gustavson_spgemm_blocks_per_sm(dt, *tile)
+            threads = k1_lib.gustavson_spgemm_threads(dt, *tile)
+            check(smem > 0 and blocks > 0 and threads > 0, f"K1 occupancy at {tile} {name}")
+            ring[f"{name} {tile}"] = (smem, threads, blocks)
+    log("  K1 ring (3 stages, each 32 deep along k where bk allows, else 16; dynamic shared "
+        "memory bytes, threads, blocks per SM): "
+        + "; ".join(f"{k}: {v}" for k, v in ring.items()))
 
     log("[3] kernel vs plain version")
     phase_kernel_checks(dev)
@@ -1424,6 +1611,9 @@ def main() -> int:
 
     log("[5] 2cubes_sphere")
     a2, plan2 = phase_second_matrix(dev, rng)
+
+    log("[5b] poisson3Da, a plan built on bfloat16 values")
+    bf16_plan = phase_bf16_plan(a, dev, rng)
 
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
@@ -1436,6 +1626,7 @@ def main() -> int:
 
     log("[9] timings")
     entries, extra = phase_timings(a, plan, launched, chunk, dev, rng)
+    extra.update(bf16_plan)
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2

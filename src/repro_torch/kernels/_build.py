@@ -6,8 +6,9 @@ repository's ``build/kernels/`` and loaded with ``ctypes``. The library's
 file name carries a digest of the source, the shared headers (``*.cuh``)
 and the flags, so an edited source or header builds anew and an unchanged
 one is reused. A failed build raises. No library is linked against the
-CUDA library libcuda: the grouped matmul's bfloat16 path takes
-``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint`` at run time.
+CUDA library libcuda: the bfloat16 paths of the grouped matmul and the
+block-sparse SpMM take ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint`` at run time.
 """
 from __future__ import annotations
 
@@ -97,6 +98,10 @@ def load_gustavson() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     fn.restype = i32
+    for name in ("gustavson_spgemm_smem_bytes", "gustavson_spgemm_blocks_per_sm",
+                 "gustavson_spgemm_threads"):
+        getattr(lib, name).argtypes = [i32] * 4
+        getattr(lib, name).restype = i32
     return lib
 
 
@@ -119,8 +124,11 @@ def load_bsr_spmm() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("bsr_spmm")))
     fn = lib.bsr_spmm_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     fn.restype = i32
+    for name in ("bsr_spmm_smem_bytes", "bsr_spmm_blocks_per_sm"):
+        getattr(lib, name).argtypes = [i32] * 2
+        getattr(lib, name).restype = i32
     return lib
 
 

@@ -21,9 +21,9 @@
 // order of the sums differs.
 //
 // What bounds it. At the MoE prefill's shape (T = 128 experts x 640 slots,
-// D = 2048, F = 768) a launch is 257.7 GFLOP on 1 GB of operands: 0.26 ms
-// of bf16 tensor-core work against 0.30 ms of bytes, so both limits are
-// near. At decode (tm = 8, a few live rows per expert) every expert's whole
+// D = 2048, F = 768) a launch is 257.7 GFLOP on 1 GB of operands: at an
+// H100's peaks (989 TFLOP/s bf16, 3.35 TB/s) 0.26 ms of tensor-core work
+// against 0.30 ms of bytes, so both limits are near. At decode (tm = 8, a few live rows per expert) every expert's whole
 // weight (403 MB for gate/up) is read for 8 rows: the bytes of w bound it.
 //
 // Float32 (moe_gmm_kernel). One thread block owns one (BM-row tile,
@@ -37,14 +37,14 @@
 // its N over the tile's tokens: N = BN, the largest of 128, 64, 32, 16, 8
 // dividing tm, covers the prefill (tm 128) and decode (tm 8) alike. A
 // block owns 128 columns of F (two consumer warpgroups of 64) by BN
-// tokens and walks D in steps of 64 through a ring of shared-memory stages
-// (3 to 5, about 96 KB): one producer thread fills each stage by TMA with
-// 64 x 64 boxes of w (A, MN-major: w is F-contiguous) and a 64 x BN box of
-// x (B, K-major), both 128-byte swizzled, and signals an mbarrier; the
-// consumers run four m64nBNk16 wgmmas per stage and free a stage once the
-// next stage's wgmmas are issued. TMA zero-fills the ragged edges of D and
-// F; w is a 3-D tensor map [E, D, F], so a D edge never reads the next
-// expert. TMA needs 16-byte strides, so w's rows are padded to a multiple
+// tokens and walks D in steps of 64 through the ring of sm90.cuh (3 to 5
+// shared-memory stages, about 96 KB), shared with the block-sparse SpMM:
+// one producer thread fills each stage by TMA with 64 x 64 boxes of w (A,
+// MN-major: w is F-contiguous) and a 64 x BN box of x (B, K-major), both
+// 128-byte swizzled, and signals an mbarrier; the consumers run four
+// m64nBNk16 wgmmas per stage and free a stage once the next stage's
+// wgmmas have started. TMA zero-fills the ragged edges of D and F; w is a
+// 3-D tensor map [E, D, F], so a D edge never reads the next expert. TMA needs 16-byte strides, so w's rows are padded to a multiple
 // of 8 values (the wrapper pads w when F % 8 != 0; no model shape does).
 // The epilogue writes out[t, f] from the accumulator fragments: each store
 // instruction fills four whole 32-byte sectors. Blocks share nothing and
@@ -103,182 +103,75 @@ cudaError_t launch_f32(const void* x, const void* w, const void* tile_expert, vo
   return cudaGetLastError();
 }
 
-// -- bfloat16: wgmma fed by TMA ------------------------------------------------
+// -- bfloat16: wgmma fed by TMA (the ring of sm90.cuh) -------------------------
 
-constexpr int kBF = 128;                      // F columns per block
-constexpr int kBD = 64;                       // D per stage: one 128-byte row
-constexpr int kConsumers = 256;               // two warpgroups of 64 F rows each
-constexpr int kThreads = kConsumers + 32;     // and one producer warp
-constexpr int kWHalfBytes = 64 * kBD * 2;     // one 64 f x 64 d box of w
+constexpr int kBF = 128;  // F columns per block: two consumer warpgroups of 64
 
 template <int BN>
-struct Ring {
-  static constexpr int kXBytes = BN * kBD * 2;  // BN rows of 128 bytes
-  static constexpr int kStageBytes = 2 * kWHalfBytes + kXBytes;
-  static constexpr int kFit = 98304 / kStageBytes;
-  static constexpr int kStages = kFit < 3 ? 3 : (kFit > 5 ? 5 : kFit);
-  // 1024 bytes of slack to align the ring to a swizzle atom, then the
-  // ring, then a full and an empty mbarrier per stage.
-  static constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
-};
-
-// The accumulator fragments of one consumer warpgroup (64 F rows from
-// fbase, BN tokens from row0) into out [*, f]: element (r, c) of the
-// transposed tile is out[row0 + c, fbase + r].
-template <int BN>
-__device__ __forceinline__ void store_transposed(float* __restrict__ out, const float (&acc)[BN / 2],
-                                                 int row0, int fbase, int f) {
-  const int lane = threadIdx.x % 32;
-  const int fr = fbase + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    float* p = out + (size_t)(row0 + 8 * j + 2 * (lane % 4)) * f;
-    if (fr < f) {
-      p[fr] = acc[4 * j];
-      p[f + fr] = acc[4 * j + 1];
-    }
-    if (fr + 8 < f) {
-      p[fr + 8] = acc[4 * j + 2];
-      p[f + fr + 8] = acc[4 * j + 3];
-    }
-  }
-}
-
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(sm90::kRingThreads, 2)
 moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                      const __grid_constant__ CUtensorMap w_map,
                      const int* __restrict__ tile_expert, float* __restrict__ out,
                      int d, int f, int e, int tm, int n_ftiles) {
-  using R = Ring<BN>;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t ring = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full = ring + R::kStages * R::kStageBytes;  // full[s] at full + 8 s
-  const uint32_t empty = full + 8 * R::kStages;               // empty[s] at empty + 8 s
-
   const int tid = threadIdx.x;
   const int f0 = (blockIdx.x % n_ftiles) * kBF;
   const int row0 = (blockIdx.x / n_ftiles) * BN;
   const int ex = tile_expert[row0 / tm];
   const int wg = tid / 128;
+  // Warpgroup wg's output: F columns f0 + 64 wg .. + 63 of BN token rows.
+  float* const o = out + (size_t)row0 * f + f0 + 64 * wg;
 
   if (ex < 0 || ex >= e) {
-    if (tid < kConsumers) {
+    if (tid < sm90::kRingConsumers) {
       float nans[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) nans[i] = __int_as_float(0x7fc00000);
-      store_transposed<BN>(out, nans, row0, f0 + 64 * wg, f);
+      sm90::store_transposed<BN>(o, f, BN, f - f0 - 64 * wg, nans);
     }
     return;
   }
 
-  const int nk = (d + kBD - 1) / kBD;
+  const int nk = (d + sm90::kRingDepth - 1) / sm90::kRingDepth;
   const int halves = f - f0 > 64 ? 2 : 1;  // 64-row halves of the F tile inside F
-  if (tid == 0) {
-    for (int s = 0; s < R::kStages; ++s) {
-      sm90::mbar_init(full + 8 * s, 1);
-      sm90::mbar_init(empty + 8 * s, kConsumers);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
+  const sm90::RingAddr r = sm90::ring_setup<BN>(smem_raw);
 
-  if (tid >= kConsumers) {
-    // Producer: one thread keeps the ring full.
-    if (tid == kConsumers) {
+  if (tid >= sm90::kRingConsumers) {
+    if (tid == sm90::kRingConsumers) {
       sm90::tma_prefetch_map(&x_map);
       sm90::tma_prefetch_map(&w_map);
-      const uint32_t bytes = halves * kWHalfBytes + R::kXBytes;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % R::kStages;
-        const uint32_t stage = ring + s * R::kStageBytes;
-        sm90::mbar_wait(empty + 8 * s, ((kt / R::kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(full + 8 * s, bytes);
-        sm90::tma_load_3d(stage, &w_map, full + 8 * s, f0, kt * kBD, ex);
-        if (halves > 1)
-          sm90::tma_load_3d(stage + kWHalfBytes, &w_map, full + 8 * s, f0 + 64, kt * kBD, ex);
-        sm90::tma_load_2d(stage + 2 * kWHalfBytes, &x_map, full + 8 * s, kt * kBD, row0);
-      }
+      const uint32_t bytes = halves * sm90::kRingABytes + sm90::Ring<BN>::kBBytes;
+      sm90::ring_produce<BN>(r, nk, bytes, [&](int kt, uint32_t stage, uint32_t bar) {
+        const int k0 = kt * sm90::kRingDepth;
+        sm90::tma_load_3d(stage, &w_map, bar, f0, k0, ex);
+        if (halves > 1) sm90::tma_load_3d(stage + sm90::kRingABytes, &w_map, bar, f0 + 64, k0, ex);
+        sm90::tma_load_2d(stage + 2 * sm90::kRingABytes, &x_map, bar, k0, row0);
+      });
     }
     return;
   }
 
-  // Consumers: warpgroup wg owns F rows f0 + 64 wg .. + 63 (none if past F).
-  const bool active = wg < halves;
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
   sm90::fence_regs(acc);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % R::kStages;
-    sm90::mbar_wait(full + 8 * s, (kt / R::kStages) & 1);
-    if (active) {
-      const uint32_t a = ring + s * R::kStageBytes + wg * kWHalfBytes;
-      const uint32_t b = ring + s * R::kStageBytes + 2 * kWHalfBytes;
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBD / 16; ++kk) {
-        // A: 16 d rows of 128 bytes further; B: 16 d values (32 bytes)
-        // further along each token's row.
-        sm90::Wgmma<BN>::mma(acc, sm90::sw128_desc(a + kk * 2048, 1024, 1024),
-                             sm90::sw128_desc(b + kk * 32, 16, 1024));
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();  // the previous stage's wgmmas are done
-    }
-    if (kt > 0) sm90::mbar_arrive(empty + 8 * ((kt - 1) % R::kStages));
-  }
-  if (active) sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-  store_transposed<BN>(out, acc, row0, f0 + 64 * wg, f);
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up once at run time.
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
+  sm90::ring_consume<BN>(r, nk, wg < halves, wg, acc);
+  sm90::store_transposed<BN>(o, f, BN, f - f0 - 64 * wg, acc);
 }
 
 // Tensor maps of x [t, d] (boxes of 64 d x bn tokens) and w [e, d, fw]
-// (boxes of 64 f x 64 d x 1 expert), bf16, 128-byte swizzle, zero fill.
+// (boxes of 64 f x 64 d x 1 expert).
 cudaError_t encode_maps(CUtensorMap* xm, CUtensorMap* wm, const void* x, const void* w, int t,
                         int d, int fw, int e, int bn) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t ones[3] = {1, 1, 1};
   const cuuint64_t xdim[2] = {(cuuint64_t)d, (cuuint64_t)t};
   const cuuint64_t xstride[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t xbox[2] = {(cuuint32_t)kBD, (cuuint32_t)bn};
-  if (enc(xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), xdim, xstride, xbox,
-          ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
+  const cuuint32_t xbox[2] = {(cuuint32_t)sm90::kRingDepth, (cuuint32_t)bn};
+  cudaError_t err = sm90::encode_bf16_map(xm, x, 2, xdim, xstride, xbox);
+  if (err != cudaSuccess) return err;
   const cuuint64_t wdim[3] = {(cuuint64_t)fw, (cuuint64_t)d, (cuuint64_t)e};
   const cuuint64_t wstride[2] = {(cuuint64_t)fw * 2, (cuuint64_t)d * fw * 2};
-  const cuuint32_t wbox[3] = {64, (cuuint32_t)kBD, 1};
-  if (enc(wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wdim, wstride, wbox,
-          ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+  const cuuint32_t wbox[3] = {64, (cuuint32_t)sm90::kRingDepth, 1};
+  return sm90::encode_bf16_map(wm, w, 3, wdim, wstride, wbox);
 }
 
 int padded_f(int f) { return (f + 7) / 8 * 8; }
@@ -293,7 +186,7 @@ int row_tile(int tm) {
 template <int BN>
 cudaError_t launch_bf16(const void* x, const void* w, const void* tile_expert, void* out,
                         int t, int d, int f, int e, int tm, cudaStream_t stream) {
-  using R = Ring<BN>;
+  using R = sm90::Ring<BN>;
   CUtensorMap xm, wm;
   cudaError_t err = encode_maps(&xm, &wm, x, w, t, d, padded_f(f), e, BN);
   if (err != cudaSuccess) return err;
@@ -303,7 +196,7 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* tile_expert, v
   const int n_ftiles = (f + kBF - 1) / kBF;
   const long long blocks = (long long)n_ftiles * (t / BN);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, R::kSmemBytes, stream>>>(
+  kernel<<<(unsigned)blocks, sm90::kRingThreads, R::kSmemBytes, stream>>>(
       xm, wm, static_cast<const int*>(tile_expert), static_cast<float*>(out), d, f, e, tm,
       n_ftiles);
   return cudaGetLastError();
@@ -369,10 +262,10 @@ extern "C" int moe_gmm_encode_maps(const void* x, const void* w, int t, int d, i
 extern "C" int moe_gmm_smem_bytes(int dtype, int tm) {
   if (dtype != 1 || tm < 8 || tm % 8) return 0;
   switch (row_tile(tm)) {
-    case 128: return Ring<128>::kSmemBytes;
-    case 64: return Ring<64>::kSmemBytes;
-    case 32: return Ring<32>::kSmemBytes;
-    case 16: return Ring<16>::kSmemBytes;
-    default: return Ring<8>::kSmemBytes;
+    case 128: return sm90::Ring<128>::kSmemBytes;
+    case 64: return sm90::Ring<64>::kSmemBytes;
+    case 32: return sm90::Ring<32>::kSmemBytes;
+    case 16: return sm90::Ring<16>::kSmemBytes;
+    default: return sm90::Ring<8>::kSmemBytes;
   }
 }

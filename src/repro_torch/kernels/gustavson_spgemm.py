@@ -3,16 +3,22 @@
 The paper's FPGA kernel (NUM_PE processing elements sharing a B-row buffer)
 runs on the GPU as one thread block per (panel, sub_row) output tile: the
 block walks that tile's triples of the static schedule
-(:func:`repro_torch.core.schedule.panel_runs`), keeps the float32 sum on
-chip and writes the tile once. :func:`spgemm_scheduled` runs one value set;
-:func:`spgemm_scheduled_batch` runs a batch of value sets over the shared
-schedule, with the batch element as a grid dimension, and equals a loop of
-single calls bit for bit.
+(:func:`repro_torch.core.schedule.panel_runs`) as a stream of 32-deep
+chunks (16-deep where the tile's depth needs it) through a ring of
+shared-memory stages filled by asynchronous copies, keeps the float32 sum
+on chip and writes the tile once.
+:func:`spgemm_scheduled` runs one value set; :func:`spgemm_scheduled_batch`
+runs a batch of value sets over the shared schedule, with the batch
+element as a grid dimension, and equals a loop of single calls bit for
+bit. Blocks are float32 or bfloat16 (a plan built on bfloat16 values
+stages bfloat16 blocks); the result is float32 either way, each element a
+float32 FMA chain over the tile's triples in order, k ascending.
 
 Each wrapper launches the CUDA kernel for CUDA tensors and raises on
 anything it does not accept. For CPU tensors it computes the same result
 with the plain PyTorch version (:mod:`repro_torch.kernels.ref`). Each
-wrapper's ``launches`` attribute counts its kernel launches.
+wrapper's ``launches`` attribute counts its kernel launches, and
+``bf16_launches`` those with bfloat16 blocks.
 """
 from __future__ import annotations
 
@@ -21,12 +27,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.schedule import SpGEMMSchedule, panel_runs
+from repro_torch.core.schedule import SpGEMMSchedule, build_spgemm_schedule, panel_runs
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_gustavson
+from repro_torch.sparse.convert import to_bcsr, to_bcsv
+from repro_torch.sparse.formats import BCSR, BCSV
 
 __all__ = [
     "ScheduleRuns",
+    "runs_case",
     "spgemm_scheduled",
     "spgemm_scheduled_batch",
     "stage_runs",
@@ -75,6 +84,31 @@ def stage_runs(schedule: SpGEMMSchedule, device) -> ScheduleRuns:
         n_panels=schedule.n_panels,
         group=schedule.group,
     )
+
+
+def runs_case(tile, integer: bool, seed: int = 11) -> tuple[BCSV, BCSR, SpGEMMSchedule]:
+    """A check case for the kernel's run handling: one panel of four
+    sub-rows (group 4) whose tiles run 0, 1, 3 and 8 triples. A's block
+    rows hold 0, 1, 3 and 8 of its 8 block columns, B is one block column
+    of 8 nonzero blocks. Values are nonzero small integers (every float32
+    sum exact, whatever the order) or normal values scaled by 1/sqrt(8 bk),
+    so that outputs (sums of up to 8 bk products) are of order 1, where
+    1e-5 bounds the float32 rounding of two summation orders."""
+    bm, bk, bn = tile
+    rng = np.random.default_rng(seed)
+    ad = np.zeros((4 * bm, 8 * bk), np.float32)
+    for row, count in enumerate((0, 1, 3, 8)):
+        for col in rng.choice(8, count, replace=False):
+            ad[row * bm:(row + 1) * bm, col * bk:(col + 1) * bk] = 1.0
+    bd = np.ones((8 * bk, bn), np.float32)
+    if integer:  # nonzero, so that no block drops out of the pattern
+        ad *= rng.choice([-3, -2, -1, 1, 2, 3], ad.shape)
+        bd *= rng.choice([-3, -2, -1, 1, 2, 3], bd.shape)
+    else:
+        ad *= (rng.standard_normal(ad.shape) / np.sqrt(8 * bk)).astype(np.float32)
+        bd *= rng.standard_normal(bd.shape).astype(np.float32)
+    a, b = to_bcsv(ad, (bm, bk), 4), to_bcsr(bd, (bk, bn))
+    return a, b, build_spgemm_schedule(a, b)
 
 
 def _check(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> None:
@@ -171,6 +205,7 @@ def spgemm_scheduled(
         )
     out = _launch(a_blocks, b_blocks, runs, 1)
     spgemm_scheduled.launches += 1
+    spgemm_scheduled.bf16_launches += a_blocks.dtype == torch.bfloat16
     return out[0]
 
 
@@ -198,8 +233,11 @@ def spgemm_scheduled_batch(
         )
     out = _launch(a_blocks, b_blocks, runs, bsz)
     spgemm_scheduled_batch.launches += 1
+    spgemm_scheduled_batch.bf16_launches += a_blocks.dtype == torch.bfloat16
     return out
 
 
 spgemm_scheduled.launches = 0
+spgemm_scheduled.bf16_launches = 0
 spgemm_scheduled_batch.launches = 0
+spgemm_scheduled_batch.bf16_launches = 0

@@ -8,9 +8,11 @@ argmax and ``stats``.
 
 The reference builds a host mesh and logical-axis sharding rules around
 its jitted step; on one card there is nothing to shard, so the port drops
-them. The server holds the weights on the card in the compute dtype, cast
-once at start-up, where the reference's ``dense`` casts them on every
-call: the values are the same.
+them. The server holds the weights on the card in the dtypes the
+reference computes them in, cast once at start-up where the reference
+casts at every use (``dense`` to the compute dtype, the MoE router to
+float32; :func:`repro_torch.models.nn.cast_params`): the values are the
+same.
 
     python -m repro_torch.launch.serve --arch granite-3-2b
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b

@@ -29,7 +29,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import _act
 from repro_torch.models.nn import Param
 
-__all__ = ["moe_t", "moe_forward", "route"]
+__all__ = ["moe_t", "moe_forward", "route", "router_logits"]
 
 # Row tiles the grouped matmul may take, largest first; C is a multiple of 8.
 _TILE_ROWS = (128, 64, 32, 16, 8)
@@ -61,13 +61,21 @@ def _tile_rows(cap: int) -> int:
     return next(tm for tm in _TILE_ROWS if cap % tm == 0)
 
 
+def router_logits(p, xf: torch.Tensor) -> torch.Tensor:
+    """Routing logits [T, E] of tokens xf [T, D]: xf and the router weight
+    in float32, as the reference routes. The weight is held in float32
+    (:func:`repro_torch.models.nn.cast_params` never rounds it to the
+    compute dtype), so the upcast here changes no value."""
+    return xf.float() @ p["router"]["w"].float()
+
+
 def route(p, xf: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing of tokens xf [T, D] in float32. Returns (gates [T, k]
     softmaxed over the chosen experts, experts [T, k] int64, the
     Switch/GShard load-balance loss)."""
     e = cfg.n_experts
-    logits = xf.float() @ p["router"]["w"].float()
+    logits = router_logits(p, xf)
     gates, experts = torch.topk(logits, cfg.top_k, dim=-1)
     gates = torch.softmax(gates, dim=-1)
     probs = torch.softmax(logits, dim=-1)

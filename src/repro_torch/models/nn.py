@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 __all__ = [
+    "FLOAT32_SUBTREES",
     "Param",
     "ParamTree",
     "cast_params",
@@ -99,18 +100,27 @@ def init_params(template: Any, generator: torch.Generator, dtype, device) -> nn.
     return build(template)
 
 
+# Subtrees whose leaves the reference always uses in float32, whatever the
+# compute dtype: the MoE router (``repro.models.moe._moe_local`` routes with
+# ``p["router"]["w"].astype(jnp.float32)``).
+FLOAT32_SUBTREES = ("router",)
+
+
 def cast_params(tree: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """A new tree with every floating parameter cast to ``dtype``; the
-    input tree is left as it is (``nn.Module.to`` would cast it in place).
-    Leaves already in ``dtype`` are shared, not copied."""
+    """A new tree with every floating parameter cast to the dtype the
+    reference computes it in: ``dtype``, except the leaves under a key of
+    :data:`FLOAT32_SUBTREES`, which are cast to float32. The input tree is
+    left as it is (``nn.Module.to`` would cast it in place). Leaves already
+    in their dtype are shared, not copied."""
     if isinstance(tree, ParamTree):
         out = {}
         for name in tree.keys():
             value = tree[name]
+            to = torch.float32 if name in FLOAT32_SUBTREES else dtype
             if isinstance(value, torch.Tensor):
-                out[name] = value.detach().to(dtype) if value.is_floating_point() else value
+                out[name] = value.detach().to(to) if value.is_floating_point() else value
             else:
-                out[name] = cast_params(value, dtype)
+                out[name] = cast_params(value, to)
         return ParamTree(out)
     if isinstance(tree, nn.ModuleList):
         return nn.ModuleList([cast_params(m, dtype) for m in tree])

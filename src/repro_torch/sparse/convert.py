@@ -9,13 +9,20 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.sparse.formats import BCSR, BCSV, COO, CSC, CSR, CSV
 
 AnySparse = Union[COO, CSR, CSC, CSV, BCSR, BCSV]
 
 
-def to_coo(a: Union[np.ndarray, AnySparse]) -> COO:
+def to_coo(a: Union[np.ndarray, torch.Tensor, AnySparse]) -> COO:
+    """Any input as COO. A torch tensor (strided, sparse COO or sparse CSR,
+    on any device) gives its nonzeros with numpy values; bfloat16 values,
+    which numpy has no type for, are widened exactly to float32 (a sparse
+    COO tensor's duplicates are summed in its own dtype first)."""
+    if isinstance(a, torch.Tensor):
+        return _tensor_to_coo(a)
     if isinstance(a, np.ndarray):
         return COO.fromdense(a)
     if isinstance(a, COO):
@@ -23,6 +30,17 @@ def to_coo(a: Union[np.ndarray, AnySparse]) -> COO:
     if isinstance(a, (CSR, CSC, CSV, BCSR, BCSV)):
         return a.to_coo()
     raise TypeError(f"cannot convert {type(a)} to COO")
+
+
+def _tensor_to_coo(t: torch.Tensor) -> COO:
+    if t.dim() != 2:
+        raise ValueError(f"expected a 2-D tensor, got shape {tuple(t.shape)}")
+    t = t.detach().cpu().to_sparse_coo().coalesce()
+    val = t.values()
+    if val.dtype == torch.bfloat16:
+        val = val.float()
+    idx = t.indices().numpy()
+    return COO(idx[0], idx[1], val.numpy(), tuple(int(d) for d in t.shape))
 
 
 def to_csr(a: Union[np.ndarray, AnySparse]) -> CSR:

@@ -10,7 +10,7 @@ chaining three device-side stages:
 
 1. **value rebind** (element plans): gather fresh ``[nnz]`` value vectors
    into the packed block arrays through the inverse of the plan's scatter
-   indices;
+   indices, in the plan's packed dtype (float32 or bfloat16);
 2. **the scheduled kernel**: the hand-written CUDA block-Gustavson kernel
    (:func:`repro_torch.kernels.gustavson_spgemm.spgemm_scheduled`) or its
    plain PyTorch version (:func:`repro_torch.kernels.ref.spgemm_scheduled_ref`);
@@ -105,8 +105,18 @@ def resolve_chunk_bytes(
     return per_set, max(per_set, int(default_cache * scale))
 
 
+def _same_dtype(a_blocks, b_blocks):
+    """The kernel reads A and B in one dtype: a plan whose A and B were
+    built on different dtypes (one bfloat16, one float32) runs in float32,
+    which widens the bfloat16 side exactly."""
+    if a_blocks.dtype != b_blocks.dtype:
+        return a_blocks.float(), b_blocks.float()
+    return a_blocks, b_blocks
+
+
 def _run_schedule(a_blocks, b_blocks, runs: ScheduleRuns, *, backend):
     """Dispatch the scheduled kernel: panels ``[n_panels, group*bm, bn]``."""
+    a_blocks, b_blocks = _same_dtype(a_blocks, b_blocks)
     if backend == "cuda":
         return spgemm_scheduled(a_blocks, b_blocks, runs)
     return ref.spgemm_scheduled_ref(
@@ -118,6 +128,7 @@ def _run_schedule(a_blocks, b_blocks, runs: ScheduleRuns, *, backend):
 def _run_schedule_batch(a_blocks, b_blocks, runs: ScheduleRuns, bsz, *, backend):
     """Dispatch the batched kernel over stacked blocks (``[bsz * slots,
     ...]``): panels ``[bsz, n_panels, group*bm, bn]``."""
+    a_blocks, b_blocks = _same_dtype(a_blocks, b_blocks)
     if backend == "cuda":
         return spgemm_scheduled_batch(a_blocks, b_blocks, runs, bsz=bsz)
     return ref.spgemm_scheduled_batch_ref(

@@ -18,8 +18,17 @@ to be performed once". This module is that claim as an API:
 
 Plans run on the card: ``device="cuda"`` is the default and raises when no
 CUDA device is present; ``device="cpu"`` runs the plain PyTorch version.
-Values are float32 on the device (float64 inputs are cast, as the JAX
-package does with 64-bit mode off).
+
+Value dtype: a plan keeps the packed dtype of the values it was built on,
+as the JAX package does: bfloat16 (a numpy array whose dtype is named
+``bfloat16``, or a bfloat16 tensor) or float32 (every other float type;
+float64 is cast, as the JAX package does with 64-bit mode off). Every
+later rebind, single or batched, host or device, rounds its values to that
+dtype (round to nearest even, as ``astype`` does), and a bfloat16 plan
+stages bfloat16 blocks, so the kernel reads them as bfloat16; C is float32
+either way. The port imports no ``ml_dtypes``: a numpy bfloat16 array is
+read through a 16-bit view, and the plan holds its packed blocks on the
+host as CPU tensors of its dtype.
 
 Output convention: C's CSR pattern is *structural* (every element of every
 structurally nonzero C block, trimmed to the true shape), so values that
@@ -56,10 +65,6 @@ __all__ = [
     "resolve_device",
     "spgemm_plan",
 ]
-
-# Host staging dtype of packed values; the kernel's float32 input.
-_VALUE_DTYPE = np.float32
-
 
 _REPORT_FIELDS = (
     "pattern_key", "pattern_token", "tile", "group", "backend", "shape",
@@ -159,22 +164,41 @@ class PlanReport:
                 f" executes={self.executes})")
 
 
-def _host_values(vals) -> np.ndarray:
-    """Values from a numpy array or a tensor of any float dtype (bfloat16
-    included), as float32 on the host."""
+def _packed_dtype(vals) -> torch.dtype:
+    """The packed dtype a plan built on ``vals`` holds: bfloat16 for
+    bfloat16 values (a tensor, or a numpy array whose dtype is named
+    ``bfloat16``), float32 for any other."""
     if isinstance(vals, torch.Tensor):
-        return vals.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(vals, dtype=_VALUE_DTYPE)
+        return torch.bfloat16 if vals.dtype == torch.bfloat16 else torch.float32
+    return torch.bfloat16 if np.asarray(vals).dtype.name == "bfloat16" else torch.float32
 
 
-def _device_values(vals, device: torch.device) -> torch.Tensor:
-    """Values as a contiguous float32 tensor on ``device`` (a tensor already
-    there is not copied through the host)."""
+def _as_tensor(vals, dtype: torch.dtype) -> torch.Tensor:
+    """Values from a numpy array (bfloat16 included) or a tensor, as a
+    tensor of ``dtype`` on the tensor's device (numpy: on the host),
+    rounded to nearest even. Float64 passes through float32 first, as
+    ``astype`` to bfloat16 does."""
     if isinstance(vals, torch.Tensor):
-        return vals.detach().to(device, torch.float32).contiguous()
-    return torch.from_numpy(
-        np.ascontiguousarray(vals, dtype=_VALUE_DTYPE)
-    ).to(device)
+        vals = vals.detach()
+        if vals.dtype == torch.float64:
+            vals = vals.float()
+        return vals.to(dtype)
+    vals = np.asarray(vals)
+    if vals.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(vals).view(np.uint16)).view(
+            torch.bfloat16).to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32)).to(dtype)
+
+
+def _host_values(vals, dtype: torch.dtype) -> torch.Tensor:
+    """Values as a contiguous CPU tensor of ``dtype``."""
+    return _as_tensor(vals, dtype).cpu().contiguous()
+
+
+def _device_values(vals, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Values as a contiguous tensor of ``dtype`` on ``device`` (a tensor
+    already there is not copied through the host)."""
+    return _as_tensor(vals, dtype).to(device).contiguous()
 
 
 class SpGEMMPlan:
@@ -203,8 +227,9 @@ class SpGEMMPlan:
         self,
         *,
         schedule: SpGEMMSchedule,
-        a_blocks: np.ndarray,
-        b_blocks: np.ndarray,
+        a_blocks,
+        b_blocks,
+        value_dtypes: Tuple[torch.dtype, torch.dtype],
         backend: str,
         device,
         out_shape: Tuple[int, int],
@@ -223,12 +248,13 @@ class SpGEMMPlan:
         self.b_pattern = b_pattern
         self._a_scatter = a_scatter
         self._b_scatter = b_scatter
-        self._a_blocks: np.ndarray = np.asarray(a_blocks, _VALUE_DTYPE)
-        self._b_blocks: np.ndarray = np.asarray(b_blocks, _VALUE_DTYPE)
+        # The packed dtypes of the values the plan was built on, and the
+        # host packed blocks (CPU tensors of those dtypes).
+        self._a_dtype, self._b_dtype = value_dtypes
+        self._a_blocks = _host_values(a_blocks, self._a_dtype)
+        self._b_blocks = _host_values(b_blocks, self._b_dtype)
         self._a_shape = tuple(self._a_blocks.shape)
         self._b_shape = tuple(self._b_blocks.shape)
-        self._a_dtype = self._a_blocks.dtype
-        self._b_dtype = self._b_blocks.dtype
         self._m, self._n = out_shape
         self._group = schedule.group
         self._bm = int(self._a_shape[1]) if len(self._a_shape) == 3 else 0
@@ -260,10 +286,10 @@ class SpGEMMPlan:
         # each see a consistent (values, device array) pair.
         self._lock = threading.Lock()
 
-    def _stage(self, blocks: np.ndarray) -> torch.Tensor:
+    def _stage(self, blocks: torch.Tensor) -> torch.Tensor:
         """Host packed blocks -> a device copy (never an alias of the host
         scratch that later rebinds write into)."""
-        return torch.from_numpy(blocks).to(self.device, copy=True)
+        return blocks.to(self.device, copy=True)
 
     # -- construction -----------------------------------------------------
 
@@ -310,6 +336,7 @@ class SpGEMMPlan:
             schedule=schedule,
             a_blocks=a.blocks,
             b_blocks=b.blocks,
+            value_dtypes=(_packed_dtype(a.blocks), _packed_dtype(b.blocks)),
             backend=backend,
             device=device,
             out_shape=(a.shape[0], b.shape[1]),
@@ -369,33 +396,39 @@ class SpGEMMPlan:
         group = int(meta["group"])
         a_scatter = arrays.get("a_scatter")
         b_scatter = arrays.get("b_scatter")
+        # The persisted value dtypes (the JAX package's names).
+        a_dtype, b_dtype = (
+            torch.bfloat16 if str(meta.get(f"{x}_dtype", "float32")) == "bfloat16"
+            else torch.float32
+            for x in ("a", "b")
+        )
 
-        def rebuild(vals, scatter, shape, name):
+        def rebuild(vals, scatter, shape, dtype, name):
             if scatter is None:
                 raise ValueError(f"{name}: persisted scatter missing")
-            vals = _host_values(vals)
+            vals = _host_values(vals, dtype)
             scatter = np.asarray(scatter)
             if vals.shape != (int(scatter.shape[0]),):
                 raise ValueError(
-                    f"{name}: {vals.shape} values vs persisted scatter "
+                    f"{name}: {tuple(vals.shape)} values vs persisted scatter "
                     f"of {int(scatter.shape[0])}"
                 )
-            blocks = np.zeros(shape, _VALUE_DTYPE)
-            blocks.reshape(-1)[scatter] = vals
+            blocks = torch.zeros(shape, dtype=dtype)
+            blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
             return blocks
 
         if kind == "element":
             if a_vals is None or b_vals is None:
                 raise ValueError("element plan needs a_vals/b_vals")
-            a_blocks = rebuild(a_vals, a_scatter, a_shape, "a_vals")
-            b_blocks = rebuild(b_vals, b_scatter, b_shape, "b_vals")
+            a_blocks = rebuild(a_vals, a_scatter, a_shape, a_dtype, "a_vals")
+            b_blocks = rebuild(b_vals, b_scatter, b_shape, b_dtype, "b_vals")
             nnz_a = int(np.asarray(a_scatter).shape[0])
             nnz_b = int(np.asarray(b_scatter).shape[0])
         else:
             if a_blocks is None or b_blocks is None:
                 raise ValueError("block plan needs a_blocks/b_blocks")
-            a_blocks = _host_values(a_blocks)
-            b_blocks = _host_values(b_blocks)
+            a_blocks = _as_tensor(a_blocks, a_dtype)
+            b_blocks = _as_tensor(b_blocks, b_dtype)
             if tuple(a_blocks.shape) != a_shape:
                 raise ValueError(f"a_blocks {a_blocks.shape} vs persisted {a_shape}")
             if tuple(b_blocks.shape) != b_shape:
@@ -412,6 +445,7 @@ class SpGEMMPlan:
             schedule=schedule,
             a_blocks=a_blocks,
             b_blocks=b_blocks,
+            value_dtypes=(a_dtype, b_dtype),
             backend=backend,
             device=device,
             out_shape=out_shape,
@@ -432,27 +466,30 @@ class SpGEMMPlan:
     def _rebind(
         self,
         vals,
-        blocks: np.ndarray,
+        blocks: torch.Tensor,
         scatter: Optional[np.ndarray],
         nnz: int,
         name: str,
         shape: Tuple[int, ...],
-    ) -> np.ndarray:
-        vals = _host_values(vals)
+        dtype: torch.dtype,
+    ) -> torch.Tensor:
+        """``vals`` rounded to the packed ``dtype`` and, for element plans,
+        scattered into ``blocks``; returns the host packed blocks."""
+        vals = _host_values(vals, dtype)
         if scatter is not None:
             if vals.shape != (nnz,):
                 raise ValueError(
                     f"{name}: expected [{nnz}] values in canonical pattern "
-                    f"order, got shape {vals.shape}"
+                    f"order, got shape {tuple(vals.shape)}"
                 )
             # Positions outside `scatter` are structurally zero and never
             # written, so in-place rebinding is sound.
-            blocks.reshape(-1)[scatter] = vals
+            blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
             return blocks
         if vals.shape != shape:
             raise ValueError(
                 f"{name}: expected packed blocks of shape {shape}, "
-                f"got {vals.shape}"
+                f"got {tuple(vals.shape)}"
             )
         return vals
 
@@ -464,6 +501,13 @@ class SpGEMMPlan:
         if self._a_scatter is not None and self._b_scatter is not None:
             return (self.report.nnz_a,), (self.report.nnz_b,)
         return self._a_shape, self._b_shape
+
+    @property
+    def value_dtypes(self) -> Tuple[torch.dtype, torch.dtype]:
+        """The packed dtypes of A's and B's values: the dtypes of the
+        values the plan was built on (float32 or bfloat16), to which every
+        rebind rounds."""
+        return self._a_dtype, self._b_dtype
 
     def _empty_csr(self) -> CSR:
         return CSR(
@@ -503,14 +547,14 @@ class SpGEMMPlan:
                 self._a_blocks = self._rebind(
                     a_vals, self._a_blocks, self._a_scatter,
                     self.report.nnz_a if self._a_scatter is not None else 0,
-                    "a_vals", self._a_shape,
+                    "a_vals", self._a_shape, self._a_dtype,
                 )
                 self._a_dev = None
             if b_vals is not None:
                 self._b_blocks = self._rebind(
                     b_vals, self._b_blocks, self._b_scatter,
                     self.report.nnz_b if self._b_scatter is not None else 0,
-                    "b_vals", self._b_shape,
+                    "b_vals", self._b_shape, self._b_dtype,
                 )
                 self._b_dev = None
             # Element plans called with both value vectors take the fused
@@ -537,8 +581,8 @@ class SpGEMMPlan:
             return None
         if fused_values:
             return self._executor.run_values(
-                _device_values(a_vals, self.device),
-                _device_values(b_vals, self.device),
+                _device_values(a_vals, self.device, self._a_dtype),
+                _device_values(b_vals, self.device, self._b_dtype),
             )
         return self._executor.run(a_dev, b_dev)
 
@@ -552,7 +596,8 @@ class SpGEMMPlan:
         bitwise-equal to ``execute`` on the same values.
 
         Stateless with respect to the plan's staged values: it never
-        touches the buffers no-arg ``execute()`` reuses.
+        touches the buffers no-arg ``execute()`` reuses. Values are rounded
+        to the plan's packed dtypes, as ``execute`` rounds them.
         """
         if not isinstance(a_vals, torch.Tensor):
             a_vals = np.asarray(a_vals)
@@ -586,8 +631,8 @@ class SpGEMMPlan:
         for lo in range(0, batch, chunk):
             hi = min(lo + chunk, batch)
             packed = self._executor.run_batch(
-                _device_values(a_vals[lo:hi], self.device),
-                _device_values(b_vals[lo:hi], self.device),
+                _device_values(a_vals[lo:hi], self.device, self._a_dtype),
+                _device_values(b_vals[lo:hi], self.device, self._b_dtype),
                 rebind=rebind,
             ).cpu()
             out.extend(self._wrap_packed(packed[i]) for i in range(hi - lo))
@@ -597,7 +642,7 @@ class SpGEMMPlan:
 def _staged_nnz(plan: SpGEMMPlan, attr: str):
     """Lazy element-count resolver reading the plan's staged blocks."""
     def resolve() -> int:
-        return int(np.count_nonzero(getattr(plan, attr)))
+        return int(torch.count_nonzero(getattr(plan, attr)))
 
     return resolve
 
@@ -660,9 +705,13 @@ def spgemm_plan(
     """Build an :class:`SpGEMMPlan` for ``C = a @ b``.
 
     ``a``/``b`` may be dense numpy arrays, any element-level sparse format
-    (COO/CSR/CSC/CSV), or pre-converted BCSV/BCSR blocks (in which case
-    ``tile``/``group`` are taken from the formats themselves). All symbolic
-    work happens here. There is no plan cache yet: every call builds.
+    (COO/CSR/CSC/CSV), pre-converted BCSV/BCSR blocks (in which case
+    ``tile``/``group`` are taken from the formats themselves), or torch
+    tensors (dense, sparse COO or sparse CSR). The plan keeps the packed
+    dtype of the values: bfloat16 for bfloat16 values (a numpy array of
+    dtype ``bfloat16`` or a bfloat16 tensor), float32 for any other. All
+    symbolic work happens here. There is no plan cache yet: every call
+    builds.
 
     ``device="cuda"`` (the default) runs the numeric phase through the
     CUDA kernel and raises when no CUDA device is present;
@@ -686,10 +735,15 @@ def spgemm_plan(
     b_coo = to_coo(b).sum_duplicates()
     if a_coo.shape[1] != b_coo.shape[0]:
         raise ValueError(f"inner dims mismatch: {a_coo.shape} x {b_coo.shape}")
+    # The value dtypes, from the inputs themselves: to_coo widens a
+    # bfloat16 tensor's values to float32 (exactly).
+    dtypes = tuple(_packed_dtype(x if isinstance(x, torch.Tensor) else coo.val)
+                   for x, coo in ((a, a_coo), (b, b_coo)))
     pattern = pattern_digest(
         a_coo.row, a_coo.col, b_coo.row, b_coo.col,
-        meta=("coo", a_coo.shape, b_coo.shape,
-              str(a_coo.val.dtype), str(b_coo.val.dtype)),
+        meta=("coo", a_coo.shape, b_coo.shape) + tuple(
+            "bfloat16" if dt == torch.bfloat16 else str(coo.val.dtype)
+            for dt, coo in zip(dtypes, (a_coo, b_coo))),
     )
     a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
     b_bcsr, b_scatter = bcsr_from_coo(b_coo, (bk, bn))
@@ -703,6 +757,7 @@ def spgemm_plan(
         schedule=schedule,
         a_blocks=a_bcsv.blocks,
         b_blocks=b_bcsr.blocks,
+        value_dtypes=dtypes,
         backend=backend,
         device=device,
         out_shape=(a_coo.shape[0], b_coo.shape[1]),

@@ -16,9 +16,10 @@ halves) and round the output to bfloat16 (at most 2**-8 of it), while the
 JAX package's 5e-2 is as large as a typical |output| at these shapes and
 could not fail a wrong kernel. K3 and K4 write float32 sums of
 float32 products of the same inputs as their plain versions, in float32
-and in bfloat16 alike, so both are held at the JAX package's float32
-tolerances (1e-3 for K3, 1e-4 for K4; inputs scaled so outputs are of
-order 1 to 10). The plain versions run on the card with TF32 off, so
+and in bfloat16 alike (their bfloat16 kernels run on wgmma, whose bf16
+products are exact in float32), so both are held at the JAX package's
+float32 tolerances (1e-3 for K3, 1e-4 for K4; inputs scaled so outputs are
+of order 1 to 10). The plain versions run on the card with TF32 off, so
 their float32 products are full float32.
 """
 import numpy as np
@@ -31,10 +32,11 @@ from repro_torch.configs.registry import get_reduced
 from repro_torch.core.gustavson import spgemm_gustavson
 from repro_torch.core.schedule import build_spgemm_schedule
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bsr_spmm import bsr_spmm
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_staged, stage_bsr_index
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.gustavson_spgemm import (
+    runs_case,
     spgemm_scheduled,
     spgemm_scheduled_batch,
     stage_runs,
@@ -51,7 +53,10 @@ SHAPES = [
     ((128, 128, 128), (32, 32, 32), 1),
     ((256, 128, 192), (64, 64, 64), 2),
     ((256, 384, 256), (64, 64, 128), 4),
+    ((256, 512, 256), (128, 128, 128), 2),
 ]
+# Tiles of the run-length cases: the JAX package's three and a 128^3 tile.
+RUN_TILES = [(32, 32, 32), (64, 64, 64), (64, 64, 128), (128, 128, 128)]
 
 
 @pytest.fixture
@@ -123,12 +128,70 @@ def test_batch_equals_looped_single_bitwise(cuda, shape, blocks, group):
         assert torch.equal(batch[i], spgemm_scheduled(a_sets[i], b_sets[i], runs))
 
 
+@pytest.mark.parametrize("tile", RUN_TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("integer", [False, True])
+def test_kernel_runs_of_0_1_3_8_triples(cuda, tile, dtype, integer):
+    """Tiles whose runs hold 0, 1, 3 and 8 triples (the ring's prologue
+    longer than, equal to and shorter than the run): K1 against its plain
+    version (bitwise on small integers), the empty tile zero, and K2 over
+    three value sets bitwise equal to looped K1."""
+    a, b, sch = runs_case(tile, integer)
+    runs = stage_runs(sch, cuda)
+    assert np.diff(runs.ptr.cpu().numpy()).tolist() == [0, 1, 3, 8]
+    kernel, plain = _run_both(a, b, sch, dtype, cuda)
+    bm = tile[0]
+    assert torch.all(kernel[0, :bm] == 0)
+    if integer:
+        assert torch.equal(kernel, plain)
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(kernel, plain, rtol=tol, atol=tol)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a_sets = torch.randn((3,) + a.blocks.shape, generator=g, device=cuda).to(dtype)
+    b_sets = torch.randn((3,) + b.blocks.shape, generator=g, device=cuda).to(dtype)
+    before = spgemm_scheduled_batch.bf16_launches
+    batch = spgemm_scheduled_batch(a_sets.flatten(0, 1), b_sets.flatten(0, 1), runs, bsz=3)
+    assert spgemm_scheduled_batch.bf16_launches == before + (dtype == torch.bfloat16)
+    for i in range(3):
+        assert torch.equal(batch[i], spgemm_scheduled(a_sets[i], b_sets[i], runs))
+
+
 def test_kernel_rejects_unsupported_tiles(cuda):
     a, b, sch = _case((96, 96, 96), (24, 24, 24), 2, seed=3)
     at = torch.from_numpy(a.blocks).to(cuda)
     bt = torch.from_numpy(b.blocks).to(cuda)
     with pytest.raises(ValueError, match="multiples of 16"):
         spgemm_scheduled(at, bt, stage_runs(sch, cuda))
+
+
+def test_bf16_plan_on_card_launches_bf16_blocks(cuda):
+    """A plan built on bfloat16 values (a bfloat16 sparse CSR tensor)
+    stages bfloat16 blocks: ``execute`` launches K1 once with them, and
+    agrees with the same plan on the CPU (float32 sums of the same
+    bf16-rounded products) within 1e-5 and with the oracle on the rounded
+    values within 1e-4; ``execute_batch`` equals looped ``execute``."""
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    t = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int64)),
+                                torch.from_numpy(a.indices.astype(np.int64)),
+                                torch.from_numpy(a.data.astype(np.float32)).bfloat16(), a.shape)
+    on_card = spgemm_plan(t, t, tile=64, group=4, device=cuda)
+    on_cpu = spgemm_plan(t, t, tile=64, group=4, device="cpu")
+    assert on_card.value_dtypes == (torch.bfloat16, torch.bfloat16)
+    rng = np.random.default_rng(2)
+    vals = rng.standard_normal((2, a.nnz)).astype(np.float32)
+    before = (spgemm_scheduled.launches, spgemm_scheduled.bf16_launches)
+    got = on_card.execute(vals[0], vals[1])
+    assert (spgemm_scheduled.launches, spgemm_scheduled.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = on_cpu.execute(vals[0], vals[1])
+    np.testing.assert_allclose(got.data, want.data, rtol=1e-5, atol=1e-5)
+    rounded = torch.from_numpy(vals).bfloat16().float().numpy()
+    oracle = spgemm_gustavson(CSR(a.indptr, a.indices, rounded[0], a.shape),
+                              CSR(a.indptr, a.indices, rounded[1], a.shape))
+    np.testing.assert_allclose(got.todense(), oracle.todense(), rtol=1e-4, atol=1e-4)
+    batch = on_card.execute_batch(vals[None, 0], vals[None, 1])
+    assert np.array_equal(batch[0].data, got.data)
 
 
 def test_plan_on_card_matches_cpu_plan_and_oracle(cuda):
@@ -288,9 +351,10 @@ def _bsr_case(m, k, n, bk, bn, seed, integer=False, kill_panel=None):
 def test_bsr_kernel_vs_plain(cuda, m, k, n, bk, bn, dtype):
     x, _, w = _bsr_case(m, k, n, bk, bn, seed=7)
     xt = torch.from_numpy(x).to(cuda, dtype)
-    before = bsr_spmm.launches
+    before = (bsr_spmm.launches, bsr_spmm.bf16_launches)
     got = ops.sparse_dense_matmul(xt, w, tm=32)
-    assert bsr_spmm.launches == before + 1
+    assert (bsr_spmm.launches, bsr_spmm.bf16_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     want = ops.sparse_dense_matmul(xt.cpu(), w, tm=32)  # the plain version
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
@@ -298,26 +362,90 @@ def test_bsr_kernel_vs_plain(cuda, m, k, n, bk, bn, dtype):
 
 
 @pytest.mark.parametrize("m,k,n,bk,bn", BSR_SHAPES)
-def test_bsr_kernel_small_integers_bitwise(cuda, m, k, n, bk, bn):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_small_integers_bitwise(cuda, m, k, n, bk, bn, dtype):
+    """Small integers are exact in bf16 and every sum is exact in float32:
+    both kernels bitwise equal to x @ W."""
     x, wd, w = _bsr_case(m, k, n, bk, bn, seed=3, integer=True)
-    got = ops.sparse_dense_matmul(torch.from_numpy(x).to(cuda), w, tm=32)
+    got = ops.sparse_dense_matmul(torch.from_numpy(x).to(cuda, dtype), w, tm=32)
     assert torch.equal(got.cpu(), torch.from_numpy(x @ wd))
 
 
-def test_bsr_kernel_empty_column_panel(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_empty_column_panel(cuda, dtype):
     x, wd, w = _bsr_case(64, 256, 512, 128, 128, seed=8, kill_panel=1)
-    got = ops.sparse_dense_matmul(torch.from_numpy(x).to(cuda), w).cpu()
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    # x @ W on the operands as the kernel reads them (rounded to dtype).
+    want = xt.float().cpu() @ torch.from_numpy(wd).to(dtype).float()
+    got = ops.sparse_dense_matmul(xt, w).cpu()
     assert torch.all(got[:, 128:256] == 0)
-    torch.testing.assert_close(got, torch.from_numpy(x @ wd), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    # A panel with no block at all (bsr_spmm called directly): zeros.
+    order = np.lexsort((w.brow, w.bcol))
+    blocks = torch.from_numpy(w.blocks[order]).to(cuda, dtype)
+    got = bsr_spmm(xt, blocks, w.brow[order], w.bcol[order], np.zeros(w.nnzb, np.int32),
+                   n=512, tm=64).cpu()
+    assert torch.all(got[:, 128:256] == 0)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
-def test_bsr_kernel_refusals(cuda):
+@pytest.mark.parametrize("m,bn", [(100, 20), (200, 36), (64, 132)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_bsr_kernel_bf16_padded_rows(cuda, m, bn, integer):
+    """bf16 with bn % 8 != 0: TMA needs 16-byte rows, so the wrapper pads
+    each block's rows to a multiple of 8 values; the padding columns are
+    never written out."""
+    x, wd, w = _bsr_case(m, 96, 3 * bn, 32, bn, seed=12, integer=integer)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    before = bsr_spmm.bf16_launches
+    got = ops.sparse_dense_matmul(xt, w, tm=1)
+    assert bsr_spmm.bf16_launches == before + 1
+    want = ops.sparse_dense_matmul(xt.cpu(), w, tm=1)
+    torch.cuda.synchronize()
+    if integer:
+        assert torch.equal(got.cpu(), torch.from_numpy(x @ wd))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_staged_index(cuda, dtype):
+    """The kernel alone on indices staged once equals ``bsr_spmm``, call
+    after call; nothing is kept between calls. M = 600 takes two 256-row
+    tiles and a ragged third."""
+    x, _, w = _bsr_case(600, 384, 512, 128, 128, seed=9)
+    order = np.lexsort((w.brow, w.bcol))
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    blocks = torch.from_numpy(w.blocks[order]).to(cuda, dtype)
+    brow, bcol = w.brow[order], w.bcol[order]
+    want = bsr_spmm(xt, blocks, brow, bcol, np.zeros(w.nnzb, np.int32), n=512, tm=8)
+    plain = ref.bsr_spmm_ref(xt.cpu(), blocks.cpu(), brow, bcol, 512)
+    torch.testing.assert_close(want.cpu(), plain, rtol=1e-3, atol=1e-3)
+    index = stage_bsr_index(brow, bcol, k_blocks=3, n_panels=4, device=cuda)
+    before = bsr_spmm.launches
+    for _ in range(2):
+        assert torch.equal(bsr_spmm_staged(xt, blocks, index, n=512), want)
+    assert bsr_spmm.launches == before + 2
+    with pytest.raises(ValueError, match="do not match the staged index"):
+        bsr_spmm_staged(xt, blocks[1:].contiguous(), index, n=512)
+    with pytest.raises(ValueError, match="on x's device"):
+        bsr_spmm_staged(xt, blocks, stage_bsr_index(brow, bcol, k_blocks=3, n_panels=4,
+                                                    device="cpu"), n=512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_refusals(cuda, dtype):
     x, _, w = _bsr_case(64, 96, 128, 24, 32, seed=1)
-    blocks = torch.from_numpy(w.blocks).to(cuda)
+    blocks = torch.from_numpy(w.blocks).to(cuda, dtype)
     order = np.lexsort((w.brow, w.bcol))
     with pytest.raises(ValueError, match="multiple of 16"):
-        bsr_spmm(torch.from_numpy(x).to(cuda), blocks[order], w.brow[order], w.bcol[order],
-                 np.zeros(w.nnzb, np.int32), n=128, tm=64)
+        bsr_spmm(torch.from_numpy(x).to(cuda, dtype), blocks[order], w.brow[order],
+                 w.bcol[order], np.zeros(w.nnzb, np.int32), n=128, tm=64)
+    x, _, w = _bsr_case(64, 96, 12, 32, 6, seed=1)
+    order = np.lexsort((w.brow, w.bcol))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        bsr_spmm(torch.from_numpy(x).to(cuda, dtype),
+                 torch.from_numpy(w.blocks[order]).to(cuda, dtype), w.brow[order],
+                 w.bcol[order], np.zeros(w.nnzb, np.int32), n=12, tm=64)
 
 
 # -- grouped matmul (K4) ---------------------------------------------------------

@@ -3,7 +3,9 @@ plain PyTorch path) against ``repro.spgemm.spgemm_plan(backend="jnp")``.
 
 indptr/indices must equal the reference's bitwise, data within 1e-5, and
 bitwise with small-integer values; ``execute_batch`` must equal looped
-``execute`` bitwise. Also: the plan is held against the Gustavson oracle,
+``execute`` bitwise. A plan built on bfloat16 values keeps bfloat16 and
+rounds every rebind to it, as the reference's does. Also: the plan is held
+against the Gustavson oracle,
 built from the reference's persisted artifacts, reached through the
 ``ops.spgemm`` shim, refuses a missing card, and the package imports
 neither JAX nor the JAX package.
@@ -17,6 +19,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.sparse.convert import to_bcsr as r_to_bcsr, to_bcsv as r_to_bcsv  # noqa: E402
@@ -136,6 +139,147 @@ def test_execute_batch_equals_looped_execute_bitwise():
         tb[1].data,
         plan.execute(torch.from_numpy(av[1]).bfloat16().float().numpy(), bv[1]).data)
     assert plan.report.executes == 5 + 5 + 2 + 1
+
+
+BF16 = np.dtype(jnp.bfloat16)
+
+
+def _bf16_element_plans(seed):
+    """The same element plan in both packages, built on bfloat16 values:
+    the port's (on the CPU) and the reference's (``backend="jnp"``); and
+    the port's plan on the same values in float32."""
+    va, ca = _int_coo(90, 70, 0.08, seed)
+    vb, cb = _int_coo(70, 110, 0.1, seed + 10)
+    (ta, ra), (tb, rb) = _pair(ca, va.astype(BF16)), _pair(cb, vb.astype(BF16))
+    plan = spgemm_plan(ta, tb, tile=16, group=2, device="cpu")
+    want = r_spgemm_plan(ra, rb, tile=16, group=2, backend="jnp", cache=PlanCache())
+    f32 = spgemm_plan(_pair(ca, va)[0], _pair(cb, vb)[0], tile=16, group=2, device="cpu")
+    return plan, want, f32
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_bf16_plan_rounds_rebinds_like_reference(integer):
+    """A plan built on bfloat16 values keeps bfloat16 as its packed dtype,
+    as the reference's does, and rounds later float32 values to it: its
+    execute agrees with the reference's within 1e-5 on random values
+    (both multiply the same bf16-rounded inputs in float32) and bitwise on
+    small integers; a float32 plan on the same values differs by more
+    than 1e-5, so the rounding is what the check sees."""
+    plan, want_plan, f32 = _bf16_element_plans(1)
+    assert plan.value_dtypes == (torch.bfloat16, torch.bfloat16)
+    assert f32.value_dtypes == (torch.float32, torch.float32)
+    nnz_a, nnz_b = plan.report.nnz_a, plan.report.nnz_b
+    rng = np.random.default_rng(21)
+    if integer:
+        fa = rng.integers(-4, 5, nnz_a).astype(np.float32)
+        fb = rng.integers(-4, 5, nnz_b).astype(np.float32)
+    else:
+        fa = rng.standard_normal(nnz_a).astype(np.float32)
+        fb = rng.standard_normal(nnz_b).astype(np.float32)
+    got = plan.execute(fa, fb)
+    _assert_csr_match(got, want_plan.execute(fa, fb), 0 if integer else 1e-5)
+    # No-arg execute reuses the rounded values; bf16 tensors and numpy
+    # bfloat16 arrays round-trip unchanged.
+    _assert_csr_match(plan.execute(), want_plan.execute(), 0 if integer else 1e-5)
+    assert np.array_equal(plan.execute(torch.from_numpy(fa).bfloat16(),
+                                       fb.astype(BF16)).data, got.data)
+    if not integer:
+        assert np.abs(f32.execute(fa, fb).data - got.data).max() > 1e-5
+
+
+def test_bf16_plan_batch_equals_looped_execute_and_reference():
+    """``execute_batch`` of a bfloat16 plan rounds like ``execute``: each
+    element equals the looped ``execute`` bitwise, and the reference's
+    batch within 1e-5."""
+    plan, want_plan, _ = _bf16_element_plans(2)
+    nnz_a, nnz_b = plan.report.nnz_a, plan.report.nnz_b
+    rng = np.random.default_rng(22)
+    av = rng.standard_normal((3, nnz_a)).astype(np.float32)
+    bv = rng.standard_normal((3, nnz_b)).astype(np.float32)
+    batch = plan.execute_batch(av, bv)
+    for got, want in zip(batch, want_plan.execute_batch(av, bv)):
+        _assert_csr_match(got, want, 1e-5)
+    for i in range(3):
+        assert np.array_equal(batch[i].data, plan.execute(av[i], bv[i]).data)
+    tb = plan.execute_batch(torch.from_numpy(av), torch.from_numpy(bv).bfloat16())
+    assert all(np.array_equal(x.data, y.data) for x, y in zip(tb, batch))
+
+
+def test_bf16_block_plan_rounds_rebinds():
+    """A block plan built on bfloat16 blocks keeps bfloat16; float32
+    blocks handed to ``execute_batch`` are rounded as the reference's
+    ``execute_batch`` rounds them (within 1e-5), and ``execute`` rounds
+    them the same way (bitwise equal to the batch)."""
+    ad = random_block_sparse(128, 192, (32, 32), 0.3, seed=1)
+    bd = random_block_sparse(192, 96, (32, 32), 0.35, seed=2)
+    a = to_bcsv(ad.astype(BF16), (32, 32), 2)
+    b = to_bcsr(bd.astype(BF16), (32, 32))
+    plan = spgemm_plan(a, b, device="cpu")
+    assert plan.value_dtypes == (torch.bfloat16, torch.bfloat16)
+    want_plan = r_spgemm_plan(r_to_bcsv(ad.astype(BF16), (32, 32), 2),
+                              r_to_bcsr(bd.astype(BF16), (32, 32)),
+                              backend="jnp", cache=PlanCache())
+    _assert_csr_match(plan.execute(), want_plan.execute(), 1e-5)
+    rng = np.random.default_rng(3)
+    a2 = rng.standard_normal((2,) + a.blocks.shape).astype(np.float32)
+    b2 = rng.standard_normal((2,) + b.blocks.shape).astype(np.float32)
+    batch = plan.execute_batch(a2, b2)
+    for got, want in zip(batch, want_plan.execute_batch(a2, b2)):
+        _assert_csr_match(got, want, 1e-5)
+    for i in range(2):
+        assert np.array_equal(plan.execute(a2[i], b2[i]).data, batch[i].data)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_mixed_dtype_plan_matches_reference(backend):
+    """A plan whose A was built on bfloat16 values and B on float32 keeps
+    each operand's dtype, as the reference's does: A's rebinds round to
+    bfloat16, B's stay float32, and the product runs in float32 (the
+    kernel wrapper takes one dtype, so the bfloat16 side is widened,
+    exactly). Within 1e-5 of the reference on random values."""
+    va, ca = _int_coo(90, 70, 0.08, 3)
+    vb, cb = _int_coo(70, 110, 0.1, 13)
+    (ta, ra), (tb, rb) = _pair(ca, va.astype(BF16)), _pair(cb, vb)
+    plan = spgemm_plan(ta, tb, tile=16, group=2, backend=backend, device="cpu")
+    assert plan.value_dtypes == (torch.bfloat16, torch.float32)
+    want = r_spgemm_plan(ra, rb, tile=16, group=2, backend="jnp", cache=PlanCache())
+    rng = np.random.default_rng(23)
+    fa = rng.standard_normal(ca.nnz).astype(np.float32)
+    fb = rng.standard_normal(cb.nnz).astype(np.float32)
+    _assert_csr_match(plan.execute(fa, fb), want.execute(fa, fb), 1e-5)
+    batch = plan.execute_batch(fa[None], fb[None])
+    assert np.array_equal(batch[0].data, plan.execute(fa, fb).data)
+
+
+@pytest.mark.parametrize("layout", ["csr", "coo", "dense"])
+def test_tensor_inputs_carry_their_value_dtype(layout):
+    """Torch tensors as plan inputs (sparse CSR, sparse COO, dense) carry
+    their value dtype: bfloat16 tensors build the plan that numpy bfloat16
+    arrays build (the same pattern key, bitwise the same results, rounded
+    rebinds), float32 tensors a float32 plan."""
+    a = suite_matrix("poisson3Da", scale=0.02, seed=5)
+    coo = a.to_coo()
+    numpy_bf16 = COO(coo.row, coo.col, coo.val.astype(BF16), coo.shape)
+    want = spgemm_plan(numpy_bf16, numpy_bf16, tile=32, group=4, device="cpu")
+
+    def tensor(dtype):
+        vals = torch.from_numpy(coo.val).to(dtype)
+        idx = torch.from_numpy(np.stack([coo.row, coo.col]).astype(np.int64))
+        t = torch.sparse_coo_tensor(idx, vals, coo.shape)
+        return {"csr": t.to_sparse_csr(), "coo": t, "dense": t.to_dense()}[layout]
+
+    got = spgemm_plan(tensor(torch.bfloat16), tensor(torch.bfloat16), tile=32, group=4,
+                      device="cpu")
+    assert got.value_dtypes == (torch.bfloat16, torch.bfloat16)
+    assert got.report.pattern_key == want.report.pattern_key
+    assert np.array_equal(got.execute().data, want.execute().data)
+    v = np.random.default_rng(6).standard_normal(a.nnz).astype(np.float32)
+    assert np.array_equal(got.execute(v, v).data, want.execute(v, v).data)
+    f32 = spgemm_plan(tensor(torch.float32), tensor(torch.float32), tile=32, group=4,
+                      device="cpu")
+    assert f32.value_dtypes == (torch.float32, torch.float32)
+    assert np.array_equal(f32.execute(v, v).data,
+                          spgemm_plan(a, a, tile=32, group=4, device="cpu").execute(v, v).data)
 
 
 def test_execute_batch_matches_reference_batch():

@@ -7,19 +7,26 @@ Five requests of different prompt lengths over two slots, so that requests
 queue and slots are reused at a shared decode position. Greedy decoding
 makes the result a sequence of argmaxes: the outputs must be identical
 token for token, and so must ``stats``.
+
+At bfloat16 compute with float32 parameters the server keeps the MoE
+router in float32, as the reference routes: its routing logits and expert
+choices at a MoE layer equal the reference's ``_moe_local``.
 """
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 
+import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.configs.registry import get_reduced as r_get_reduced  # noqa: E402
 from repro.launch.serve import BatchedServer as RServer, Request as RRequest  # noqa: E402
+from repro.models.moe import _moe_local  # noqa: E402
 from repro_torch.configs.registry import get_reduced  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.moe import moe_forward, route, router_logits  # noqa: E402
 
 ARCH = "granite-3-2b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
@@ -92,3 +99,61 @@ def test_moe_outputs_and_stats_identical(moe_served):
     assert got == want
     assert all(len(got[i][0]) == m and got[i][1] for i, m in enumerate(MAX_NEW))
     assert port.stats == ref.stats
+
+
+@pytest.fixture(scope="module")
+def moe_bf16_servers():
+    """The reduced qwen3 at bfloat16 compute, float32 parameters: the JAX
+    server and the port's on the JAX server's weights."""
+    r_cfg = r_get_reduced(MOE_ARCH).with_(dtype="bfloat16")
+    ref = RServer(r_cfg, batch_slots=2, max_seq=64, seed=0)
+    cfg = get_reduced(MOE_ARCH).with_(dtype="bfloat16")
+    assert cfg.param_dtype == r_cfg.param_dtype == "float32"
+    params = params_from_jax(jax.tree.map(np.asarray, ref.params), cfg, device="cpu")
+    port = BatchedServer(cfg, batch_slots=2, max_seq=64, device="cpu", params=params)
+    return ref, r_cfg, port, cfg
+
+
+def test_moe_server_keeps_router_float32(moe_bf16_servers):
+    _, _, port, _ = moe_bf16_servers
+    for layer in port.params["layers"]:
+        ff = layer["ff"]
+        assert ff["router"]["w"].dtype == torch.float32
+        assert ff["wu"]["w"].dtype == ff["wd"]["w"].dtype == torch.bfloat16
+    assert port.params["embed"]["table"].dtype == torch.bfloat16
+
+
+def test_moe_routing_at_bf16_matches_reference(moe_bf16_servers):
+    """Layer 0 of the reduced qwen3 on one bf16 input [1, 64, D] from a
+    numpy seed. The reference's ``_moe_local`` routes with
+    ``einsum(xf.astype(float32), router.astype(float32))`` and
+    ``lax.top_k``; the port's logits equal those within float32 rounding
+    (1e-5), its expert choices and gates exactly or within 1e-5, and the
+    layer's load-balance loss, a function of the probabilities and the
+    first choices, within 1e-5. The layer output, bf16 through both
+    frameworks' own rounding points, agrees within 2e-2 of its scale."""
+    ref, r_cfg, port, cfg = moe_bf16_servers
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 64, cfg.d_model)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).bfloat16()
+    rp = jax.tree.map(lambda a: a[0], ref.params["layers"][0]["ff"])
+    pp = port.params["layers"][0]["ff"]
+
+    want_logits = jnp.einsum("td,de->te", xj.reshape(64, -1).astype(jnp.float32),
+                             rp["router"]["w"].astype(jnp.float32))
+    want_gates, want_experts = jax.lax.top_k(want_logits, r_cfg.top_k)
+    got_logits = router_logits(pp, xt.reshape(64, -1))
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               rtol=1e-5, atol=1e-5)
+    gates, experts, aux = route(pp, xt.reshape(64, -1), cfg)
+    assert np.array_equal(experts.numpy(), np.asarray(want_experts))
+    np.testing.assert_allclose(gates.numpy(), np.asarray(jax.nn.softmax(want_gates, axis=-1)),
+                               rtol=1e-5, atol=1e-5)
+
+    want_y, want_aux = _moe_local(rp, xj, r_cfg, r_cfg.n_experts, None)
+    got_y, got_aux = moe_forward(pp, xt, cfg)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-5, atol=1e-6)
+    want_y = np.asarray(want_y.astype(jnp.float32))
+    scale = float(np.abs(want_y).max())
+    np.testing.assert_allclose(got_y.float().numpy(), want_y, rtol=0, atol=2e-2 * scale)

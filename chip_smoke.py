@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
-(plan -> execute), serving granite-3-2b at full width, the ``ops`` entry
+(plan -> execute, compact output, chains, the submit/collect pipeline on
+CUDA streams), serving granite-3-2b at full width, the ``ops`` entry
 points of the block-sparse SpMM and the grouped matmul, and serving
 qwen3-moe-30b-a3b at full width through the grouped matmul.
 
@@ -36,6 +37,26 @@ the run with a nonzero exit code and no result line:
    values launch K1 three times, all with bfloat16 blocks, each checked
    against the oracle on the bf16-rounded values; K1 on bfloat16 blocks
    timed beside its plain version;
+5c. compact output (``output="compact"``) of poisson3Da and 2cubes_sphere:
+   nnz(C) equals the structural product's (the oracle on ones), the result
+   equals the block plan's on the same values at every stored position
+   (bitwise; the block fill is zero), ``device_indptr`` equals the host
+   indptr, ``execute_batch(4)`` equals four ``execute`` calls bitwise;
+   nnz, plan seconds and device-to-host bytes per ``execute`` of both
+   modes;
+5d. a chain: ``plan.then(B2)`` on the compact poisson3Da A·A plan, B2 a
+   banded random 14,000 x 14,000 matrix (``CHAIN_B``); ``execute_chain``
+   bitwise equal to the host round trip, stage 1's values a CUDA tensor,
+   at most one device-to-host copy per chain execute (torch.profiler);
+   then the same with small-integer values through plans built on
+   bfloat16; each stage's plan seconds;
+5e. the pipeline on poisson3Da with values from ``SpGEMMValueStream``: 16
+   steps at depths 1, 2 and 4 bitwise equal to sequential ``execute``,
+   every ``submit`` under ``torch.cuda.set_sync_debug_mode("error")``, K1
+   launched on one side stream per slot; an out-of-order collect; batched
+   submits of 4 against ``execute_batch``; steps per second of
+   sequential ``execute`` and of each depth (medians of 7 rounds); the
+   device's idle share at depth 2 under torch.profiler;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -105,6 +126,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -134,7 +156,8 @@ from repro_torch.models.nn import cast_params  # noqa: E402
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.sparse.convert import to_bcsr, to_bcsv  # noqa: E402
 from repro_torch.sparse.formats import BCSV, COO, CSR  # noqa: E402
-from repro_torch.sparse.random import random_block_sparse, suite_matrix  # noqa: E402
+from repro_torch.data.pipeline import SpGEMMValueStream  # noqa: E402
+from repro_torch.sparse.random import random_block_sparse, random_coo, suite_matrix  # noqa: E402
 from repro_torch.spgemm import spgemm_plan  # noqa: E402
 
 SEED = 0
@@ -274,6 +297,8 @@ def reset_counts() -> None:
         fn.launches = 0
     for fn in TC_KERNELS:
         fn.bf16_launches = 0
+    for fn in (spgemm_scheduled, spgemm_scheduled_batch):
+        fn.stream_launches.clear()
 
 
 def counts() -> dict:
@@ -504,6 +529,325 @@ def phase_bf16_plan(a: CSR, dev, rng) -> dict:
             "bf16_plan_k1_launches": launched["spgemm_scheduled"]}
 
 
+# -- phases 5c-5e: compact output, chains, the pipeline -------------------------
+
+def same_on_positions(block: CSR, compact: CSR, what: str) -> None:
+    """``compact`` expanded to dense equals ``block`` expanded to dense,
+    bitwise: every compact position holds the block result's value there,
+    and every other stored block value is zero."""
+    n = block.shape[1]
+    check(block.shape == compact.shape, f"{what}: shapes {block.shape} vs {compact.shape}")
+    key = np.repeat(np.arange(block.shape[0], dtype=np.int64), np.diff(block.indptr)) * n \
+        + block.indices
+    c_key = np.repeat(np.arange(compact.shape[0], dtype=np.int64), np.diff(compact.indptr)) * n \
+        + compact.indices
+    pos = np.searchsorted(key, c_key)
+    check(bool(np.all(pos < key.size)) and np.array_equal(key[np.minimum(pos, key.size - 1)],
+                                                           c_key),
+          f"{what}: compact positions outside the block pattern")
+    check(np.array_equal(block.data[pos], compact.data), f"{what}: values differ")
+    rest = np.ones(key.size, bool)
+    rest[pos] = False
+    check(not np.any(block.data[rest]), f"{what}: block fill not zero")
+
+
+def structural_nnz(a: CSR) -> int:
+    """nnz of A·A's element pattern, from the Gustavson oracle on ones
+    (positive products: nothing cancels)."""
+    ones = CSR(a.indptr, a.indices, np.ones(a.nnz, np.float32), a.shape)
+    return int(spgemm_gustavson(ones, ones).nnz)
+
+
+def phase_compact(mats, dev, rng) -> tuple:
+    """``output="compact"`` plans of both matrices against their block
+    plans (``mats``: name -> (A, block plan)) on the same values."""
+    info, plans = {}, {}
+    for name, (a, block) in mats.items():
+        t0 = time.perf_counter()
+        plan = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev, output="compact")
+        plan_s = time.perf_counter() - t0
+        nnz_c, nnz_b = plan.compact.nnz, block.assembly.nnz
+        want_nnz = structural_nnz(a)
+        check(nnz_c == want_nnz, f"{name}: nnz(compact) {nnz_c} != structural {want_nnz}")
+        av = rng.standard_normal(a.nnz, dtype=np.float32)
+        bv = rng.standard_normal(a.nnz, dtype=np.float32)
+        a_batch = rng.standard_normal((4, a.nnz), dtype=np.float32)
+        b_batch = rng.standard_normal((4, a.nnz), dtype=np.float32)
+        reset_counts()
+        c = plan.execute(av, bv)
+        batch = plan.execute_batch(a_batch, b_batch)
+        torch.cuda.synchronize()
+        launched = counts()
+        check(launched["spgemm_scheduled"] == 1 and launched["spgemm_scheduled_batch"] >= 1,
+              f"{name} compact: launches {launched}")
+        same_on_positions(block.execute(av, bv), c, f"{name} compact vs block")
+        check(np.array_equal(plan.device_indptr().cpu().numpy(), c.indptr.astype(np.int32)),
+              f"{name}: device_indptr differs from the host indptr")
+        for i, got in enumerate(batch):
+            check(np.array_equal(got.data, plan.execute(a_batch[i], b_batch[i]).data),
+                  f"{name} compact execute_batch[{i}] differs from execute")
+        e2e = {mode: host_ms(lambda p=p: p.execute(av, bv), reps=3)
+               for mode, p in (("compact", plan), ("block", block))}
+        log(f"  {name} compact: plan {plan_s:.2f} s; nnz(C) {nnz_c} against {nnz_b} block "
+            f"values ({nnz_c / nnz_b:.1%}); D2H per execute {4 * nnz_c} B against "
+            f"{4 * nnz_b} B; execute {e2e['compact']:.3f} ms against {e2e['block']:.3f} ms; "
+            f"launches {launched}; equal to the block result on the structural positions, "
+            f"execute_batch(4) bitwise equal to 4 execute")
+        info[name] = {"plan_s": plan_s, "nnz_compact": nnz_c, "nnz_block": nnz_b,
+                      "d2h_bytes_compact": 4 * nnz_c, "d2h_bytes_block": 4 * nnz_b,
+                      "execute_ms_compact": e2e["compact"], "execute_ms_block": e2e["block"]}
+        plans[name] = plan
+    return plans, info
+
+
+# The chain's second operand: a banded ("fem") random matrix at 3.2 values
+# per row. With it stage 2 expands ~10 M (i, k) x B(k, :) pairs and fills
+# ~11 M block values; a uniform one of that density would fill the whole
+# 219 x 219 block grid (196 M block values), and B = A expands 2 x 10^8.
+CHAIN_B = dict(density=2e-4, structure="fem", seed=1)
+
+
+def dtoh_copies(fn) -> int:
+    """Device-to-host copies the profiler sees while ``fn`` runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "DtoH" in e.name)
+
+
+def chain_case(stage1, b2, av, bv, what: str) -> dict:
+    """``stage1.then(b2)``: execute_chain against the host round trip,
+    bitwise, with the intermediate a CUDA tensor."""
+    t0 = time.perf_counter()
+    chain = stage1.then(b2)
+    plan2_s = time.perf_counter() - t0
+    stage2 = chain.plans[1]
+    reset_counts()
+    out = chain.execute(av, bv)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["spgemm_scheduled"] == 2, f"{what}: K1 launches {launched}")
+    round_trip = stage2.execute(a_vals=stage1.execute(av, bv).data)
+    check(np.array_equal(out.indptr, round_trip.indptr)
+          and np.array_equal(out.data, round_trip.data),
+          f"{what}: execute_chain differs from the host round trip")
+    check(bool(np.all(np.isfinite(out.data))), f"{what}: non-finite values")
+    packed = stage1._run_packed(av, bv)
+    check(packed.is_cuda, f"{what}: stage 1's packed values left the device")
+    last = stage2._run_packed_chained(packed)
+    check(last.is_cuda and np.array_equal(last.cpu().numpy(), out.data),
+          f"{what}: chained stage 2 differs")
+    copies = dtoh_copies(lambda: chain.execute(av, bv))
+    check(copies <= 1, f"{what}: {copies} device-to-host copies in one chain execute")
+    r2 = stage2.report
+    log(f"  {what}: stage 2 plan {plan2_s:.2f} s ({r2.num_triples} triples, "
+        f"{stage2.assembly.nnz} block values, nnz(C) {stage2._active().nnz}); "
+        f"launches {launched}; bitwise equal to the host round trip; stage 1's values a "
+        f"CUDA tensor; {copies} device-to-host copy per chain execute")
+    return {"stage2_plan_s": plan2_s, "stage2_triples": r2.num_triples,
+            "stage2_nnz": stage2._active().nnz, "stage2_block_values": stage2.assembly.nnz,
+            "dtoh_copies": copies}
+
+
+def phase_chain(a: CSR, stage1, stage1_plan_s, dev, rng) -> dict:
+    """poisson3Da (A·A)·B2 through ``plan.then``, float32, then once with
+    small-integer values through a chain of plans built on bfloat16."""
+    n = a.shape[0]
+    b2 = random_coo(n, n, CHAIN_B["density"], CHAIN_B["structure"], seed=CHAIN_B["seed"])
+    log(f"  B2: random_coo({n}, {n}, {CHAIN_B['density']}, {CHAIN_B['structure']!r}, "
+        f"seed={CHAIN_B['seed']}): nnz {b2.nnz} ({b2.nnz / n:.2f} per row)")
+    av = rng.standard_normal(a.nnz, dtype=np.float32)
+    bv = rng.standard_normal(a.nnz, dtype=np.float32)
+    info = {"stage1_plan_s": stage1_plan_s, "b2_nnz": b2.nnz,
+            "float32": chain_case(stage1, b2, av, bv, "chain, float32")}
+
+    def bf16_csr(m: CSR, vals):
+        return torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype(np.int64)),
+                                       torch.from_numpy(m.indices.astype(np.int64)),
+                                       torch.from_numpy(vals).bfloat16(), m.shape,
+                                       check_invariants=False)
+
+    def small_ints(size):
+        v = rng.integers(-4, 5, size).astype(np.float32)
+        return np.where(v == 0, np.float32(1), v)
+
+    ta = bf16_csr(a, small_ints(a.nnz))
+    t0 = time.perf_counter()
+    stage1_bf16 = spgemm_plan(ta, ta, tile=TILE, group=GROUP, device=dev, output="compact")
+    plan_s = time.perf_counter() - t0
+    b2_csr = CSR.from_coo(b2)
+    tb = bf16_csr(b2_csr, small_ints(b2.nnz))
+    check(stage1_bf16.value_dtypes == (torch.bfloat16, torch.bfloat16), "bf16 chain dtypes")
+    info["bfloat16"] = chain_case(stage1_bf16, tb, small_ints(a.nnz), small_ints(a.nnz),
+                                  "chain, bfloat16, small integers")
+    info["bfloat16"]["stage1_plan_s"] = plan_s
+    return info
+
+
+def submit_without_sync(pipe, a_vals, b_vals):
+    """``submit`` with PyTorch's sync debug mode set to raise: a hidden
+    synchronization inside it (a pageable copy, ``.item()``) fails it, at
+    once or at its collect."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return pipe.submit(a_vals, b_vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def device_union_ms(events) -> float:
+    """Time (ms) during which at least one of the device ``events``
+    (kernels and copies, on any stream) ran."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -np.inf
+    for s, e in spans:
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+PIPE_STEPS, PIPE_ROUNDS, PIPE_DEPTHS = 16, 7, (1, 2, 4)
+
+
+def phase_pipeline(plan, dev) -> dict:
+    """poisson3Da through the submit/collect pipeline, values from
+    ``SpGEMMValueStream``: 16 steps at depths 1, 2 and 4 bitwise equal to
+    sequential ``execute``, every submit without a synchronization, K1 on
+    one side stream per slot; an out-of-order collect; batched submits
+    of 4 against ``execute_batch``; steps per second; the device's idle
+    share at depth 2."""
+    # The check has teeth: the debug mode catches a pageable copy.
+    try:
+        submit_without_sync(types.SimpleNamespace(
+            submit=lambda a, b: torch.from_numpy(a).to(dev)), np.ones(4, np.float32), None)
+        caught = False
+    except RuntimeError:
+        caught = True
+    check(caught, "sync debug mode let a pageable host-to-device copy through")
+    stream = SpGEMMValueStream(plan.a_pattern, plan.b_pattern, seed=SEED)
+    sets = [stream.values_at(s) for s in range(PIPE_STEPS)]
+    probe = torch.zeros(plan.assembly.nnz, dtype=torch.float32, device=dev)
+    info = {"pageable_d2h_ms_before": host_ms(probe.cpu, reps=5),
+            "execute_ms_before": host_ms(lambda: plan.execute(*sets[0]), reps=5)}
+    seq = [plan.execute(*v).data for v in sets]
+    default = torch.cuda.default_stream(dev).cuda_stream
+    for depth in PIPE_DEPTHS:
+        reset_counts()
+        out = []
+        with plan.pipeline(depth=depth) as pipe:
+            for v in sets:
+                if pipe.free_slots == 0:
+                    out.append(pipe.collect())
+                submit_without_sync(pipe, *v)
+            out.extend(pipe)
+        torch.cuda.synchronize()
+        launched = counts()
+        side = {s: n for s, n in spgemm_scheduled.stream_launches.items() if s != default}
+        check(launched["spgemm_scheduled"] == PIPE_STEPS and sum(side.values()) == PIPE_STEPS,
+              f"depth {depth}: K1 launches {launched}, by stream {dict(side)}")
+        check(len(side) == depth, f"depth {depth}: K1 ran on {len(side)} side streams")
+        for s, (got, want) in enumerate(zip(out, seq)):
+            check(np.array_equal(got.data, want), f"depth {depth}: step {s} differs from execute")
+        log(f"  depth {depth}: {PIPE_STEPS} steps bitwise equal to execute; K1 launches "
+            f"{launched['spgemm_scheduled']} on {len(side)} side streams")
+        info[f"depth{depth}_side_streams"] = len(side)
+    with plan.pipeline(depth=4) as pipe:
+        tickets = [submit_without_sync(pipe, *v) for v in sets[:4]]
+        order = (2, 0, 3, 1)
+        got = {i: pipe.collect(tickets[i]) for i in order}
+    for i in order:
+        check(np.array_equal(got[i].data, seq[i]), f"out-of-order collect: step {i} differs")
+    a_batch, b_batch = stream.values_batch_at(0, batch=4)
+    want = plan.execute_batch(a_batch, b_batch)
+    reset_counts()
+    with plan.pipeline(depth=2) as pipe:
+        t1 = submit_without_sync(pipe, a_batch, b_batch)
+        t2 = submit_without_sync(pipe, *stream.values_batch_at(1, batch=4))
+        got1, got2 = t1.result(), t2.result()
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["spgemm_scheduled_batch"] >= 2, f"batched submit: launches {launched}")
+    want2 = plan.execute_batch(*stream.values_batch_at(1, batch=4))
+    for i, (g, w) in enumerate(zip(got1 + got2, want + want2)):
+        check(np.array_equal(g.data, w.data), f"batched submit element {i} differs")
+    log(f"  out-of-order collect {order} bitwise equal; 2 batched submits of 4 bitwise equal "
+        f"to execute_batch (K2 launches {launched['spgemm_scheduled_batch']})")
+    del out, got, got1, got2, want, want2, seq
+
+    def sequential():
+        for v in sets:
+            plan.execute(*v)
+
+    def pipelined(depth):
+        def run():
+            with plan.pipeline(depth=depth) as pipe:
+                for _ in pipe.stream(iter(sets)):
+                    pass
+        return run
+
+    modes = {"execute": sequential, **{f"depth{d}": pipelined(d) for d in PIPE_DEPTHS}}
+    for fn in modes.values():  # warm-up
+        fn()
+    rates = {name: [] for name in modes}
+    for _ in range(PIPE_ROUNDS):
+        for name, fn in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[name].append(PIPE_STEPS / (time.perf_counter() - t0))
+    steps_per_s = {name: float(np.median(r)) for name, r in rates.items()}
+    info["steps_per_s"] = steps_per_s
+    info["steps_per_s_rounds"] = rates
+    log("  steps per second, median of " + f"{PIPE_ROUNDS} rounds of {PIPE_STEPS}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps_per_s.items()))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run = pipelined(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = device_union_ms(dev_events)
+    kernels = device_union_ms([e for e in dev_events if "Memcpy" not in e.name
+                               and "Memset" not in e.name])
+    copies = {k: sum(e.time_range.elapsed_us() for e in dev_events if k in e.name) / 1e3
+              for k in ("HtoD", "DtoH")}
+    info["depth2_profile"] = {
+        "wall_ms": wall, "unprofiled_wall_ms": plain_wall, "device_busy_ms": busy,
+        "kernel_busy_ms": kernels, "copy_ms": copies, "idle_share": 1.0 - busy / wall,
+        "idle_share_unprofiled": max(0.0, 1.0 - busy / plain_wall),
+        "device_events": len(dev_events),
+    }
+    log(f"  depth 2 under torch.profiler, {PIPE_STEPS} steps: wall {wall:.2f} ms (unprofiled "
+        f"{plain_wall:.2f}), device busy (any stream) {busy:.2f} ms, kernels {kernels:.2f} ms, "
+        f"copies {copies}; idle share {1.0 - busy / wall:.1%} (unprofiled est. "
+        f"{max(0.0, 1.0 - busy / plain_wall):.1%})")
+    info["pageable_d2h_ms_after"] = host_ms(probe.cpu, reps=5)
+    info["execute_ms_after"] = host_ms(lambda: plan.execute(*sets[0]), reps=5)
+    log(f"  C's {4 * probe.numel()} B to pageable host memory: {info['pageable_d2h_ms_before']:.3f} "
+        f"ms before this phase, {info['pageable_d2h_ms_after']:.3f} ms after; execute "
+        f"{info['execute_ms_before']:.3f} / {info['execute_ms_after']:.3f} ms")
+    return info
+
+
 # -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
@@ -650,7 +994,7 @@ def breakdown(plan, dev, rng, reps: int) -> dict:
     wrap. Device stages are timed with CUDA events, the others with the
     host clock around a synchronize. ``bind_batch`` and ``assemble_batch``
     are the batched path's two gathers for one value set."""
-    from repro_torch.spgemm.executor import _bind, _bind_batch
+    from repro_torch.spgemm.executor import bind_batch_core, bind_core
 
     ex, r = plan._executor, plan.report
     names = ("host_rebind", "h2d", "bind", "kernel", "assemble", "d2h", "wrap",
@@ -671,7 +1015,8 @@ def breakdown(plan, dev, rng, reps: int) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         ev[0].record()
-        a_blocks, b_blocks = _bind(a_d, ex._a_inv, ex.a_shape), _bind(b_d, ex._b_inv, ex.b_shape)
+        a_blocks = bind_core(a_d, ex._a_inv, shape=ex.a_shape)
+        b_blocks = bind_core(b_d, ex._b_inv, shape=ex.b_shape)
         ev[1].record()
         panels = spgemm_scheduled(a_blocks, b_blocks, ex._runs)
         ev[2].record()
@@ -685,8 +1030,8 @@ def breakdown(plan, dev, rng, reps: int) -> dict:
         t5 = time.perf_counter()
         evb = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         evb[0].record()
-        _bind_batch(a_d[None], ex._a_inv, ex.a_shape)
-        _bind_batch(b_d[None], ex._b_inv, ex.b_shape)
+        bind_batch_core(a_d[None], ex._a_inv, shape=ex.a_shape)
+        bind_batch_core(b_d[None], ex._b_inv, shape=ex.b_shape)
         evb[1].record()
         evb[2].record()
         panels.reshape(1, -1).index_select(1, ex._gather)
@@ -1615,6 +1960,18 @@ def main() -> int:
     log("[5b] poisson3Da, a plan built on bfloat16 values")
     bf16_plan = phase_bf16_plan(a, dev, rng)
 
+    log("[5c] compact output: poisson3Da and 2cubes_sphere")
+    compact_plans, compact_info = phase_compact(
+        {"poisson3Da": (a, plan), "2cubes_sphere": (a2, plan2)}, dev, rng)
+    del compact_plans["2cubes_sphere"]
+
+    log("[5d] chain: poisson3Da (A·A)·B2, float32 and bfloat16")
+    chain_info = phase_chain(a, compact_plans.pop("poisson3Da"),
+                             compact_info["poisson3Da"]["plan_s"], dev, rng)
+
+    log("[5e] pipeline: poisson3Da, submit/collect at depths 1, 2 and 4")
+    pipe_info = phase_pipeline(plan, dev)
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -1627,6 +1984,7 @@ def main() -> int:
     log("[9] timings")
     entries, extra = phase_timings(a, plan, launched, chunk, dev, rng)
     extra.update(bf16_plan)
+    extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info})
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2

@@ -48,10 +48,12 @@ __all__ = [
     "assembly_from_arrays",
     "assembly_to_arrays",
     "build_assembly_map",
+    "build_compact_map",
     "build_spgemm_schedule",
     "panel_runs",
     "schedule_from_arrays",
     "schedule_to_arrays",
+    "structural_product_pattern",
 ]
 
 
@@ -299,6 +301,117 @@ def build_assembly_map(
     return AssemblyMap(
         gather.astype(gdtype, copy=False), indptr,
         cols.astype(np.int32), (m, n),
+    )
+
+
+def structural_product_pattern(
+    a_row: np.ndarray,
+    a_col: np.ndarray,
+    b_row: np.ndarray,
+    b_col: np.ndarray,
+    a_shape: Tuple[int, int],
+    b_shape: Tuple[int, int],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Element-exact structural pattern of ``C = A @ B``.
+
+    Pure symbolic Gustavson at element granularity: position ``(i, j)`` is
+    in the result iff some ``k`` has ``A[i, k]`` and ``B[k, j]`` both
+    structurally nonzero. Value-independent by construction — numeric
+    cancellation keeps its (explicitly stored) slot, exactly like the
+    block-structural pattern, just without block fill.
+
+    Inputs are the operands' COO patterns in canonical row-major order
+    (``B``'s row groups must be contiguous; ``sum_duplicates`` output
+    qualifies). Returns ``(rows, cols)`` sorted strictly row-major —
+    ``rows`` as int64, ``cols`` as int32 — ready for
+    :func:`build_compact_map`.
+    """
+    m, k = int(a_shape[0]), int(a_shape[1])
+    k2, n = int(b_shape[0]), int(b_shape[1])
+    if k != k2:
+        raise ValueError(f"inner dims mismatch: {a_shape} x {b_shape}")
+    a_row = np.asarray(a_row, np.int64)
+    a_col = np.asarray(a_col, np.int64)
+    b_col64 = np.asarray(b_col, np.int64)
+    b_indptr = np.zeros(k + 1, np.int64)
+    np.cumsum(np.bincount(np.asarray(b_row, np.int64), minlength=k),
+              out=b_indptr[1:])
+    counts = b_indptr[a_col + 1] - b_indptr[a_col]
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int32)
+    # Expand every (i, k) against B's row k: the standard repeat/offset
+    # expansion (one flat arange minus per-segment restart offsets).
+    out_rows = np.repeat(a_row, counts)
+    cum = np.cumsum(counts)
+    offset = np.arange(total, dtype=np.int64) - np.repeat(cum - counts, counts)
+    out_cols = b_col64[np.repeat(b_indptr[a_col], counts) + offset]
+    key = np.unique(out_rows * n + out_cols)
+    return key // n, (key % n).astype(np.int32)
+
+
+def build_compact_map(
+    assembly: AssemblyMap,
+    rows: np.ndarray,
+    cols: np.ndarray,
+) -> AssemblyMap:
+    """Element-exact (compacted) sibling of :func:`build_assembly_map`.
+
+    ``assembly`` is the structural *block* map for the same schedule;
+    ``(rows, cols)`` is C's element-exact pattern in strictly ascending
+    row-major order (e.g. from :func:`structural_product_pattern`). Every
+    compact position must exist in the block pattern — the compact map is
+    a subset selection: its gather indices are the block map's gather at
+    the surviving positions, so executing through it *is* the fused
+    compaction (one static gather, no ``nonzero`` scan), and the
+    exactly-once/pad-panel proofs inherit directly from the block map.
+
+    Returns an :class:`AssemblyMap` whose CSR stores only the element-
+    structural nonzeros (explicit zero *blocks'* fill is dropped; numeric
+    cancellation within a structural element is kept).
+    """
+    m, n = assembly.shape
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    if rows.shape != cols.shape or rows.ndim != 1:
+        raise ValueError(
+            f"pattern arrays must be equal-length vectors, got "
+            f"{rows.shape} / {cols.shape}"
+        )
+    nnz = int(rows.shape[0])
+    indptr = np.zeros(m + 1, np.int64)
+    if nnz == 0:
+        return AssemblyMap(
+            np.zeros(0, assembly.gather.dtype), indptr,
+            np.zeros(0, np.int32), (m, n),
+        )
+    if (rows < 0).any() or (rows >= m).any() or (cols < 0).any() \
+            or (cols >= n).any():
+        raise ValueError(f"compact pattern indices outside {m}x{n}")
+    key = rows * n + cols
+    if (np.diff(key) <= 0).any():
+        raise ValueError(
+            "compact pattern must be strictly ascending row-major "
+            "(canonical CSR order)"
+        )
+    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
+    # Subset selection by searchsorted on the block map's (row, col) keys
+    # — strictly ascending by build_assembly_map's lexsort, so equality at
+    # the insertion point is exact membership.
+    bkey = (
+        np.repeat(np.arange(m, dtype=np.int64), np.diff(assembly.indptr))
+        * n + assembly.indices.astype(np.int64)
+    )
+    pos = np.searchsorted(bkey, key)
+    ok = pos < bkey.shape[0]
+    if not ok.all() or not np.array_equal(bkey[np.minimum(
+            pos, max(bkey.shape[0] - 1, 0))], key):
+        raise ValueError(
+            "compact pattern is not a subset of the structural block "
+            "pattern: some element has no kernel output slot"
+        )
+    return AssemblyMap(
+        assembly.gather[pos], indptr, cols.astype(np.int32), (m, n),
     )
 
 

@@ -14,14 +14,22 @@ bit. Blocks are float32 or bfloat16 (a plan built on bfloat16 values
 stages bfloat16 blocks); the result is float32 either way, each element a
 float32 FMA chain over the tile's triples in order, k ascending.
 
-Each wrapper launches the CUDA kernel for CUDA tensors and raises on
-anything it does not accept. For CPU tensors it computes the same result
-with the plain PyTorch version (:mod:`repro_torch.kernels.ref`). Each
-wrapper's ``launches`` attribute counts its kernel launches, and
-``bf16_launches`` those with bfloat16 blocks.
+Each wrapper launches the CUDA kernel for CUDA tensors, on the current
+stream, and raises on anything it does not accept. For CPU tensors it
+computes the same result with the plain PyTorch version
+(:mod:`repro_torch.kernels.ref`). Each wrapper's ``launches`` attribute
+counts its kernel launches, ``bf16_launches`` those with bfloat16 blocks,
+and ``stream_launches`` (a ``Counter`` keyed by the ``cudaStream_t``
+handle) the streams they went to.
+
+:func:`compact_row_counts` and :func:`compact_csr_indptr` are the device
+half of the output bookkeeping: C's CSR row pointers from the output
+map's static row ids (``bincount`` + ``cumsum``; no hand-written kernel,
+as the JAX package's counterparts are a segment sum and a ``cumsum``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -35,6 +43,8 @@ from repro_torch.sparse.formats import BCSR, BCSV
 
 __all__ = [
     "ScheduleRuns",
+    "compact_csr_indptr",
+    "compact_row_counts",
     "runs_case",
     "spgemm_scheduled",
     "spgemm_scheduled_batch",
@@ -152,6 +162,10 @@ def _no_panels(a_blocks, b_blocks, runs: ScheduleRuns, lead) -> torch.Tensor:
     )
 
 
+def _stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
     """Launch the kernel on the current stream; the schedule has tiles."""
     bm, bk = int(a_blocks.shape[1]), int(a_blocks.shape[2])
@@ -179,7 +193,7 @@ def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
             runs.a_slot.data_ptr(), runs.b_slot.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[a_blocks.dtype], bsz, runs.n_panels * runs.group,
             int(a_blocks.shape[0]) // bsz, int(b_blocks.shape[0]) // bsz,
-            bm, bk, bn, torch.cuda.current_stream(a_blocks.device).cuda_stream,
+            bm, bk, bn, _stream_handle(a_blocks),
         )
     if err != 0:
         raise RuntimeError(f"gustavson_spgemm kernel launch failed: cudaError_t {err}")
@@ -206,6 +220,7 @@ def spgemm_scheduled(
     out = _launch(a_blocks, b_blocks, runs, 1)
     spgemm_scheduled.launches += 1
     spgemm_scheduled.bf16_launches += a_blocks.dtype == torch.bfloat16
+    spgemm_scheduled.stream_launches[_stream_handle(a_blocks)] += 1
     return out[0]
 
 
@@ -234,10 +249,28 @@ def spgemm_scheduled_batch(
     out = _launch(a_blocks, b_blocks, runs, bsz)
     spgemm_scheduled_batch.launches += 1
     spgemm_scheduled_batch.bf16_launches += a_blocks.dtype == torch.bfloat16
+    spgemm_scheduled_batch.stream_launches[_stream_handle(a_blocks)] += 1
     return out
+
+
+def compact_row_counts(row_ids: torch.Tensor, *, m: int) -> torch.Tensor:
+    """Per-row value counts of C, ``[m]`` int32, from the output map's
+    static per-value row ids (CSR order), on their device."""
+    return torch.bincount(row_ids, minlength=m).to(torch.int32)
+
+
+def compact_csr_indptr(row_ids: torch.Tensor, *, m: int) -> torch.Tensor:
+    """C's CSR ``indptr``, ``[m + 1]`` int32, on the device of ``row_ids``:
+    the row counts and their prefix sum. With the packed values of an
+    execute it is a CSR replica of C that never leaves the device."""
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device=row_ids.device)
+    indptr[1:] = torch.cumsum(compact_row_counts(row_ids, m=m), 0)
+    return indptr
 
 
 spgemm_scheduled.launches = 0
 spgemm_scheduled.bf16_launches = 0
+spgemm_scheduled.stream_launches = collections.Counter()
 spgemm_scheduled_batch.launches = 0
 spgemm_scheduled_batch.bf16_launches = 0
+spgemm_scheduled_batch.stream_launches = collections.Counter()

@@ -2,7 +2,8 @@
 
 The paper's Compressed Sparse Vector (CSV) format (Sec. 3), the standard
 formats it is defined against (COO/CSR/CSC), and the block variants
-(BCSR/BCSV) the block-Gustavson kernel consumes.
+(BCSR/BCSV) the block-Gustavson kernel consumes; Matrix Market and .npz
+file I/O (``io``).
 """
 from repro_torch.sparse.formats import (
     COO,
@@ -13,7 +14,7 @@ from repro_torch.sparse.formats import (
     BCSV,
     SparseFormat,
 )
-from repro_torch.sparse import convert, random
+from repro_torch.sparse import convert, io, random
 
 __all__ = [
     "COO",
@@ -24,5 +25,6 @@ __all__ = [
     "BCSV",
     "SparseFormat",
     "convert",
+    "io",
     "random",
 ]

@@ -28,6 +28,28 @@ element's accumulation order, so a batch equals a loop of single executes
 bit for bit. :class:`SpGEMMExecutor` holds a plan's device-resident
 constants (schedule runs, scatter inverses, gather map — copied to the
 device once).
+
+**Stage-split pipeline surface.** Each stage is also a function of its
+own (``bind_core`` / ``kernel_core`` / ``assemble_core`` and their batched
+forms), and the fused cores are compositions of them, so a step run stage
+by stage is the same sequence of operations. :class:`SpGEMMExecutor`
+carries the pipeline protocol over them::
+
+    staged = ex.pipe_stage(a, b, mode=...)   # host-to-device copy + rebind
+    panels = ex.pipe_kernel(staged, mode)    # the scheduled kernel
+    packed = ex.pipe_assemble(panels, mode)  # the assembly gather
+    pend   = ex.pipe_download(packed)        # device-to-host copy, started
+    out    = ex.pipe_collect(pend, mode)     # the ONLY blocking call
+
+On a CUDA executor every step but ``pipe_collect`` only enqueues work on
+the current stream: host operands come from pinned memory and go to the
+card with ``non_blocking`` copies, and ``pipe_download`` copies C's
+values into a fresh pinned host tensor and records an event, which
+``pipe_collect`` waits on. A caller that runs each step on a stream of
+its own (:class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`) overlaps
+step ``s + 1``'s copies and kernel with step ``s``'s: the paper's double
+buffer. On the CPU every step runs at once and ``pipe_collect`` returns
+its values.
 """
 from __future__ import annotations
 
@@ -41,6 +63,7 @@ from repro_torch.core.schedule import AssemblyMap, SpGEMMSchedule
 from repro_torch.kernels import ref
 from repro_torch.kernels.gustavson_spgemm import (
     ScheduleRuns,
+    compact_csr_indptr,
     spgemm_scheduled,
     spgemm_scheduled_batch,
     stage_runs,
@@ -49,6 +72,12 @@ from repro_torch.kernels.gustavson_spgemm import (
 __all__ = [
     "CHUNK_BYTES_ENV",
     "SpGEMMExecutor",
+    "assemble_batch_core",
+    "assemble_core",
+    "bind_batch_core",
+    "bind_core",
+    "kernel_batch_core",
+    "kernel_core",
     "numeric_core",
     "numeric_core_batch",
     "numeric_core_values",
@@ -147,25 +176,55 @@ def _invert_scatter(scatter: np.ndarray, size: int) -> np.ndarray:
     return inv
 
 
-def _bind(vals, inv, shape):
-    """Device-side value rebind as one gather through the precomputed
-    scatter inverse. Positions outside the pattern read the zero pad."""
+# -- stage cores ---------------------------------------------------------------
+#
+# The fused cores below are compositions of these, so a step run stage by
+# stage (the pipeline) runs exactly the operations of a fused call.
+
+
+def bind_core(vals, inv, *, shape):
+    """Stage 1 (element plans): [nnz] values -> packed blocks, as one
+    gather through the precomputed scatter inverse. Positions outside the
+    pattern read the zero pad."""
     pad = torch.cat([vals, vals.new_zeros(1)])
     return pad.index_select(0, inv).reshape(shape)
 
 
-def _bind_batch(vals, inv, shape):
-    """Batched value rebind: one gather per batch row through the shared
-    scatter inverse, stacked along the slot axis."""
+def bind_batch_core(vals, inv, *, shape):
+    """Stage 1, batched: [batch, nnz] values -> stacked packed blocks, one
+    gather per batch row through the shared scatter inverse."""
     bsz = vals.shape[0]
     pad = torch.cat([vals, vals.new_zeros((bsz, 1))], dim=1)
     return pad.index_select(1, inv).reshape((bsz * shape[0],) + tuple(shape[1:]))
 
 
+def kernel_core(a_blocks, b_blocks, runs, *, backend):
+    """Stage 2: packed blocks -> output panels (the scheduled kernel)."""
+    return _run_schedule(a_blocks, b_blocks, runs, backend=backend)
+
+
+def kernel_batch_core(a_blocks, b_blocks, runs, *, a_slots, backend):
+    """Stage 2, batched: the scheduled kernel over stacked blocks
+    (``[batch * slots, ...]``, as stage 1 makes them): panels
+    ``[batch, n_panels, group*bm, bn]``."""
+    bsz = a_blocks.shape[0] // a_slots
+    return _run_schedule_batch(a_blocks, b_blocks, runs, bsz, backend=backend)
+
+
+def assemble_core(panels, gather):
+    """Stage 3: output panels -> packed C values (one static gather)."""
+    return panels.reshape(-1).index_select(0, gather)
+
+
+def assemble_batch_core(panels, gather):
+    """Stage 3, batched: one gather per batch element through the shared
+    map: ``[batch, nnz_c]``."""
+    return panels.reshape(panels.shape[0], -1).index_select(1, gather)
+
+
 def numeric_core(a_blocks, b_blocks, runs, gather, *, backend):
     """Functional numeric phase: packed blocks -> packed C values."""
-    panels = _run_schedule(a_blocks, b_blocks, runs, backend=backend)
-    return panels.reshape(-1).index_select(0, gather)
+    return assemble_core(kernel_core(a_blocks, b_blocks, runs, backend=backend), gather)
 
 
 def numeric_core_values(
@@ -173,9 +232,15 @@ def numeric_core_values(
 ):
     """Numeric phase from [nnz] value vectors: rebind + kernel + assembly."""
     return numeric_core(
-        _bind(a_vals, a_inv, a_shape), _bind(b_vals, b_inv, b_shape),
+        bind_core(a_vals, a_inv, shape=a_shape), bind_core(b_vals, b_inv, shape=b_shape),
         runs, gather, backend=backend,
     )
+
+
+def _stack_blocks(vals, shape):
+    """Batched packed blocks ``[batch, slots, ...]`` -> ``[batch * slots,
+    ...]``."""
+    return vals.reshape((-1,) + tuple(shape[1:]))
 
 
 def numeric_core_batch(
@@ -189,15 +254,33 @@ def numeric_core_batch(
     Returns packed C values ``[batch, nnz_c]``, each row bitwise-equal to
     the single-set core on the same backend.
     """
-    bsz = a_vals.shape[0]
     if rebind:
-        a_blocks = _bind_batch(a_vals, a_inv, a_shape)
-        b_blocks = _bind_batch(b_vals, b_inv, b_shape)
+        a_blocks = bind_batch_core(a_vals, a_inv, shape=a_shape)
+        b_blocks = bind_batch_core(b_vals, b_inv, shape=b_shape)
     else:
-        a_blocks = a_vals.reshape((bsz * a_shape[0],) + tuple(a_shape[1:]))
-        b_blocks = b_vals.reshape((bsz * b_shape[0],) + tuple(b_shape[1:]))
-    panels = _run_schedule_batch(a_blocks, b_blocks, runs, bsz, backend=backend)
-    return panels.reshape(bsz, -1).index_select(1, gather)
+        a_blocks, b_blocks = _stack_blocks(a_vals, a_shape), _stack_blocks(b_vals, b_shape)
+    panels = kernel_batch_core(a_blocks, b_blocks, runs, a_slots=a_shape[0], backend=backend)
+    return assemble_batch_core(panels, gather)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A fresh page-locked copy of the CPU tensor ``t`` (from PyTorch's
+    caching host allocator, which reuses a block only after the copies
+    recorded on it have completed)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+class _Download:
+    """A device-to-host copy in flight: the pinned host tensor it writes
+    and the event recorded after it on the copying stream."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host = host
+        self.event = event
 
 
 class SpGEMMExecutor:
@@ -239,9 +322,13 @@ class SpGEMMExecutor:
             schedule.n_panels * schedule.group + schedule.num_triples
         ) * bm
         self._runs = stage_runs(schedule, self.device)
+        # The assembly map is the plan's *active* output map: the block-
+        # structural map for output="block", the element-exact compact map
+        # for output="compact"; every path gathers through it.
         self._gather = torch.from_numpy(assembly.gather).to(self.device)
         self._out_rows = int(assembly.shape[0])
         self._indptr_host = np.asarray(assembly.indptr)
+        self._row_ids: Optional[torch.Tensor] = None
         self._a_inv = self._stage_inverse(a_scatter, a_shape)
         self._b_inv = self._stage_inverse(b_scatter, b_shape)
 
@@ -250,6 +337,24 @@ class SpGEMMExecutor:
             return None
         inv = _invert_scatter(np.asarray(scatter), int(np.prod(shape)))
         return torch.from_numpy(inv).to(self.device)
+
+    @property
+    def can_rebind(self) -> bool:
+        """True for element plans: both operands rebind from value
+        vectors on the device."""
+        return self._a_inv is not None and self._b_inv is not None
+
+    def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
+        """Re-resolve the chunk policy with a new per-set budget;
+        ``REPRO_SPGEMM_CHUNK_BYTES`` still wins (:func:`resolve_chunk_bytes`)."""
+        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
+
+    def constants(self) -> list:
+        """The device tensors every numeric call reads: schedule runs,
+        scatter inverses, gather map."""
+        runs = self._runs
+        out = [runs.ptr, runs.a_slot, runs.b_slot, runs.panel, runs.sub_row, self._gather]
+        return out + [t for t in (self._a_inv, self._b_inv) if t is not None]
 
     def batch_chunk(
         self,
@@ -273,17 +378,16 @@ class SpGEMMExecutor:
         return 1
 
     def device_indptr(self) -> torch.Tensor:
-        """Device-resident CSR ``indptr`` (int32) of the output map:
-        ``bincount`` of the static per-value row ids + ``cumsum``. Equals
-        the plan's host ``indptr`` elementwise."""
-        row_ids = torch.from_numpy(np.repeat(
-            np.arange(self._out_rows, dtype=np.int64),
-            np.diff(self._indptr_host),
-        )).to(self.device)
-        counts = torch.bincount(row_ids, minlength=self._out_rows)
-        indptr = torch.zeros(self._out_rows + 1, dtype=torch.int32, device=self.device)
-        indptr[1:] = torch.cumsum(counts, 0)
-        return indptr
+        """Device-resident CSR ``indptr`` (int32) of the active output map
+        (:func:`~repro_torch.kernels.gustavson_spgemm.compact_csr_indptr`
+        over the map's static per-value row ids, staged once). Equals the
+        plan's host ``indptr`` elementwise."""
+        if self._row_ids is None:
+            self._row_ids = torch.from_numpy(np.repeat(
+                np.arange(self._out_rows, dtype=np.int64),
+                np.diff(self._indptr_host),
+            )).to(self.device)
+        return compact_csr_indptr(self._row_ids, m=self._out_rows)
 
     def run(self, a_blocks, b_blocks) -> torch.Tensor:
         """Packed blocks -> packed C values (plan's backend)."""
@@ -305,3 +409,64 @@ class SpGEMMExecutor:
             a_shape=self.a_shape, b_shape=self.b_shape, rebind=rebind,
             backend=self.backend,
         )
+
+    # -- pipeline protocol (stage-split; only pipe_collect blocks) ----------
+    #
+    # ``mode`` for pipe_stage: "values" ([nnz] vectors, element plans),
+    # "blocks" (packed blocks, block plans), "batch_values" ([batch, nnz])
+    # or "batch_blocks" ([batch, slots, ...]). Operands are CPU tensors
+    # (pinned, for a CUDA executor) or tensors already on the device.
+    # ``mode`` for kernel/assemble/collect: "single" or "batch".
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device, non_blocking=True)
+
+    def pipe_stage(self, a, b, *, mode: str):
+        """Host-to-device copy (asynchronous from pinned memory) and the
+        value rebind; returns the staged packed blocks."""
+        a, b = self._to_device(a), self._to_device(b)
+        if mode == "values":
+            return (bind_core(a, self._a_inv, shape=self.a_shape),
+                    bind_core(b, self._b_inv, shape=self.b_shape))
+        if mode == "blocks":
+            return a, b
+        if mode == "batch_values":
+            return (bind_batch_core(a, self._a_inv, shape=self.a_shape),
+                    bind_batch_core(b, self._b_inv, shape=self.b_shape))
+        if mode == "batch_blocks":
+            return _stack_blocks(a, self.a_shape), _stack_blocks(b, self.b_shape)
+        raise ValueError(f"unknown stage mode {mode!r}")
+
+    def pipe_kernel(self, staged, *, mode: str):
+        """The scheduled kernel over staged blocks."""
+        a_blocks, b_blocks = staged
+        if mode == "single":
+            return kernel_core(a_blocks, b_blocks, self._runs, backend=self.backend)
+        return kernel_batch_core(a_blocks, b_blocks, self._runs, a_slots=self.a_shape[0],
+                                 backend=self.backend)
+
+    def pipe_assemble(self, panels, *, mode: str):
+        """The output-assembly gather."""
+        if mode == "single":
+            return assemble_core(panels, self._gather)
+        return assemble_batch_core(panels, self._gather)
+
+    def pipe_download(self, packed: torch.Tensor):
+        """Start the device-to-host copy of packed C values: on a CUDA
+        executor into a fresh pinned tensor, with an event recorded after
+        the copy on the current stream; on the CPU the values themselves."""
+        if packed.device.type != "cuda":
+            return packed
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _Download(host, event)
+
+    def pipe_collect(self, pending, *, mode: str) -> torch.Tensor:
+        """Packed C values on the host: waits for the step's copy (the only
+        blocking call of the protocol)."""
+        if isinstance(pending, _Download):
+            pending.event.synchronize()
+            return pending.host
+        return pending

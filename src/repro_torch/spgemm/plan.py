@@ -15,6 +15,14 @@ to be performed once". This module is that claim as an API:
   semantics (no-arg ``execute()`` reuses staged values) and wraps the
   packed C values in the precomputed CSR structure;
   :meth:`SpGEMMPlan.execute_batch` runs a leading batch of value sets.
+* :meth:`SpGEMMPlan.pipeline` / ``execute_async`` / ``execute_stream``
+  serve a stream of value sets through a bounded submit/collect pipeline
+  (:mod:`repro_torch.spgemm.pipeline`): on the card each in-flight step
+  runs on a CUDA stream of its own, so copies overlap kernels.
+* ``output="compact"`` stores only C's element-exact structural nonzeros
+  (no block fill); plans compose into chains (:meth:`SpGEMMPlan.then`,
+  :func:`plan_from_structural_pattern`, :func:`execute_chain`) whose
+  intermediates never leave the device.
 
 Plans run on the card: ``device="cuda"`` is the default and raises when no
 CUDA device is present; ``device="cpu"`` runs the plain PyTorch version.
@@ -31,15 +39,17 @@ read through a 16-bit view, and the plan holds its packed blocks on the
 host as CPU tensors of its dtype.
 
 Output convention: C's CSR pattern is *structural* (every element of every
-structurally nonzero C block, trimmed to the true shape), so values that
+structurally nonzero C block, trimmed to the true shape, or under
+``output="compact"`` every element some product reaches), so values that
 compute to exact zero are stored explicitly — the pattern is
 value-independent, which is what makes assembly a static gather.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,19 +58,29 @@ from repro_torch.core.schedule import (
     AssemblyMap,
     SpGEMMSchedule,
     assembly_from_arrays,
+    assembly_to_arrays,
     build_assembly_map,
+    build_compact_map,
     build_spgemm_schedule,
     schedule_from_arrays,
+    schedule_to_arrays,
+    structural_product_pattern,
 )
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo, to_coo
 from repro_torch.sparse.formats import BCSR, BCSV, COO, CSR
 from repro_torch.spgemm.cache import pattern_digest
-from repro_torch.spgemm.executor import CHUNK_BYTES_ENV, SpGEMMExecutor
+from repro_torch.spgemm.executor import CHUNK_BYTES_ENV, SpGEMMExecutor, _pinned_copy
+from repro_torch.spgemm.pipeline import SpGEMMPipeline, SpGEMMTicket, _Prepared
 
 __all__ = [
     "PlanReport",
+    "SpGEMMChain",
     "SpGEMMPlan",
+    "StructuralPattern",
+    "chain_plans",
+    "execute_chain",
+    "plan_from_structural_pattern",
     "resolve_backend",
     "resolve_device",
     "spgemm_plan",
@@ -201,9 +221,20 @@ def _device_values(vals, device: torch.device, dtype: torch.dtype) -> torch.Tens
     return _as_tensor(vals, dtype).to(device).contiguous()
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The JAX package's name of a packed value dtype."""
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def _value_dtype(dtype) -> torch.dtype:
+    """A requested value dtype (torch or numpy, by name) as the packed
+    dtype a plan holds: bfloat16, or float32 for any other."""
+    return torch.bfloat16 if "bfloat16" in str(dtype) else torch.float32
+
+
 class SpGEMMPlan:
     """A fully pre-processed SpGEMM: symbolic phase done, numeric phase
-    repeatable — single-shot or batched — with fresh values.
+    repeatable — single-shot, batched or pipelined — with fresh values.
 
     Build through :func:`spgemm_plan` or :meth:`SpGEMMPlan.from_blocks`.
     ``execute`` / ``__call__`` accept new value sets bound to the *same*
@@ -218,6 +249,11 @@ class SpGEMMPlan:
     Values may be numpy arrays or tensors. Passing ``None`` reuses the
     values staged at build / last execute. ``execute_batch`` takes the same
     per-set shapes with a leading batch axis.
+
+    ``output="compact"`` wraps results in the element-exact map
+    (``plan.compact``) instead of the block-structural one
+    (``plan.assembly``); block plans have no element pattern, so there the
+    compact map is the block map itself.
 
     Results returned by one plan share the precomputed CSR ``indptr`` /
     ``indices`` arrays (treat them as read-only).
@@ -239,7 +275,10 @@ class SpGEMMPlan:
         a_pattern: Optional[COO] = None,
         b_pattern: Optional[COO] = None,
         assembly: Optional[AssemblyMap] = None,
+        output: str = "block",
+        compact: Optional[AssemblyMap] = None,
     ):
+        _check_output(output)
         self.schedule = schedule
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
@@ -249,7 +288,8 @@ class SpGEMMPlan:
         self._a_scatter = a_scatter
         self._b_scatter = b_scatter
         # The packed dtypes of the values the plan was built on, and the
-        # host packed blocks (CPU tensors of those dtypes).
+        # host packed blocks (CPU tensors of those dtypes; None once
+        # release_values() dropped them). The shapes survive release.
         self._a_dtype, self._b_dtype = value_dtypes
         self._a_blocks = _host_values(a_blocks, self._a_dtype)
         self._b_blocks = _host_values(b_blocks, self._b_dtype)
@@ -265,10 +305,24 @@ class SpGEMMPlan:
             assembly if assembly is not None
             else build_assembly_map(schedule, (self._bm, self._bn), out_shape)
         )
+        # Output mode and the element-exact compact map: a subset of the
+        # block map's positions, so gathering through it is the
+        # compaction (no nonzero scan).
+        self.output = output
+        self.compact: Optional[AssemblyMap] = compact
+        if output == "compact" and self.compact is None:
+            if a_pattern is not None and b_pattern is not None:
+                rows, cols = structural_product_pattern(
+                    a_pattern.row, a_pattern.col, b_pattern.row, b_pattern.col,
+                    a_pattern.shape, b_pattern.shape,
+                )
+                self.compact = build_compact_map(self.assembly, rows, cols)
+            else:
+                self.compact = self.assembly
         self._executor = (
             SpGEMMExecutor(
                 schedule=schedule,
-                assembly=self.assembly,
+                assembly=self._active(),
                 backend=self.backend,
                 device=self.device,
                 a_scatter=a_scatter,
@@ -282,13 +336,42 @@ class SpGEMMPlan:
         # Device block values are staged lazily (first no-arg execute).
         self._a_dev = None
         self._b_dev = None
+        # Device copy of B's element values, staged by the first chained
+        # execute (a later chain stage multiplies the previous stage's
+        # device values by its own B).
+        self._b_vals_dev = None
         # Guards value rebinds + report counters, so concurrent executes
         # each see a consistent (values, device array) pair.
         self._lock = threading.Lock()
+        # Pipeline steps submitted and not yet collected (or discarded):
+        # while nonzero, buffer teardown refuses.
+        self._inflight = 0
+        self._released = False
+        # The side streams pipelines over this plan run their steps on
+        # (CUDA plans; made on demand). Kept by the plan so that every
+        # pipeline reuses them, and with them the device memory PyTorch's
+        # caching allocator keeps per stream.
+        self._streams: list = []
+
+    def _active(self) -> AssemblyMap:
+        """The output map results are wrapped in (and the executor gathers
+        through): the compact map under ``output="compact"``, else the
+        block-structural map."""
+        return self.compact if self.output == "compact" else self.assembly
+
+    def _default_depth(self) -> int:
+        """The pipeline depth when none is asked for: 2, the paper's double
+        buffer (the autotuner, which picks a depth per pattern, is not
+        ported)."""
+        return 2
 
     def _stage(self, blocks: torch.Tensor) -> torch.Tensor:
         """Host packed blocks -> a device copy (never an alias of the host
-        scratch that later rebinds write into)."""
+        scratch that later rebinds write into). On the card the copy goes
+        through a pinned copy of the blocks, so it does not block the
+        host."""
+        if self.device.type == "cuda":
+            return _pinned_copy(blocks).to(self.device, non_blocking=True)
         return blocks.to(self.device, copy=True)
 
     # -- construction -----------------------------------------------------
@@ -303,6 +386,7 @@ class SpGEMMPlan:
         device="cuda",
         schedule: Optional[SpGEMMSchedule] = None,
         pattern_key: str = "",
+        output: str = "block",
     ) -> "SpGEMMPlan":
         """Plan from pre-converted block formats (the ops.spgemm shim path).
 
@@ -341,10 +425,45 @@ class SpGEMMPlan:
             device=device,
             out_shape=(a.shape[0], b.shape[1]),
             report=report,
+            output=output,
         )
-        report._nnz_a = _staged_nnz(plan, "_a_blocks")
-        report._nnz_b = _staged_nnz(plan, "_b_blocks")
+        report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
+        report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
         return plan
+
+    # -- persistence -------------------------------------------------------
+
+    def persist_artifacts(self) -> Tuple[dict, dict]:
+        """The plan's value-independent symbolic artifacts as ``(arrays,
+        meta)``, in the JAX package's layout: the triple schedule, the
+        assembly map, the compact map under the ``casm.`` prefix (compact
+        plans) and the value-scatter indices (element plans); ``meta``
+        holds the geometry (packed block shapes and dtypes, output shape,
+        tile, group, backend). Values are excluded: a warm restart brings
+        its own (:meth:`from_artifacts`)."""
+        arrays = {}
+        arrays.update(schedule_to_arrays(self.schedule))
+        arrays.update(assembly_to_arrays(self.assembly))
+        if self.output == "compact":
+            arrays.update(assembly_to_arrays(self.compact, prefix="casm."))
+        if self._a_scatter is not None:
+            arrays["a_scatter"] = self._a_scatter
+        if self._b_scatter is not None:
+            arrays["b_scatter"] = self._b_scatter
+        element = self._a_scatter is not None and self._b_scatter is not None
+        meta = {
+            "kind": "element" if element else "block",
+            "output": self.output,
+            "backend": self.backend,
+            "out_shape": [self._m, self._n],
+            "a_shape": list(self._a_shape),
+            "b_shape": list(self._b_shape),
+            "a_dtype": _dtype_name(self._a_dtype),
+            "b_dtype": _dtype_name(self._b_dtype),
+            "tile": list(self.report.tile),
+            "group": self.report.group,
+        }
+        return arrays, meta
 
     @classmethod
     def from_artifacts(
@@ -361,34 +480,39 @@ class SpGEMMPlan:
         b_blocks: Optional[np.ndarray] = None,
         a_pattern: Optional[COO] = None,
         b_pattern: Optional[COO] = None,
+        output: str = "block",
     ) -> "SpGEMMPlan":
         """Build a plan from persisted symbolic artifacts + this call's values.
 
-        ``(arrays, meta)`` is what the JAX package's
-        ``SpGEMMPlan.persist_artifacts()`` returns for a single-device plan
-        with block output: the triple schedule, the assembly map and, for
-        element plans, the value-scatter indices. The symbolic phase is
-        **not** re-run (``report.schedule_builds == 0``). The packed block
-        arrays are rebuilt by scattering ``a_vals``/``b_vals`` through the
-        persisted scatter indices (element plans) or taken from
+        ``(arrays, meta)`` is what :meth:`persist_artifacts` returns, here
+        or in the JAX package, for a single-device plan: the triple
+        schedule, the assembly map, the compact map (``output="compact"``,
+        which must match the persisted output) and, for element plans, the
+        value-scatter indices. The symbolic phase is **not** re-run
+        (``report.schedule_builds == 0``). The packed block arrays are
+        rebuilt by scattering ``a_vals``/``b_vals`` through the persisted
+        scatter indices (element plans) or taken from
         ``a_blocks``/``b_blocks`` (block plans). The persisted backend
         names the other package's backend and is not read. Any
         inconsistency between artifacts and inputs raises.
         """
         device = resolve_device(device)
         backend = resolve_backend(backend, device)
+        _check_output(output)
         kind = meta.get("kind")
         if kind not in ("element", "block"):
             raise ValueError(f"unknown persisted plan kind {kind!r}")
-        if meta.get("output", "block") != "block":
+        if meta.get("output", "block") != output:
             raise ValueError(
-                f"persisted output {meta.get('output')!r}: only block "
-                f"output is ported"
+                f"persisted output {meta.get('output', 'block')!r} != {output!r}"
             )
         if "shard_bounds" in arrays:
             raise ValueError("sharded plan artifacts are not ported")
         schedule = schedule_from_arrays(arrays)
         assembly = assembly_from_arrays(arrays)
+        compact = (
+            assembly_from_arrays(arrays, prefix="casm.") if output == "compact" else None
+        )
         a_shape = tuple(int(x) for x in meta["a_shape"])
         b_shape = tuple(int(x) for x in meta["b_shape"])
         out_shape = tuple(int(x) for x in meta["out_shape"])
@@ -397,11 +521,7 @@ class SpGEMMPlan:
         a_scatter = arrays.get("a_scatter")
         b_scatter = arrays.get("b_scatter")
         # The persisted value dtypes (the JAX package's names).
-        a_dtype, b_dtype = (
-            torch.bfloat16 if str(meta.get(f"{x}_dtype", "float32")) == "bfloat16"
-            else torch.float32
-            for x in ("a", "b")
-        )
+        a_dtype, b_dtype = (_value_dtype(meta.get(f"{x}_dtype", "float32")) for x in ("a", "b"))
 
         def rebuild(vals, scatter, shape, dtype, name):
             if scatter is None:
@@ -455,10 +575,12 @@ class SpGEMMPlan:
             a_pattern=a_pattern,
             b_pattern=b_pattern,
             assembly=assembly,
+            output=output,
+            compact=compact,
         )
         if kind == "block":
-            report._nnz_a = _staged_nnz(plan, "_a_blocks")
-            report._nnz_b = _staged_nnz(plan, "_b_blocks")
+            report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
+            report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
         return plan
 
     # -- numeric phase ----------------------------------------------------
@@ -466,7 +588,7 @@ class SpGEMMPlan:
     def _rebind(
         self,
         vals,
-        blocks: torch.Tensor,
+        blocks: Optional[torch.Tensor],
         scatter: Optional[np.ndarray],
         nnz: int,
         name: str,
@@ -474,7 +596,8 @@ class SpGEMMPlan:
         dtype: torch.dtype,
     ) -> torch.Tensor:
         """``vals`` rounded to the packed ``dtype`` and, for element plans,
-        scattered into ``blocks``; returns the host packed blocks."""
+        scattered into ``blocks`` (reallocated if released); returns the
+        host packed blocks."""
         vals = _host_values(vals, dtype)
         if scatter is not None:
             if vals.shape != (nnz,):
@@ -482,6 +605,8 @@ class SpGEMMPlan:
                     f"{name}: expected [{nnz}] values in canonical pattern "
                     f"order, got shape {tuple(vals.shape)}"
                 )
+            if blocks is None:  # scratch was released; reallocate
+                blocks = torch.zeros(shape, dtype=dtype)
             # Positions outside `scatter` are structurally zero and never
             # written, so in-place rebinding is sound.
             blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
@@ -496,11 +621,18 @@ class SpGEMMPlan:
     def value_shapes(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
         """Per-set operand shapes the numeric phase accepts:
         ``(want_a, want_b)`` — ``[nnz]`` vectors for element plans, packed
-        block arrays for block plans. ``execute_batch`` takes the same
-        shapes with a shared leading batch axis."""
+        block arrays for block plans. ``execute_batch`` and ``submit`` take
+        the same shapes with a shared leading batch axis."""
         if self._a_scatter is not None and self._b_scatter is not None:
             return (self.report.nnz_a,), (self.report.nnz_b,)
         return self._a_shape, self._b_shape
+
+    def value_nbytes(self) -> int:
+        """Bytes of one request's operand values (``a_vals`` + ``b_vals``
+        at the plan's packed dtypes)."""
+        want_a, want_b = self.value_shapes()
+        return (int(np.prod(want_a)) * self._a_dtype.itemsize
+                + int(np.prod(want_b)) * self._b_dtype.itemsize)
 
     @property
     def value_dtypes(self) -> Tuple[torch.dtype, torch.dtype]:
@@ -516,18 +648,43 @@ class SpGEMMPlan:
         )
 
     def _wrap_packed(self, packed: torch.Tensor) -> CSR:
-        """Packed C values (assembly-map order) -> CSR on the precomputed
+        """Packed C values (active-map order) -> CSR on the precomputed
         structure. indptr/indices are shared across this plan's results."""
-        asm = self.assembly
+        asm = self._active()
         return CSR(asm.indptr, asm.indices, packed.cpu().numpy(), (self._m, self._n))
 
+    def output_pattern(self) -> "StructuralPattern":
+        """C's value-independent output structure, the seed of the next
+        plan in a chain (:func:`plan_from_structural_pattern`): element-
+        exact under ``output="compact"``, block-structural (zero fill
+        included) under the default block output."""
+        asm = self._active()
+        return StructuralPattern(asm.indptr, asm.indices, (self._m, self._n))
+
     def device_indptr(self) -> torch.Tensor:
-        """Device-resident CSR ``indptr`` (int32) of C. Together with a
-        ``_run_packed`` result this is a complete CSR replica of C that
-        never leaves the device."""
+        """Device-resident CSR ``indptr`` (int32) of the active output map.
+        Together with a ``_run_packed`` result this is a complete CSR
+        replica of C that never leaves the device."""
         if self._executor is None:
-            return torch.from_numpy(self.assembly.indptr.astype(np.int32)).to(self.device)
+            return torch.from_numpy(self._active().indptr.astype(np.int32)).to(self.device)
         return self._executor.device_indptr()
+
+    def then(self, b, **kwargs) -> "SpGEMMChain":
+        """Compose this plan with a next operand: plan ``C @ b`` from this
+        plan's output pattern (no COO conversion of C) and return the
+        two-stage :class:`SpGEMMChain`. ``kwargs`` go to
+        :func:`plan_from_structural_pattern`; tile, group, backend, device,
+        output and the value dtype default to this plan's own."""
+        return SpGEMMChain([self, self._plan_next(b, **kwargs)])
+
+    def _plan_next(self, b, **kwargs) -> "SpGEMMPlan":
+        kwargs.setdefault("tile", self.report.tile)
+        kwargs.setdefault("group", self.report.group)
+        kwargs.setdefault("backend", self.backend)
+        kwargs.setdefault("device", self.device)
+        kwargs.setdefault("output", self.output)
+        kwargs.setdefault("dtype", self._a_dtype)
+        return plan_from_structural_pattern(self.output_pattern(), b, **kwargs)
 
     def execute(self, a_vals=None, b_vals=None) -> CSR:
         """Numeric phase only: C = A @ B for fresh values on the planned
@@ -541,8 +698,10 @@ class SpGEMMPlan:
 
     def _run_packed(self, a_vals=None, b_vals=None) -> Optional[torch.Tensor]:
         """``execute``'s device core: run the numeric phase and return the
-        packed C values on the device (``None`` for an empty plan)."""
+        packed C values on the device (``None`` for an empty plan): the
+        handoff ``execute_chain`` keeps on the device between stages."""
         with self._lock:
+            self._check_released()
             if a_vals is not None:
                 self._a_blocks = self._rebind(
                     a_vals, self._a_blocks, self._a_scatter,
@@ -557,6 +716,11 @@ class SpGEMMPlan:
                     "b_vals", self._b_shape, self._b_dtype,
                 )
                 self._b_dev = None
+            if self._a_blocks is None or self._b_blocks is None:
+                raise ValueError(
+                    "plan values were released (release_values); pass "
+                    "a_vals/b_vals to execute"
+                )
             # Element plans called with both value vectors take the fused
             # device path (rebind + kernel + assembly on the device): only
             # [nnz] vectors cross to the device, not full packed blocks.
@@ -586,6 +750,41 @@ class SpGEMMPlan:
             )
         return self._executor.run(a_dev, b_dev)
 
+    def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A later stage of :func:`execute_chain`: the previous stage's
+        packed C values (active-map order, which is canonical element
+        order) are this plan's A values, bound on the device and rounded
+        to this plan's A dtype; B values are the plan's own, copied to
+        the device once and reused across chain executes."""
+        if self._a_scatter is None or self._b_scatter is None:
+            raise ValueError(
+                "chained stages need element plans (built from COO/CSR "
+                "inputs or plan_from_structural_pattern)"
+            )
+        with self._lock:
+            self._check_released()
+            if self._b_vals_dev is None:
+                if self.b_pattern is None:
+                    raise ValueError(
+                        "chained stage has no B values: the plan was built "
+                        "without a B pattern; rebuild it via "
+                        "plan_from_structural_pattern with B in hand"
+                    )
+                self._b_vals_dev = _device_values(self.b_pattern.val, self.device,
+                                                  self._b_dtype)
+            b_dev = self._b_vals_dev
+            self.report.executes += 1
+        if c_packed is None:  # previous stage was empty: A values all zero
+            c_packed = torch.zeros(self.report.nnz_a, dtype=self._a_dtype, device=self.device)
+        if tuple(c_packed.shape) != (self.report.nnz_a,):
+            raise ValueError(
+                f"chained values: expected [{self.report.nnz_a}] from the "
+                f"previous stage, got shape {tuple(c_packed.shape)}"
+            )
+        if self._executor is None:
+            return None
+        return self._executor.run_values(c_packed.to(self._a_dtype), b_dev)
+
     def execute_batch(self, a_vals, b_vals) -> list:
         """Batched numeric phase over a leading value-batch axis.
 
@@ -596,8 +795,9 @@ class SpGEMMPlan:
         bitwise-equal to ``execute`` on the same values.
 
         Stateless with respect to the plan's staged values: it never
-        touches the buffers no-arg ``execute()`` reuses. Values are rounded
-        to the plan's packed dtypes, as ``execute`` rounds them.
+        touches the buffers no-arg ``execute()`` reuses, so it works after
+        ``release_values()``. Values are rounded to the plan's packed
+        dtypes, as ``execute`` rounds them.
         """
         if not isinstance(a_vals, torch.Tensor):
             a_vals = np.asarray(a_vals)
@@ -619,6 +819,7 @@ class SpGEMMPlan:
             )
         batch = int(a_shape[0])
         with self._lock:
+            self._check_released()
             self.report.executes += batch
         if batch == 0:
             return []
@@ -638,11 +839,270 @@ class SpGEMMPlan:
             out.extend(self._wrap_packed(packed[i]) for i in range(hi - lo))
         return out
 
+    # -- asynchronous serving (the stage-split pipeline surface) ----------
 
-def _staged_nnz(plan: SpGEMMPlan, attr: str):
+    def pipeline(self, depth: Optional[int] = None) -> SpGEMMPipeline:
+        """A bounded-depth submit/collect pipeline over this plan;
+        ``depth=None`` takes 2, the paper's double buffer (one step
+        copying while one computes). See
+        :class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`."""
+        return SpGEMMPipeline(self, depth=self._default_depth() if depth is None else depth)
+
+    def execute_async(self, a_vals=None, b_vals=None) -> SpGEMMTicket:
+        """Dispatch one numeric phase without blocking; redeem the returned
+        ticket with ``.result()``. Same operand shapes as ``execute`` (a
+        leading batch axis makes the ticket redeem to ``execute_batch``'s
+        list of CSRs). Each call is its own depth-1 pipeline; use
+        :meth:`pipeline` for bounded-depth serving."""
+        return SpGEMMPipeline(self, depth=1).submit(a_vals, b_vals)
+
+    def execute_stream(self, value_iter, *, depth: Optional[int] = None):
+        """Stream value sets through a ``depth``-deep pipeline (``None``:
+        2), yielding one CSR per item in order. ``value_iter`` yields
+        ``(a_vals, b_vals)`` tuples or ``{"a_vals", "b_vals"}`` dicts, e.g.
+        :meth:`repro_torch.data.pipeline.SpGEMMValueStream.value_iter`.
+        Results are bitwise-equal to calling ``execute`` per item."""
+        return self.pipeline(depth).stream(value_iter)
+
+    @property
+    def in_flight(self) -> int:
+        """Pipeline steps submitted against this plan and not yet
+        collected (or discarded). Buffer teardown refuses while > 0."""
+        with self._lock:
+            return self._inflight
+
+    def _check_released(self) -> None:
+        """Call under ``self._lock``."""
+        if self._released:
+            raise RuntimeError(
+                "plan was released (release()); build a new plan"
+            )
+
+    def _check_no_inflight(self, what: str) -> None:
+        """Call under ``self._lock``."""
+        if self._inflight:
+            raise RuntimeError(
+                f"cannot {what}: {self._inflight} in-flight pipeline "
+                f"step(s) still read this plan's staged buffers; collect "
+                f"the tickets or close the pipeline first"
+            )
+
+    def _pipe_streams(self, depth: int) -> list:
+        """``depth`` side streams for a pipeline's slots: the plan's first
+        ``depth`` CUDA streams (None on the CPU). Pipelines over one plan
+        share them; work on a shared stream is ordered, never mixed."""
+        if self.device.type != "cuda":
+            return [None] * depth
+        with self._lock:
+            while len(self._streams) < depth:
+                self._streams.append(torch.cuda.Stream(self.device))
+            return self._streams[:depth]
+
+    def _pipe_operand(self, vals, dtype: torch.dtype) -> torch.Tensor:
+        """One submitted operand in the plan's value dtype: a tensor on a
+        CUDA plan's device stays there; anything else becomes a host
+        tensor, page-locked on a CUDA plan so that its copy to the card
+        is asynchronous (a fresh copy: the caller may reuse its buffer)."""
+        if self.device.type == "cuda":
+            if isinstance(vals, torch.Tensor) and vals.device == self.device:
+                return _as_tensor(vals, dtype).contiguous()
+            return _pinned_copy(_host_values(vals, dtype))
+        return _host_values(vals, dtype)
+
+    def _pipe_check(self, a_vals, b_vals) -> _Prepared:
+        """Validate one submission and prepare its operands (host work and
+        a plan-state snapshot; no device compute is enqueued).
+
+        Stateless with respect to the plan's staged values, except that
+        the no-arg form stages (and caches) the plan's own values exactly
+        like ``execute()`` does."""
+        if (a_vals is None) != (b_vals is None):
+            raise ValueError(
+                "submit takes both a_vals and b_vals, or neither "
+                "(to reuse the plan's staged values)"
+            )
+        if a_vals is None:
+            with self._lock:
+                self._check_released()
+                if self._a_blocks is None or self._b_blocks is None:
+                    raise ValueError(
+                        "plan values were released (release_values); pass "
+                        "a_vals/b_vals to submit"
+                    )
+                if self._executor is not None:
+                    if self._a_dev is None:
+                        self._a_dev = self._stage(self._a_blocks)
+                    if self._b_dev is None:
+                        self._b_dev = self._stage(self._b_blocks)
+                return _Prepared("blocks", self._a_dev, self._b_dev, None, 1)
+        with self._lock:
+            self._check_released()
+        if not isinstance(a_vals, torch.Tensor):
+            a_vals = np.asarray(a_vals)
+        if not isinstance(b_vals, torch.Tensor):
+            b_vals = np.asarray(b_vals)
+        rebind = self._a_scatter is not None and self._b_scatter is not None
+        want_a, want_b = self.value_shapes()
+        a_shape, b_shape = tuple(a_vals.shape), tuple(b_vals.shape)
+        single = a_shape == want_a and b_shape == want_b
+        batched = (
+            len(a_shape) == len(want_a) + 1 and a_shape[1:] == want_a
+            and b_shape[:1] == a_shape[:1] and b_shape[1:] == want_b
+        )
+        if not (single or batched):
+            raise ValueError(
+                f"submit: expected a_vals {want_a} / b_vals {want_b} "
+                f"(optionally with a shared leading batch axis), got "
+                f"{a_shape} / {b_shape}"
+            )
+        a = self._pipe_operand(a_vals, self._a_dtype)
+        b = self._pipe_operand(b_vals, self._b_dtype)
+        if single:
+            return _Prepared("values" if rebind else "blocks", a, b, None, 1)
+        batch = int(a_shape[0])
+        return _Prepared("batch_values" if rebind else "batch_blocks", a, b, batch, batch)
+
+    def _pipe_begin(self, n_execs: int) -> None:
+        with self._lock:
+            self._check_released()
+            self.report.executes += n_execs
+            self._inflight += 1
+
+    def _pipe_end(self) -> None:
+        with self._lock:
+            self._inflight -= 1
+
+    def _pipe_dispatch(self, prep: _Prepared, stream=None):
+        """Enqueue one prepared step's device work (copy in, rebind,
+        kernel, assembly, copy out) without blocking; returns the pending
+        result (a list of per-chunk results for batch submissions).
+
+        On a CUDA plan the work goes to ``stream``, which first waits for
+        the caller's current stream (the plan's constants and any device
+        operands were made there); every tensor the step reads that
+        another stream made is marked with ``record_stream``, so its
+        memory is not reused while the step may still read it. On the CPU
+        (``stream=None``) the step runs at once."""
+        if self._executor is None or prep.batch == 0:
+            return None
+        if stream is None:
+            return self._pipe_run(prep)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        for t in self._executor.constants() + [prep.a, prep.b]:
+            if t.device.type == "cuda":
+                t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            return self._pipe_run(prep)
+
+    def _pipe_run(self, prep: _Prepared):
+        ex = self._executor
+        if prep.batch is None:
+            staged = ex.pipe_stage(prep.a, prep.b, mode=prep.mode)
+            panels = ex.pipe_kernel(staged, mode="single")
+            return ex.pipe_download(ex.pipe_assemble(panels, mode="single"))
+        # Batch submissions chunk exactly like execute_batch; the chunks
+        # are enqueued back to back.
+        chunk = min(prep.batch, ex.batch_chunk())
+        out = []
+        for lo in range(0, prep.batch, chunk):
+            hi = min(lo + chunk, prep.batch)
+            staged = ex.pipe_stage(prep.a[lo:hi], prep.b[lo:hi], mode=prep.mode)
+            panels = ex.pipe_kernel(staged, mode="batch")
+            out.append(ex.pipe_download(ex.pipe_assemble(panels, mode="batch")))
+        return out
+
+    def _pipe_collect(self, prep: _Prepared, packed):
+        """Wait for one dispatched step and wrap it in the plan's
+        precomputed CSR structure."""
+        if prep.batch is None:
+            if self._executor is None:
+                return self._empty_csr()
+            return self._wrap_packed(self._executor.pipe_collect(packed, mode="single"))
+        if self._executor is None:
+            return [self._empty_csr() for _ in range(prep.batch)]
+        out = []
+        for chunk_packed in (packed or ()):
+            arr = self._executor.pipe_collect(chunk_packed, mode="batch")
+            out.extend(self._wrap_packed(arr[i]) for i in range(arr.shape[0]))
+        return out
+
+    # -- teardown ----------------------------------------------------------
+
+    def release_device_values(self) -> None:
+        """Drop only the staged device copies of the values; the next
+        execute restages from the host blocks. Refuses while pipeline
+        steps are in flight."""
+        with self._lock:
+            self._check_no_inflight("release device values")
+            self._a_dev = None
+            self._b_dev = None
+            self._b_vals_dev = None
+
+    def release_values(self) -> None:
+        """Drop the host and device copies of the packed block values, so
+        that a plan kept for its pattern pins no operand-sized memory.
+        Afterwards ``execute`` needs explicit ``a_vals``/``b_vals``
+        (``execute_batch`` never reads staged values). Refuses while
+        pipeline steps are in flight."""
+        with self._lock:
+            self._check_no_inflight("release values")
+            self._a_dev = None
+            self._b_dev = None
+            self._b_vals_dev = None
+            self._a_blocks = None
+            self._b_blocks = None
+
+    def release(self) -> None:
+        """Full teardown: values (host and device) and the executor's
+        device constants. The plan is dead afterwards: every execute or
+        submit raises. Refuses while pipeline steps are in flight; drain
+        or ``close()`` pipelines first. (The JAX package's plan also
+        evicts itself from its plan cache here; the port has no cache
+        yet.)"""
+        with self._lock:
+            self._check_no_inflight("release plan")
+            self._released = True
+            self._a_dev = None
+            self._b_dev = None
+            self._b_vals_dev = None
+            self._a_blocks = None
+            self._b_blocks = None
+            self._executor = None
+
+    def host_nbytes(self) -> int:
+        """Approximate bytes of host arrays this plan retains."""
+        sch = self.schedule
+        arrays = [
+            sch.a_slot, sch.b_slot, sch.panel, sch.sub_row, sch.start,
+            sch.panel_group, sch.panel_bcol, sch.c_brow, sch.c_bcol,
+            self._a_scatter, self._b_scatter,
+        ]
+        for pat in (self.a_pattern, self.b_pattern):
+            if pat is not None:
+                arrays += [pat.row, pat.col, pat.val]
+        with self._lock:
+            blocks = [t for t in (self._a_blocks, self._b_blocks) if t is not None]
+        compact = self.compact.nbytes() if self.compact is not None else 0
+        return (self.assembly.nbytes() + compact
+                + sum(a.nbytes for a in arrays if a is not None)
+                + sum(t.numel() * t.element_size() for t in blocks))
+
+
+def _check_output(output: str) -> None:
+    if output not in ("block", "compact"):
+        raise ValueError(f"output must be 'block' or 'compact', got {output!r}")
+
+
+def _staged_nnz(plan: SpGEMMPlan, attr: str, field: str):
     """Lazy element-count resolver reading the plan's staged blocks."""
     def resolve() -> int:
-        return int(torch.count_nonzero(getattr(plan, attr)))
+        blocks = getattr(plan, attr)
+        if blocks is None:
+            raise ValueError(
+                f"{field}: plan values were released before the lazy "
+                f"report field was read"
+            )
+        return int(torch.count_nonzero(blocks))
 
     return resolve
 
@@ -701,6 +1161,7 @@ def spgemm_plan(
     group: int = 4,
     backend: str = "auto",
     device="cuda",
+    output: str = "block",
 ) -> SpGEMMPlan:
     """Build an :class:`SpGEMMPlan` for ``C = a @ b``.
 
@@ -716,7 +1177,12 @@ def spgemm_plan(
     ``device="cuda"`` (the default) runs the numeric phase through the
     CUDA kernel and raises when no CUDA device is present;
     ``device="cpu"`` runs the plain PyTorch version.
+
+    ``output="compact"`` makes results store only C's element-exact
+    structural nonzeros (no block fill): the plan also builds the compact
+    gather map (``plan.compact``), a subset of the block map's positions.
     """
+    _check_output(output)
     device = resolve_device(device)
     backend = resolve_backend(backend, device)
     if isinstance(a, BCSV) and isinstance(b, BCSR):
@@ -726,7 +1192,7 @@ def spgemm_plan(
             )
         return SpGEMMPlan.from_blocks(
             a, b, backend=backend, device=device,
-            pattern_key=_block_pattern_key(a, b),
+            pattern_key=_block_pattern_key(a, b), output=output,
         )
 
     bm, bk, bn = _normalize_tile(tile)
@@ -745,6 +1211,14 @@ def spgemm_plan(
             "bfloat16" if dt == torch.bfloat16 else str(coo.val.dtype)
             for dt, coo in zip(dtypes, (a_coo, b_coo))),
     )
+    return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
+                         device, output)
+
+
+def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend, device,
+                  output) -> SpGEMMPlan:
+    """The symbolic phase of an element plan from canonical COO operands."""
+    bm, bk, bn = tile
     a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
     b_bcsr, b_scatter = bcsr_from_coo(b_coo, (bk, bn))
     schedule = build_spgemm_schedule(a_bcsv, b_bcsr)
@@ -766,4 +1240,220 @@ def spgemm_plan(
         b_scatter=b_scatter,
         a_pattern=a_coo,
         b_pattern=b_coo,
+        output=output,
     )
+
+
+# ---------------------------------------------------------------------------
+# Structural plan composition (the chaining layer)
+#
+# C's pattern is value-independent, so one plan's output *structure* fully
+# determines the next plan's A-side input structure: no values, no COO
+# conversion, no canonicalizing sort. A plan's ``output_pattern()`` feeds
+# ``plan_from_structural_pattern``, and ``execute_chain`` hands each
+# stage's packed device values straight to the next stage's rebind.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuralPattern:
+    """A CSR-shaped structural sparsity pattern, detached from any values.
+
+    A plan's value-independent output structure
+    (:meth:`SpGEMMPlan.output_pattern`) in the exact arrays its results
+    share, and the seed :func:`plan_from_structural_pattern` builds the
+    next chained plan from. Its order (row-major, strictly ascending
+    ``(row, col)``) is canonical COO order, which is what lets a previous
+    stage's packed values bind positionally as the next stage's A values.
+    """
+
+    indptr: np.ndarray  # [m + 1] CSR row pointers
+    indices: np.ndarray  # [nnz] int32 CSR column ids
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    def rows(self) -> np.ndarray:
+        """The expanded per-element row ids (canonical order)."""
+        return np.repeat(np.arange(self.shape[0], dtype=np.int64), np.diff(self.indptr))
+
+    def to_coo(self, val=None, dtype=np.float32) -> COO:
+        """The pattern as canonical COO; ``val=None`` fills placeholder
+        zeros (chained plans bind real values per execute)."""
+        if val is None:
+            val = np.zeros(self.nnz, dtype)
+        return COO(self.rows(), self.indices, val, self.shape)
+
+
+def _check_chain_link(p: SpGEMMPlan, q: SpGEMMPlan, stage: int) -> None:
+    """Stage ``stage + 1``'s A pattern must be stage ``stage``'s output
+    pattern, elementwise: the positional-binding contract of
+    :func:`execute_chain`."""
+    if q._a_scatter is None or q._b_scatter is None:
+        raise ValueError(
+            f"chain stage {stage + 1} is not an element plan; chained "
+            f"stages are built by plan_from_structural_pattern"
+        )
+    asm = p._active()
+    pat = q.a_pattern
+    if pat is None or tuple(pat.shape) != (p._m, p._n):
+        got = None if pat is None else tuple(pat.shape)
+        raise ValueError(
+            f"chain stage {stage + 1}: A shape {got} != stage {stage} "
+            f"output shape {(p._m, p._n)}"
+        )
+    if q.device != p.device:
+        raise ValueError(
+            f"chain stage {stage + 1} runs on {q.device}, stage {stage} on {p.device}: "
+            f"a chain keeps its intermediates on one device"
+        )
+    if q.report.nnz_a != asm.nnz or not (
+        np.array_equal(pat.col, asm.indices)
+        and np.array_equal(np.bincount(pat.row, minlength=p._m), np.diff(asm.indptr))
+    ):
+        raise ValueError(
+            f"chain stage {stage + 1}: A pattern does not match stage "
+            f"{stage}'s output pattern; build it from that plan's "
+            f"output_pattern() (plan.then / plan_from_structural_pattern)"
+        )
+
+
+class SpGEMMChain:
+    """An ordered composition of plans: ``A @ B1 @ B2 @ ...`` where stage
+    ``s + 1``'s A pattern *is* stage ``s``'s output pattern (validated at
+    construction). :meth:`execute` runs the whole chain with every
+    intermediate on the device: the only device-to-host copy is the final
+    result's."""
+
+    def __init__(self, plans: Sequence[SpGEMMPlan]):
+        plans = list(plans)
+        if not plans:
+            raise ValueError("a chain needs at least one plan")
+        for s, (p, q) in enumerate(zip(plans, plans[1:])):
+            _check_chain_link(p, q, s)
+        self.plans = plans
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.plans[0]._m, self.plans[-1]._n)
+
+    def then(self, b, **kwargs) -> "SpGEMMChain":
+        """Extend the chain by one more operand (see
+        :meth:`SpGEMMPlan.then`)."""
+        return SpGEMMChain(self.plans + [self.plans[-1]._plan_next(b, **kwargs)])
+
+    def output_pattern(self) -> StructuralPattern:
+        return self.plans[-1].output_pattern()
+
+    def device_indptr(self) -> torch.Tensor:
+        return self.plans[-1].device_indptr()
+
+    def execute(self, a_vals=None, b_vals=None) -> CSR:
+        """Run the chain; ``a_vals``/``b_vals`` are stage 1's operands
+        (same contract as :meth:`SpGEMMPlan.execute`), later stages use
+        their own staged B values."""
+        return execute_chain(self.plans, a_vals=a_vals, b_vals=b_vals)
+
+    __call__ = execute
+
+
+def chain_plans(plans: Sequence[SpGEMMPlan]) -> SpGEMMChain:
+    """Validate and wrap an ordered plan list as a :class:`SpGEMMChain`
+    (each plan's A pattern must be its predecessor's output pattern)."""
+    return SpGEMMChain(plans)
+
+
+def execute_chain(plans, a_vals=None, b_vals=None) -> CSR:
+    """Run ``A @ B1 @ B2 @ ...`` through a validated plan chain with the
+    intermediates on the device.
+
+    Stage 1 runs exactly like ``plans[0].execute`` but keeps its packed C
+    values on the device; every later stage binds the previous packed
+    values as its A values (active-map order is canonical element order,
+    so the binding is positional), rounded to its A dtype, against its
+    own staged B values: no intermediate CSR, no host transfer. The final
+    stage's values are copied to the host once and wrapped in its
+    precomputed CSR structure. Bitwise-equal to executing each stage on
+    its own with a host round trip between them (the same operations on
+    the same operand bits).
+
+    ``plans`` is a :class:`SpGEMMChain` or a plan sequence (validated
+    here); ``a_vals``/``b_vals`` optionally rebind stage 1's operands.
+    """
+    if isinstance(plans, SpGEMMChain):
+        plans = plans.plans
+    else:
+        plans = SpGEMMChain(plans).plans
+    packed = plans[0]._run_packed(a_vals, b_vals)
+    for stage in plans[1:]:
+        packed = stage._run_packed_chained(packed)
+    last = plans[-1]
+    if packed is None:
+        return last._empty_csr()
+    return last._wrap_packed(packed)
+
+
+def _coo_is_canonical(coo: COO) -> bool:
+    """True when the COO is strictly increasing in row-major (row, col)
+    keys: sorted and deduplicated."""
+    key = coo.row.astype(np.int64) * int(coo.shape[1]) + coo.col
+    return bool(np.all(np.diff(key) > 0))
+
+
+def plan_from_structural_pattern(
+    c_pattern: StructuralPattern,
+    b,
+    *,
+    tile: Union[int, Tuple[int, ...]] = 64,
+    group: int = 4,
+    backend: str = "auto",
+    device="cuda",
+    output: str = "block",
+    dtype=torch.float32,
+    cache=None,
+    mesh=None,
+    mesh_axis=None,
+    validate=None,
+) -> SpGEMMPlan:
+    """Plan ``C @ b`` directly from a prior plan's output pattern: the
+    chaining fast path.
+
+    Where :func:`spgemm_plan` would convert C to COO and sort it, this
+    builds the A-side COO *positionally* from the CSR pattern (canonical
+    by construction) and fingerprints the CSR arrays themselves. A values
+    are zero placeholders (chained executes bind the previous stage's
+    device values per run); ``dtype`` is the value dtype they flow at
+    (bfloat16, or float32 for any other). ``b`` is anything
+    :func:`spgemm_plan` takes as an element operand; its values set the
+    plan's B dtype.
+
+    ``cache``, ``mesh``/``mesh_axis`` and ``validate`` (the JAX package's
+    plan cache, sharding and static verification) are not ported: passing
+    any of them raises ``NotImplementedError``.
+    """
+    for name, value in (("cache", cache), ("mesh", mesh), ("mesh_axis", mesh_axis),
+                        ("validate", validate)):
+        if value is not None:
+            raise NotImplementedError(
+                f"plan_from_structural_pattern({name}=...) is not ported yet"
+            )
+    _check_output(output)
+    device = resolve_device(device)
+    backend = resolve_backend(backend, device)
+    bm, bk, bn = _normalize_tile(tile)
+    b_coo = to_coo(b)
+    if not _coo_is_canonical(b_coo):
+        b_coo = b_coo.sum_duplicates()
+    if c_pattern.shape[1] != b_coo.shape[0]:
+        raise ValueError(f"inner dims mismatch: {c_pattern.shape} x {b_coo.shape}")
+    dtypes = (_value_dtype(dtype),
+              _packed_dtype(b if isinstance(b, torch.Tensor) else b_coo.val))
+    a_coo = c_pattern.to_coo()
+    pattern = pattern_digest(
+        c_pattern.indptr, c_pattern.indices, b_coo.row, b_coo.col,
+        meta=("chain", c_pattern.shape, b_coo.shape) + tuple(_dtype_name(d) for d in dtypes),
+    )
+    return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend, device,
+                         output)

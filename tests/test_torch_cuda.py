@@ -1,7 +1,9 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
-block-Gustavson SpGEMM (K1, K2), flash attention (K5), the block-sparse
-SpMM (K3) and the grouped expert matmul (K4), and the LM forwards through
-K5 and K4. Needs no JAX, so it runs on a machine with the card:
+block-Gustavson SpGEMM (K1, K2; also through the asynchronous pipeline,
+on side streams, and a device-resident chain), flash attention (K5), the
+block-sparse SpMM (K3) and the grouped expert matmul (K4), and the LM
+forwards through K5 and K4. Needs no JAX, so it runs on a machine with
+the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -212,6 +214,74 @@ def test_plan_on_card_matches_cpu_plan_and_oracle(cuda):
     np.testing.assert_allclose(got.todense(), oracle.todense(), rtol=1e-4, atol=1e-4)
     assert torch.equal(on_card.device_indptr().cpu(),
                        torch.from_numpy(got.indptr.astype(np.int32)))
+
+
+def _submit_without_sync(pipe, *vals):
+    """``submit`` with PyTorch's sync debug mode set to raise: any hidden
+    synchronization (a pageable copy, ``.item()``) fails the call."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return pipe.submit(*vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_pipeline_on_card_bitwise_equals_execute(cuda, depth):
+    """Pipelined steps on the card equal sequential ``execute`` bitwise
+    (element and batched submits), every ``submit`` runs without a
+    synchronization, K1 runs on one side stream per slot, and a collected
+    result is not overwritten by the steps submitted after it."""
+    from repro_torch.data.pipeline import SpGEMMValueStream
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    plan = spgemm_plan(a, a, tile=64, group=4, device=cuda)
+    stream = SpGEMMValueStream(plan.a_pattern, plan.b_pattern, seed=3)
+    sets = [stream.values_at(s) for s in range(2 * depth + 2)]
+    seq = [plan.execute(*v) for v in sets]
+    spgemm_scheduled.stream_launches.clear()
+    out = []
+    with plan.pipeline(depth=depth) as pipe:
+        for v in sets:
+            if pipe.free_slots == 0:
+                out.append(pipe.collect())
+            _submit_without_sync(pipe, *v)
+        kept = out[0].data.copy() if out else None
+        out.extend(pipe)
+    assert len(out) == len(seq)
+    for got, want in zip(out, seq):
+        assert np.array_equal(got.data, want.data)
+    if kept is not None:
+        assert np.array_equal(out[0].data, kept)
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    side = set(spgemm_scheduled.stream_launches) - {default}
+    assert len(side) == depth and sum(spgemm_scheduled.stream_launches.values()) == len(sets)
+    av, bv = stream.values_batch_at(0, batch=3)
+    with plan.pipeline(depth=depth) as pipe:
+        got = _submit_without_sync(pipe, av, bv).result()
+    for g, w in zip(got, plan.execute_batch(av, bv)):
+        assert np.array_equal(g.data, w.data)
+    assert plan.in_flight == 0
+
+
+def test_chain_on_card_keeps_intermediates_on_the_device(cuda):
+    """A compact chain's intermediates are CUDA tensors, and the chain
+    equals its stages with a host round trip between them, bitwise."""
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    rng = np.random.default_rng(4)
+    a = CSR(a.indptr, a.indices, rng.integers(-4, 5, a.nnz).astype(np.float32), a.shape)
+    b2 = suite_matrix("poisson3Da", scale=0.05, seed=1)
+    chain = spgemm_plan(a, a, tile=64, group=4, device=cuda, output="compact").then(b2)
+    packed = chain.plans[0]._run_packed()
+    assert packed.is_cuda
+    assert chain.plans[1]._run_packed_chained(packed).is_cuda
+    out = chain.execute()
+    stage1 = chain.plans[0].execute()
+    assert np.array_equal(out.data, chain.plans[1].execute(a_vals=stage1.data).data)
+    compact, block = chain.plans[0], spgemm_plan(a, a, tile=64, group=4, device=cuda)
+    assert np.array_equal(stage1.todense(), block.execute().todense())
+    assert torch.equal(compact.device_indptr().cpu(),
+                       torch.from_numpy(stage1.indptr.astype(np.int32)))
 
 
 # -- flash attention (K5) -------------------------------------------------------

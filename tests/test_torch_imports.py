@@ -33,8 +33,11 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr[-4000:]
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 25, out.stdout
-    # Every kernel wrapper and the MoE layer are among the modules imported.
+    # Every kernel wrapper, the MoE layer, the SpGEMM pipeline, the value
+    # stream and the matrix file I/O are among the modules imported.
     for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
-                 "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b"):
+                 "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+                 "repro_torch.spgemm.pipeline", "repro_torch.data.pipeline",
+                 "repro_torch.sparse.io"):
         assert name in out.stdout.split(), name

@@ -363,8 +363,8 @@ def test_from_artifacts_rejects_unported_and_inconsistent():
     _, ra = _pair(ca, va)
     ref_plan = r_spgemm_plan(ra, ra, tile=16, group=2, backend="jnp", cache=PlanCache())
     arrays, meta = ref_plan.persist_artifacts()
-    with pytest.raises(ValueError, match="only block output"):
-        SpGEMMPlan.from_artifacts(arrays, dict(meta, output="compact"),
+    with pytest.raises(ValueError, match="sharded plan artifacts are not ported"):
+        SpGEMMPlan.from_artifacts(dict(arrays, shard_bounds=np.zeros(2, np.int64)), meta,
                                   device="cpu", a_vals=va, b_vals=va)
     with pytest.raises(ValueError, match="persisted scatter"):
         SpGEMMPlan.from_artifacts(arrays, meta, device="cpu", a_vals=va[:-1], b_vals=va)

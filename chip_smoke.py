@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
 (plan -> execute, compact output, chains, the submit/collect pipeline on
-CUDA streams), serving granite-3-2b at full width, the ``ops`` entry
-points of the block-sparse SpMM and the grouped matmul, and serving
-qwen3-moe-30b-a3b at full width through the grouped matmul.
+CUDA streams, the plan cache and its disk tier, sharded plans), serving
+granite-3-2b at full width, the ``ops`` entry points of the block-sparse
+SpMM and the grouped matmul, and serving qwen3-moe-30b-a3b at full width
+through the grouped matmul.
 
 Run from the repository root, with no arguments:
 
@@ -57,6 +58,25 @@ the run with a nonzero exit code and no result line:
    submits of 4 against ``execute_batch``; steps per second of
    sequential ``execute`` and of each depth (medians of 7 rounds); the
    device's idle share at depth 2 under torch.profiler;
+5f. the plan cache and its disk tier, poisson3Da and 2cubes_sphere: a
+   second ``spgemm_plan`` on the process-level cache returns phase 4's
+   plan object with no schedule built, and a ``pattern_token`` hit pays no
+   pattern digest; a ``PlanCache(disk_dir=...)`` cold build (symbolic
+   phase and store write) against a fresh cache's rehydrate from the
+   store, seconds of each and the store's bytes; a second Python process
+   (this script with ``--token-restart``) resolves poisson3Da by its token
+   through the store's alias index with no schedule built and executes
+   bitwise equal to this process; every rehydrated plan's ``execute``
+   bitwise equal to the cold plan's, its K1 launch counted;
+5g. sharded plans on the one card (``make_shard_mesh`` with every shard on
+   cuda:0): poisson3Da at 1, 2, 4 and 8 shards and 2cubes_sphere at 4,
+   built from the single plans' persisted artifacts (no schedule rebuilt,
+   only the partition): ``execute``, ``execute_batch(4)``, compact output
+   and a depth-2 pipeline of 16 steps from ``SpGEMMValueStream`` bitwise
+   equal to the single plan, K1 launched once per launching shard; a
+   sharded plan persisted and rehydrated, bitwise; ``shard_stats()`` and
+   ``execute`` ms (host) and numeric-phase ms (device) against the single
+   plan's. Several cards are not exercised here;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -72,7 +92,10 @@ the run with a nonzero exit code and no result line:
    reproduces them;
 8. the same in bfloat16 (the config's own dtype): the largest logit
    difference and the share of greedy tokens on which the kernel and the
-   plain version agree; then ``BatchedServer`` answers 8 requests;
+   plain version agree; the same prefill at 4 x 1000 tokens (not a
+   multiple of 512) launches K5 40 times and no torch attention path, its
+   logits compared with the plain path's the same way; then
+   ``BatchedServer`` answers 8 requests;
 9. timings with CUDA events (median after warm-up) of each kernel, its
    plain version and one PyTorch call for the same function (cuSPARSE
    CSR @ CSR, ``scaled_dot_product_attention``: yardsticks the port never
@@ -123,6 +146,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -158,7 +182,15 @@ from repro_torch.sparse.convert import to_bcsr, to_bcsv  # noqa: E402
 from repro_torch.sparse.formats import BCSV, COO, CSR  # noqa: E402
 from repro_torch.data.pipeline import SpGEMMValueStream  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse, random_coo, suite_matrix  # noqa: E402
-from repro_torch.spgemm import spgemm_plan  # noqa: E402
+from repro_torch.launch.mesh import make_shard_mesh  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.spgemm import (  # noqa: E402
+    PlanCache,
+    SpGEMMPlan,
+    default_cache,
+    schedule_build_count,
+    spgemm_plan,
+)
 
 SEED = 0
 TILE, GROUP = 64, 4
@@ -207,6 +239,9 @@ SDPA_TOL = 5e-2
 # tokens (a multiple of 512, so every layer takes the flash kernel).
 LM_ARCH = "granite-3-2b"
 LM_BATCH, LM_SEQ = 4, 2048
+# A prefill length that is not a multiple of 512 (the TPU kernel's tile):
+# on the card it runs K5 all the same.
+LM_SEQ_RAGGED = 1000
 DECODE_TOKENS = 512
 # The JAX package's own decode-vs-forward bound (tests/test_models.py).
 # Float32 forwards whose attention sums in another order (the kernel's
@@ -848,6 +883,233 @@ def phase_pipeline(plan, dev) -> dict:
     return info
 
 
+# -- phases 5f-5g: the plan cache, its disk tier, sharded plans ------------------
+
+# The disk tier's directory, inside the checkout (build/ is not committed).
+PLAN_STORE = ROOT / "build" / "plan_store"
+TOKEN = "poisson3Da"
+SHARDS = {"poisson3Da": (1, 2, 4, 8), "2cubes_sphere": (4,)}
+
+
+def same_csr(got: CSR, want: CSR, what: str) -> None:
+    check(np.array_equal(got.indptr, want.indptr) and np.array_equal(got.indices, want.indices)
+          and np.array_equal(got.data, want.data), f"{what}: differs from the reference result")
+
+
+def digest(c: CSR) -> str:
+    import hashlib
+
+    return hashlib.blake2b(np.ascontiguousarray(c.data).tobytes()
+                           + np.ascontiguousarray(c.indices).tobytes(),
+                           digest_size=16).hexdigest()
+
+
+def restart_values(a: CSR):
+    """The values both processes of the token restart execute with."""
+    rng = np.random.default_rng(SEED + 7)
+    return (rng.standard_normal(a.nnz, dtype=np.float32),
+            rng.standard_normal(a.nnz, dtype=np.float32))
+
+
+def token_restart(store: str) -> int:
+    """The second process of phase 5f: resolve poisson3Da by its token
+    through the store's alias index, with no schedule built, and print
+    the digest of one execute and its K1 launches."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = suite_matrix("poisson3Da", scale=1.0, seed=SEED)
+    coo = a.to_coo()
+    cache = PlanCache(disk_dir=store)
+    t0 = time.perf_counter()
+    plan = spgemm_plan(coo, coo, tile=TILE, group=GROUP, device=dev, cache=cache,
+                       pattern_token=TOKEN)
+    resolve_s = time.perf_counter() - t0
+    stats = cache.stats()
+    check(stats["token_disk_hits"] == 1 and stats["disk_hits"] == 1,
+          f"token restart: cache stats {stats}")
+    check(schedule_build_count() == 0 and plan.report.schedule_builds == 0,
+          "token restart: a schedule was built")
+    reset_counts()
+    c = plan.execute(*restart_values(a))
+    torch.cuda.synchronize()
+    print(json.dumps({"digest": digest(c), "k1": spgemm_scheduled.launches,
+                      "resolve_s": resolve_s}), flush=True)
+    return 0
+
+
+def phase_cache(mats, dev) -> dict:
+    """``mats``: name -> (A, the phase-4/5 block plan on the process-level
+    cache)."""
+    info = {}
+    a, plan = mats["poisson3Da"]
+    coo = a.to_coo()
+    builds = schedule_build_count()
+    again = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev)
+    check(again is plan and schedule_build_count() == builds,
+          "a second spgemm_plan on the process-level cache did not return the plan")
+    cache = PlanCache()
+    tok = spgemm_plan(coo, coo, tile=TILE, group=GROUP, device=dev, cache=cache,
+                      pattern_token=TOKEN)
+    import repro_torch.spgemm.plan as plan_mod
+
+    real = plan_mod.pattern_digest
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a pattern-token hit paid the pattern digest")
+
+    plan_mod.pattern_digest = refuse
+    try:
+        t0 = time.perf_counter()
+        hit = spgemm_plan(coo, coo, tile=TILE, group=GROUP, device=dev, cache=cache,
+                          pattern_token=TOKEN)
+        info["token_hit_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        plan_mod.pattern_digest = real
+    check(hit is tok and cache.stats.token_hits == 1, "pattern-token hit")
+    log(f"  memory tier: phase 4's plan returned, no schedule built; pattern-token hit in "
+        f"{info['token_hit_ms']:.2f} ms, no digest")
+    del cache, tok, hit
+
+    shutil.rmtree(PLAN_STORE, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 5)
+    for name, (m, _) in mats.items():
+        args = (m.to_coo(),) * 2 if name == TOKEN else (m, m)
+        kw = dict(tile=TILE, group=GROUP, device=dev)
+        if name == TOKEN:
+            kw["pattern_token"] = TOKEN
+        cold_cache = PlanCache(disk_dir=str(PLAN_STORE))
+        t0 = time.perf_counter()
+        cold = spgemm_plan(*args, cache=cold_cache, **kw)
+        cold_s = time.perf_counter() - t0
+        check(cold_cache.stats.stores == 1, f"{name}: cold build not stored")
+        builds = schedule_build_count()
+        warm_cache = PlanCache(disk_dir=str(PLAN_STORE))
+        t0 = time.perf_counter()
+        warm = spgemm_plan(*args, cache=warm_cache, **kw)
+        warm_s = time.perf_counter() - t0
+        check(warm is not cold and warm.report.loads == 1 and warm.report.schedule_builds == 0
+              and schedule_build_count() == builds, f"{name}: not rehydrated from the store")
+        if name == TOKEN:
+            check(warm_cache.stats.token_disk_hits == 1, f"{name}: token not resolved on disk")
+        av = rng.standard_normal(m.nnz, dtype=np.float32)
+        bv = rng.standard_normal(m.nnz, dtype=np.float32)
+        want = cold.execute(av, bv)
+        reset_counts()
+        got = warm.execute(av, bv)
+        torch.cuda.synchronize()
+        check(spgemm_scheduled.launches == 1, f"{name}: rehydrated execute launched "
+              f"{spgemm_scheduled.launches} K1")
+        same_csr(got, want, f"{name}: rehydrated execute")
+        nbytes = cold_cache.store.total_bytes()
+        info[name] = {"cold_s": cold_s, "rehydrate_s": warm_s, "store_bytes": nbytes}
+        log(f"  {name}: cold build (symbolic phase + store write) {cold_s:.2f} s; rehydrate "
+            f"from the store {warm_s:.2f} s; store {nbytes} B; rehydrated execute bitwise "
+            f"equal to the cold plan's, K1 launched once")
+        del cold, warm, want, got
+    want = plan.execute(*restart_values(a))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--token-restart",
+                          str(PLAN_STORE)], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"token restart process failed:\n{out.stderr[-3000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    check(child["digest"] == digest(want) and child["k1"] == 1,
+          f"token restart: {child} against this process's digest {digest(want)}")
+    info["restart_process"] = {"wall_s": child_s, "resolve_s": child["resolve_s"]}
+    log(f"  second process: token {TOKEN!r} resolved through the alias index in "
+        f"{child['resolve_s']:.2f} s (process {child_s:.1f} s), no schedule built; its "
+        f"execute bitwise equal to this process's, K1 launched once")
+    return info
+
+
+def sharded_from(single, mesh, dev):
+    """``single``'s sharded twin over ``mesh``, from its persisted
+    artifacts: no schedule is rebuilt, only the partition."""
+    arrays, meta = single.persist_artifacts()
+    return SpGEMMPlan.from_artifacts(
+        arrays, meta, device=dev, a_vals=single.a_pattern.val, b_vals=single.b_pattern.val,
+        a_pattern=single.a_pattern, b_pattern=single.b_pattern, mesh=mesh,
+        output=single.output)
+
+
+def phase_sharded(mats, dev) -> dict:
+    """``mats``: name -> (A, block plan, compact plan), single-device."""
+    info = {}
+    for name, (a, single, single_c) in mats.items():
+        stream = SpGEMMValueStream(single.a_pattern, single.b_pattern, seed=SEED)
+        av, bv = stream.values_at(0)
+        a_batch, b_batch = stream.values_batch_at(1, batch=4)
+        want = single.execute(av, bv)
+        want_batch = single.execute_batch(a_batch, b_batch)
+        want_c = single_c.execute(av, bv)
+        a_dev = torch.from_numpy(av).to(dev)
+        b_dev = torch.from_numpy(bv).to(dev)
+        single_ms = host_ms(lambda: single.execute(av, bv), reps=5)
+        single_dev_ms = time_ms(lambda: single._executor.run_values(a_dev, b_dev), reps=10)
+        for n in SHARDS[name]:
+            t0 = time.perf_counter()
+            plan = sharded_from(single, make_shard_mesh(n, devices=[dev] * n), dev)
+            part_s = time.perf_counter() - t0
+            launching = plan._executor.n_launching
+            reset_counts()
+            got = plan.execute(av, bv)
+            torch.cuda.synchronize()
+            k1 = spgemm_scheduled.launches
+            check(k1 == launching, f"{name} x{n}: K1 launches {k1} for {launching} shards")
+            same_csr(got, want, f"{name} x{n} execute")
+            chunk = min(4, plan._executor.batch_chunk())
+            reset_counts()
+            batch = plan.execute_batch(a_batch, b_batch)
+            torch.cuda.synchronize()
+            k2 = spgemm_scheduled_batch.launches
+            check(k2 == launching * -(-4 // chunk), f"{name} x{n}: K2 launches {k2}")
+            for i, (g, w) in enumerate(zip(batch, want_batch)):
+                same_csr(g, w, f"{name} x{n} execute_batch[{i}]")
+            del batch
+            compact = sharded_from(single_c, make_shard_mesh(n, devices=[dev] * n), dev)
+            same_csr(compact.execute(av, bv), want_c, f"{name} x{n} compact")
+            del compact
+            reset_counts()
+            with plan.pipeline(depth=2) as pipe:
+                for s, c in enumerate(pipe.stream(stream.values_at(i)
+                                                  for i in range(PIPE_STEPS))):
+                    same_csr(c, single.execute(*stream.values_at(s)),
+                             f"{name} x{n} pipeline step {s}")
+            check(counts()["spgemm_scheduled"] == PIPE_STEPS * (1 + launching),
+                  f"{name} x{n} pipeline: launches {counts()}")
+            ms = host_ms(lambda: plan.execute(av, bv), reps=5)
+            dev_ms = time_ms(lambda: plan._executor.run_values(a_dev, b_dev), reps=10)
+            st = plan.shard_stats()
+            info[f"{name}_x{n}"] = {
+                "triples": st["triples"], "nnz_c": st["nnz_c"], "imbalance": st["imbalance"],
+                "launching": launching, "partition_s": part_s, "execute_ms": ms,
+                "single_execute_ms": single_ms, "numeric_ms": dev_ms,
+                "single_numeric_ms": single_dev_ms, "k1_launches": k1, "k2_launches": k2,
+            }
+            log(f"  {name} x{n} shards on {dev}: triples {st['triples']} (imbalance "
+                f"{st['imbalance']:.3f}); K1 launches {k1}, K2 {k2} (chunk {chunk}); execute, "
+                f"execute_batch(4), compact and a depth-2 pipeline of {PIPE_STEPS} steps "
+                f"bitwise equal to the single plan; execute {ms:.3f} ms against {single_ms:.3f}; "
+                f"numeric phase on the card {dev_ms:.4f} ms against {single_dev_ms:.4f}; "
+                f"partition {part_s:.2f} s")
+            del plan
+        del want, want_batch, want_c
+    a, single, _ = mats["poisson3Da"]
+    mesh = make_shard_mesh(4, devices=[dev] * 4)
+    cold = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev, mesh=mesh,
+                       cache=PlanCache(disk_dir=str(PLAN_STORE)))
+    builds = schedule_build_count()
+    warm = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev, mesh=mesh,
+                       cache=PlanCache(disk_dir=str(PLAN_STORE)))
+    check(warm.report.loads == 1 and schedule_build_count() == builds
+          and warm.shard_stats() == cold.shard_stats(), "sharded plan not rehydrated")
+    av, bv = SpGEMMValueStream(single.a_pattern, single.b_pattern, seed=SEED + 1).values_at(0)
+    same_csr(warm.execute(av, bv), single.execute(av, bv), "rehydrated sharded plan")
+    log("  poisson3Da x4 persisted and rehydrated: no schedule built, bitwise equal to the "
+        "single plan")
+    return info
+
+
 # -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
@@ -1128,9 +1390,9 @@ def phase_attention_checks(dev) -> None:
 
 # -- phases 7-8: granite-3-2b -------------------------------------------------
 
-def lm_tokens(cfg, dev) -> torch.Tensor:
+def lm_tokens(cfg, dev, seq: int = LM_SEQ) -> torch.Tensor:
     rng = np.random.default_rng(SEED)
-    return torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(dev)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BATCH, seq))).to(dev)
 
 
 def plain_attention(q, k, v, causal=True, window=None, q_offset=0, backend="auto"):
@@ -1206,7 +1468,7 @@ def kernel_and_dense_logits(params, cfg, tokens):
     torch.cuda.synchronize()
     check_launches(launched, cfg, "the forward")
     for name, x in (("kernel", full), ("dense", dense)):
-        check(tuple(x.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_padded)
+        check(tuple(x.shape) == tuple(tokens.shape) + (cfg.vocab_padded,)
               and bool(torch.isfinite(x[..., :cfg.vocab]).all()), f"{name} logits")
     return full, dense, routes, plain_routes
 
@@ -1293,16 +1555,44 @@ def logit_drift(full, dense, v) -> tuple:
     return dmax, agree / (full.shape[0] * full.shape[1])
 
 
+@contextlib.contextmanager
+def torch_attention_forbidden():
+    """Fail if ``attn_forward`` takes one of its torch branches (dense or
+    blocked): on the card every prefill runs K5, at any length."""
+    real = attention._gqa_scores_apply
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a torch attention path ran on the card")
+
+    attention._gqa_scores_apply = refuse
+    try:
+        yield
+    finally:
+        attention._gqa_scores_apply = real
+
+
 def phase_lm_bfloat16(params16, dev) -> dict:
     cfg = get_config(LM_ARCH)
-    tokens = lm_tokens(cfg, dev)
-    launches = prefill_main_path(params16, cfg, tokens)["flash_attention"]
-    log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
-    full, dense, _, _ = kernel_and_dense_logits(params16, cfg, tokens)
-    dmax, agree = logit_drift(full, dense, cfg.vocab)
-    log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
-        f"tokens agree at {agree:.4%} of {LM_BATCH * LM_SEQ} positions")
-    del full, dense
+    info = {}
+    for seq in (LM_SEQ, LM_SEQ_RAGGED):
+        tokens = lm_tokens(cfg, dev, seq)
+        with torch_attention_forbidden():
+            launches = prefill_main_path(params16, cfg, tokens)["flash_attention"]
+            log(f"  prefill {LM_BATCH} x {seq} (make_prefill_step): K5 launches {launches}, "
+                f"no torch attention path")
+            full, dense, _, _ = kernel_and_dense_logits(params16, cfg, tokens)
+        dmax, agree = logit_drift(full, dense, cfg.vocab)
+        log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
+            f"tokens agree at {agree:.4%} of {LM_BATCH * seq} positions")
+        del full, dense
+        tag = "bf16" if seq == LM_SEQ else f"bf16_s{seq}"
+        info.update({f"{tag}_prefill_k5_launches": launches, f"{tag}_kernel_vs_dense_max_abs": dmax,
+                     f"{tag}_greedy_agreement": agree})
+    prefill = make_prefill_step(cfg)
+    info[f"prefill_bf16_s{LM_SEQ_RAGGED}_ms"] = host_ms(
+        lambda: prefill(params16, {"tokens": tokens}), reps=5)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ_RAGGED}, bf16: "
+        f"{info[f'prefill_bf16_s{LM_SEQ_RAGGED}_ms']:.2f} ms (host clock, median of 5)")
     server = BatchedServer(cfg, batch_slots=4, max_seq=256, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
     for i in range(8):
@@ -1323,8 +1613,7 @@ def phase_lm_bfloat16(params16, dev) -> dict:
     del server
     torch.cuda.empty_cache()
     return {
-        "bf16_prefill_k5_launches": launches, "bf16_kernel_vs_dense_max_abs": dmax,
-        "bf16_greedy_agreement": agree, "serve_s": serve_s, "serve_steps": st["steps"],
+        **info, "serve_s": serve_s, "serve_steps": st["steps"],
         "serve_tokens": st["tokens"], "serve_tokens_per_s": st["tokens"] / serve_s,
         "serve_ms_per_step": serve_s / st["steps"] * 1e3,
     }
@@ -1972,6 +2261,21 @@ def main() -> int:
     log("[5e] pipeline: poisson3Da, submit/collect at depths 1, 2 and 4")
     pipe_info = phase_pipeline(plan, dev)
 
+    log("[5f] plan cache and disk tier: poisson3Da and 2cubes_sphere")
+    t0 = time.perf_counter()
+    cache_info = phase_cache({"poisson3Da": (a, plan), "2cubes_sphere": (a2, plan2)}, dev)
+    cache_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5f: {cache_info['phase_s']:.1f} s")
+
+    log("[5g] sharded plans on one card: poisson3Da x1/2/4/8, 2cubes_sphere x4")
+    t0 = time.perf_counter()
+    shard_info = phase_sharded(
+        {name: (m, p, spgemm_plan(m, m, tile=TILE, group=GROUP, device=dev, output="compact"))
+         for name, m, p in (("poisson3Da", a, plan), ("2cubes_sphere", a2, plan2))}, dev)
+    shard_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5g: {shard_info['phase_s']:.1f} s")
+    shutil.rmtree(PLAN_STORE, ignore_errors=True)
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -1984,10 +2288,13 @@ def main() -> int:
     log("[9] timings")
     entries, extra = phase_timings(a, plan, launched, chunk, dev, rng)
     extra.update(bf16_plan)
-    extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info})
+    extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info,
+                  "cache": cache_info, "sharded": shard_info})
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2
+    default_cache().clear()  # the SpGEMM plans of phases 4-5g
+    torch.cuda.empty_cache()
     k5_entry = phase_lm_timings(params16, lm, dev, extra)
     del params16
     torch.cuda.empty_cache()
@@ -2026,4 +2333,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--token-restart"]:
+        sys.exit(token_restart(sys.argv[2]))
     sys.exit(main())

@@ -6,8 +6,9 @@ imports ``torch`` and numpy only. Ported so far: the host sparse layer
 CUDA kernel for each of ``repro``'s Pallas kernels (block-Gustavson
 SpGEMM, block-sparse SpMM, grouped expert matmul, flash attention) with
 their plain PyTorch versions and ``ops`` entry points (``kernels``),
-plan/execute SpGEMM with compact output, chains and the asynchronous
-pipeline (``spgemm``), its value stream (``data``), and LM serving for
-text models of attention + MLP or MoE blocks (``configs``, ``models``,
-``runtime.steps``, ``launch.serve``).
+plan/execute SpGEMM with compact output, chains, the asynchronous
+pipeline, the plan cache and its disk tier, and sharded plans
+(``spgemm``, ``launch.mesh``), its value stream (``data``), and LM
+serving for text models of attention + MLP or MoE blocks (``configs``,
+``models``, ``runtime.steps``, ``launch.serve``).
 """

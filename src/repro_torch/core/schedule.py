@@ -36,7 +36,7 @@ gather-multiply-scatter).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -44,6 +44,7 @@ from repro_torch.sparse.formats import BCSR, BCSV
 
 __all__ = [
     "AssemblyMap",
+    "ScheduleShard",
     "SpGEMMSchedule",
     "assembly_from_arrays",
     "assembly_to_arrays",
@@ -51,8 +52,13 @@ __all__ = [
     "build_compact_map",
     "build_spgemm_schedule",
     "panel_runs",
+    "partition_spgemm_schedule",
     "schedule_from_arrays",
     "schedule_to_arrays",
+    "shard_from_group_range",
+    "shards_from_bounds",
+    "shards_to_bounds",
+    "stack_shard_schedules",
     "structural_product_pattern",
 ]
 
@@ -483,3 +489,230 @@ def assembly_from_arrays(
         np.asarray(arrays[prefix + "indices"]),
         (int(shape[0]), int(shape[1])),
     )
+
+
+@dataclasses.dataclass
+class ScheduleShard:
+    """One device's slice of a partitioned :class:`SpGEMMSchedule`.
+
+    ``schedule`` is a fully self-contained shard-local schedule: its panel
+    ids, block-row groups, C block-rows, and A slots are all rebased to the
+    shard, so it can be executed (and its :class:`AssemblyMap` built)
+    exactly like an unsharded schedule. The ``*_lo``/``*_hi`` ranges map
+    shard-local objects back to the parent schedule's coordinates — they
+    are contiguous by construction, which is what makes the final C a
+    single concatenation of per-shard CSR segments.
+    """
+
+    schedule: SpGEMMSchedule  # shard-local ids throughout
+    group_lo: int  # [group_lo, group_hi) parent block-row groups
+    group_hi: int
+    triple_lo: int  # [triple_lo, triple_hi) parent triples
+    triple_hi: int
+    panel_lo: int  # [panel_lo, panel_hi) parent panels
+    panel_hi: int
+    a_lo: int  # [a_lo, a_hi) parent packed-A slots
+    a_hi: int
+
+    @property
+    def num_triples(self) -> int:
+        return self.triple_hi - self.triple_lo
+
+    @property
+    def n_panels(self) -> int:
+        return self.panel_hi - self.panel_lo
+
+
+def _balanced_boundaries(counts: np.ndarray, n_parts: int) -> np.ndarray:
+    """Contiguous partition of ``counts`` into ``n_parts`` segments
+    minimizing the max segment sum (binary search on capacity + greedy
+    fill). Returns ``n_parts + 1`` boundaries; trailing segments may be
+    empty when there are fewer nonempty groups than parts."""
+    counts = np.asarray(counts, np.int64)
+    n = counts.shape[0]
+    if n == 0 or n_parts <= 1:
+        return np.concatenate(
+            [np.zeros(1, np.int64), np.full(n_parts, n, np.int64)]
+        )
+    prefix = np.concatenate([np.zeros(1, np.int64), np.cumsum(counts)])
+    total = int(prefix[-1])
+
+    def parts_needed(cap: int) -> int:
+        """Greedy: number of <=cap segments required (inf if impossible)."""
+        used, start = 0, 0
+        while start < n:
+            # Largest end with sum(start..end) <= cap.
+            end = int(np.searchsorted(prefix, prefix[start] + cap, "right")) - 1
+            if end <= start:  # single group exceeds cap
+                return n_parts + 1
+            used += 1
+            start = end
+        return used
+
+    lo = max(int(counts.max(initial=0)), -(-total // n_parts))
+    hi = max(total, lo)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if parts_needed(mid) <= n_parts:
+            hi = mid
+        else:
+            lo = mid + 1
+    cap = lo
+    # Greedy fill at the optimal cap. cap >= counts.max() guarantees each
+    # segment advances, and cap feasibility guarantees <= n_parts segments
+    # cover everything; exhausted trailing parts stay empty (ragged /
+    # over-provisioned meshes).
+    bounds = [0]
+    start = 0
+    for _ in range(n_parts):
+        end = int(np.searchsorted(prefix, prefix[start] + cap, "right")) - 1
+        bounds.append(end)
+        start = end
+    assert bounds[-1] == n, "balanced partition failed to cover all groups"
+    return np.asarray(bounds, np.int64)
+
+
+def partition_spgemm_schedule(
+    schedule: SpGEMMSchedule, n_shards: int
+) -> List[ScheduleShard]:
+    """Split one schedule into ``n_shards`` shard-local schedules.
+
+    The cut points are block-row *group* boundaries (a group's output rows
+    live in exactly one shard, so C is a concatenation of per-shard row
+    ranges), chosen to balance **triple count** — the numeric-phase work
+    unit — not panel count. Because ``build_spgemm_schedule`` emits triples,
+    panels, A slots (BCSV is group-major), and C blocks all in ascending
+    group order, every shard is a contiguous slice of each parent array;
+    the slices are rebased so each shard's schedule stands alone.
+
+    Shards may be empty (``n_shards`` > nonempty groups): they get
+    zero-length schedules and contribute nothing to C.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    g = schedule.group
+    n_groups = -(-schedule.grid_m // g) if schedule.grid_m else 0
+    # Per-triple parent group id; triples are emitted group-ascending.
+    g_of_t = schedule.panel_group[schedule.panel]
+    counts = np.bincount(g_of_t, minlength=max(n_groups, 1))[:max(n_groups, 1)]
+    bounds = _balanced_boundaries(counts, n_shards)
+    return shards_from_bounds(schedule, bounds)
+
+
+def shard_from_group_range(
+    schedule: SpGEMMSchedule, g_lo: int, g_hi: int
+) -> ScheduleShard:
+    """The shard owning parent block-row groups ``[g_lo, g_hi)``.
+
+    Everything beyond the group range is *derived* from the parent schedule
+    (triple/panel/C-block spans by searchsorted on the group-ascending
+    parent arrays, the A-slot span from the triples themselves), which is
+    what makes the group boundaries alone a complete serialization of a
+    partition: :func:`shards_from_bounds` rebuilds bitwise-identical
+    shards from an ``[n_shards + 1]`` bounds vector.
+    """
+    g = schedule.group
+    g_lo, g_hi = int(g_lo), int(g_hi)
+    g_of_t = schedule.panel_group[schedule.panel]
+    t_lo, t_hi = np.searchsorted(g_of_t, [g_lo, g_hi])
+    p_lo, p_hi = np.searchsorted(schedule.panel_group, [g_lo, g_hi])
+    c_lo, c_hi = np.searchsorted(schedule.c_brow, [g_lo * g, g_hi * g])
+    t_lo, t_hi, p_lo, p_hi, c_lo, c_hi = map(
+        int, (t_lo, t_hi, p_lo, p_hi, c_lo, c_hi))
+    if t_hi > t_lo:
+        # BCSV packs blocks group-major, so the slots this shard's
+        # triples touch form a contiguous parent range.
+        a_lo = int(schedule.a_slot[t_lo:t_hi].min())
+        a_hi = int(schedule.a_slot[t_lo:t_hi].max()) + 1
+    else:
+        a_lo = a_hi = 0
+    grid_m_local = max(0, min(schedule.grid_m, g_hi * g) - g_lo * g)
+    local = SpGEMMSchedule(
+        a_slot=schedule.a_slot[t_lo:t_hi] - a_lo,
+        b_slot=schedule.b_slot[t_lo:t_hi].copy(),
+        panel=schedule.panel[t_lo:t_hi] - p_lo,
+        sub_row=schedule.sub_row[t_lo:t_hi].copy(),
+        start=schedule.start[t_lo:t_hi].copy(),
+        panel_group=schedule.panel_group[p_lo:p_hi] - g_lo,
+        panel_bcol=schedule.panel_bcol[p_lo:p_hi].copy(),
+        c_brow=schedule.c_brow[c_lo:c_hi] - g_lo * g,
+        c_bcol=schedule.c_bcol[c_lo:c_hi].copy(),
+        group=g,
+        grid_m=grid_m_local,
+        grid_n=schedule.grid_n,
+        grid_k=schedule.grid_k,
+    )
+    return ScheduleShard(
+        schedule=local,
+        group_lo=g_lo, group_hi=g_hi,
+        triple_lo=t_lo, triple_hi=t_hi,
+        panel_lo=p_lo, panel_hi=p_hi,
+        a_lo=a_lo, a_hi=a_hi,
+    )
+
+
+def shards_to_bounds(shards: List[ScheduleShard]) -> np.ndarray:
+    """Partition -> its ``[n_shards + 1]`` group-boundary vector (the
+    shards' flat-array serialization; see :func:`shard_from_group_range`)."""
+    if not shards:
+        return np.zeros(1, np.int64)
+    return np.asarray(
+        [shards[0].group_lo] + [s.group_hi for s in shards], np.int64
+    )
+
+
+def shards_from_bounds(
+    schedule: SpGEMMSchedule, bounds: np.ndarray
+) -> List[ScheduleShard]:
+    """Rebuild a partition from its group-boundary vector.
+
+    Boundaries must be non-decreasing and cover all groups; anything else
+    (a stale or foreign persistence payload) raises rather than silently
+    mis-slicing."""
+    bounds = np.asarray(bounds, np.int64)
+    if bounds.ndim != 1 or bounds.shape[0] < 2:
+        raise ValueError(f"bad shard bounds: {bounds!r}")
+    if (np.diff(bounds) < 0).any() or int(bounds[0]) != 0:
+        raise ValueError(f"shard bounds not a partition: {bounds!r}")
+    n_groups = -(-schedule.grid_m // schedule.group) if schedule.grid_m else 0
+    if schedule.num_triples and int(bounds[-1]) < n_groups:
+        raise ValueError(
+            f"shard bounds cover {int(bounds[-1])} of {n_groups} groups"
+        )
+    return [
+        shard_from_group_range(schedule, bounds[i], bounds[i + 1])
+        for i in range(bounds.shape[0] - 1)
+    ]
+
+
+def stack_shard_schedules(
+    shards: Sequence[ScheduleShard], t_max: int, p_max: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Stack per-shard triple schedules into padded ``[n_shards, t_max]``
+    arrays: the JAX package's sharded executor layout, one program over
+    every shard.
+
+    Returns ``(a_slot, b_slot, panel, sub_row, start)``. Padding triples
+    execute a real (block 0) x (block 0) matmul into the dummy panel
+    ``p_max`` — which no assembly gather reads — with ``start = 1`` so each
+    pad zeroes the dummy accumulator before writing (the same dummy-panel
+    convention as
+    :func:`repro_torch.kernels.gustavson_spgemm.pad_schedule_arrays`,
+    applied per shard). The port's sharded executor needs no padding: it
+    launches the kernel once per non-empty shard on that shard's own
+    schedule, whose per-tile runs the kernel's grid reads.
+    """
+    s = len(shards)
+    a_slot = np.zeros((s, t_max), np.int32)
+    b_slot = np.zeros((s, t_max), np.int32)
+    panel = np.full((s, t_max), p_max, np.int32)
+    sub_row = np.zeros((s, t_max), np.int32)
+    start = np.ones((s, t_max), np.int32)
+    for i, sh in enumerate(shards):
+        t = sh.num_triples
+        a_slot[i, :t] = sh.schedule.a_slot
+        b_slot[i, :t] = sh.schedule.b_slot
+        panel[i, :t] = sh.schedule.panel
+        sub_row[i, :t] = sh.schedule.sub_row
+        start[i, :t] = sh.schedule.start
+    return a_slot, b_slot, panel, sub_row, start

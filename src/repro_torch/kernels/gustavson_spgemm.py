@@ -45,6 +45,7 @@ __all__ = [
     "ScheduleRuns",
     "compact_csr_indptr",
     "compact_row_counts",
+    "pad_schedule_arrays",
     "runs_case",
     "spgemm_scheduled",
     "spgemm_scheduled_batch",
@@ -93,6 +94,44 @@ def stage_runs(schedule: SpGEMMSchedule, device) -> ScheduleRuns:
         sub_row=put(schedule.sub_row[order]),
         n_panels=schedule.n_panels,
         group=schedule.group,
+    )
+
+
+def pad_schedule_arrays(
+    a_slot: np.ndarray,
+    b_slot: np.ndarray,
+    panel: np.ndarray,
+    sub_row: np.ndarray,
+    start: np.ndarray,
+    n_panels: int,
+    pad_to: int | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Pad a triple schedule to a fixed length with dummy-panel triples,
+    as the JAX package pads its kernel's grid.
+
+    Padding triples write to panel ``n_panels`` (an extra scratch panel no
+    gather reads), with start=1 so they never accumulate garbage. The CUDA
+    kernel needs none of this (its grid reads per-tile runs); the port
+    keeps it for the per-shard stacks of
+    :func:`repro_torch.core.schedule.stack_shard_schedules`, held against
+    the JAX package's arrays.
+    """
+    t = int(a_slot.shape[0])
+    t_pad = pad_to if pad_to is not None else max(1, t)
+    if t_pad < t:
+        raise ValueError(f"pad_to={t_pad} < schedule length {t}")
+    pad = t_pad - t
+
+    def _p(x, fill):
+        return np.concatenate([x, np.full(pad, fill, x.dtype)]) if pad else x
+
+    return (
+        _p(a_slot, 0),
+        _p(b_slot, 0),
+        _p(panel, n_panels),
+        _p(sub_row, 0),
+        _p(start, 1),
+        t_pad,
     )
 
 

@@ -1,6 +1,7 @@
 """Public entry points over the kernels, the port of ``repro.kernels.ops``.
 
-* ``spgemm``: sparse x sparse, a shim over the plan/execute API (K1);
+* ``spgemm``: sparse x sparse, a shim over the plan/execute API through
+  the plan cache (K1);
 * ``sparse_dense_matmul``: dense activations x a block-sparse weight
   (K3, the SparseLinear forward);
 * ``grouped_matmul``: the MoE expert compute over expert-sorted tokens
@@ -25,6 +26,7 @@ from repro_torch.kernels.bsr_spmm import bsr_spmm, plan_bsr
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.sparse.formats import BCSR, BCSV, CSR
+from repro_torch.spgemm.cache import PlanCache
 from repro_torch.spgemm.plan import SpGEMMPlan, spgemm_plan
 
 __all__ = ["attention", "grouped_matmul", "sparse_dense_matmul", "spgemm"]
@@ -37,13 +39,16 @@ def spgemm(
     backend: str = "auto",
     device="cuda",
     schedule: Optional[SpGEMMSchedule] = None,
+    cache: Optional[PlanCache] = None,
 ) -> CSR:
     """C = A @ B for block-sparse A (BCSV) and B (BCSR).
 
-    Thin shim over :mod:`repro_torch.spgemm`: builds a plan for this
-    sparsity pattern (reusing ``schedule`` when the caller already ran the
-    symbolic phase) and runs its numeric phase once. Callers that reuse
-    one pattern should hold a plan (``spgemm_plan``) instead.
+    Thin shim over :mod:`repro_torch.spgemm`: builds — or fetches from the
+    plan cache (process-level by default; pass ``cache`` to isolate) — an
+    :class:`SpGEMMPlan` for this sparsity pattern and runs its numeric
+    phase with the given values. A ``schedule`` from the caller's own
+    symbolic phase is honored without caching. Callers that reuse one
+    pattern should hold a plan (``spgemm_plan``) instead.
 
     The returned CSR has C's *structural* pattern (every element of every
     structurally nonzero C block): elements that compute to exact zero are
@@ -53,9 +58,19 @@ def spgemm(
         plan = SpGEMMPlan.from_blocks(
             a, b, backend=backend, device=device, schedule=schedule
         )
-    else:
-        plan = spgemm_plan(a, b, backend=backend, device=device)
-    return plan.execute()
+        return plan.execute()
+    plan = spgemm_plan(a, b, backend=backend, device=device, cache=cache)
+    try:
+        # Values passed explicitly make the rebind and the launch one step
+        # under the plan's lock, even when the cached plan is shared
+        # across threads.
+        return plan.execute(a.blocks, b.blocks)
+    finally:
+        # One-shot use: free the device copies (the scarce resource) but
+        # keep the host values staged, since the plan is shared with any
+        # direct spgemm_plan holder of this pattern, whose no-arg
+        # execute() must keep working.
+        plan.release_device_values()
 
 
 def _bsr_operands(w: BCSV) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:

@@ -1,1 +1,2 @@
-"""Launchers: the batched LM server."""
+"""Launchers: the batched LM server, and the device meshes of sharded
+SpGEMM plans."""

@@ -4,11 +4,13 @@ The port of ``repro.models.attention``. Full-sequence attention
 (:func:`attn_forward`) has the reference's three plans, chosen by the same
 rules:
 
-* the flash kernel (:func:`repro_torch.kernels.ops.attention`) when the
-  config's ``kernel_backend`` resolves to the kernel backend (``"cuda"``;
-  ``"auto"`` on a CUDA device) and the sequence length is a multiple of
-  512, with (B, KV, R) flattened into the kernel's BH axis and k, v
-  repeated R times, as the reference does;
+* the flash kernel (:func:`repro_torch.kernels.ops.attention`) for every
+  prefill on the card, at any sequence length, with (B, KV, R) flattened
+  into the kernel's BH axis and k, v repeated R times, as the reference
+  does. On CPU tensors the branch is chosen by the reference's rule: the
+  kernel entry point (its plain version, there) when ``kernel_backend``
+  resolves to ``"cuda"`` and the length is a multiple of 512, the TPU
+  kernel's tile;
 * ``blocked``: a loop over query blocks, each attending to the full KV;
 * ``dense``: the full [Sq, Skv] score matrix.
 
@@ -37,7 +39,8 @@ __all__ = ["attn_t", "attn_forward", "attn_decode", "init_kv_cache", "rope"]
 
 _NEG_INF = -1e30
 # The reference's gate: its TPU kernel's 512-row tiles. The CUDA kernel
-# itself takes any length; the gate is kept as the reference has it.
+# takes any length, so the gate only picks the branch for CPU tensors,
+# where the parity tests hold each branch against the reference's.
 _FLASH_SEQ_MULTIPLE = 512
 
 
@@ -130,7 +133,7 @@ def attn_forward(
     qg = q.reshape(b, s, kv, rep, hd)
 
     backend = resolve_backend(cfg.kernel_backend, x.device)
-    if backend == "cuda" and s % _FLASH_SEQ_MULTIPLE == 0:
+    if backend == "cuda" and (x.device.type == "cuda" or s % _FLASH_SEQ_MULTIPLE == 0):
         # Flash kernel path: flatten (B, KV, R) into the BH axis.
         qf = qg.permute(0, 2, 3, 1, 4).reshape(b * kv * rep, s, hd)
         kf = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1).reshape(b * kv * rep, s, hd)

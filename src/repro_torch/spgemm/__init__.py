@@ -23,15 +23,25 @@ their own on the card::
         for c in pipe.stream(value_iter):
             consume(c)
 
+Plans are cached (:class:`PlanCache`: a memory LRU, and a disk tier,
+:class:`PlanStore`, from which a restarted worker rehydrates its plans
+without re-running the symbolic phase; ``REPRO_TORCH_SPGEMM_PLAN_DIR``
+enables it on the process-level :func:`default_cache`), and
+``spgemm_plan(..., mesh=make_shard_mesh(n, devices=...))`` partitions the
+schedule over the devices of a mesh (:class:`ShardedSpGEMMPlan`), bitwise
+equal to the single-device plan.
+
 The module layout and public names follow the JAX package ``repro.spgemm``;
-its plan cache, sharding, autotuner and gateway are not ported yet.
+its autotuner and gateway are not ported yet.
 """
-from repro_torch.spgemm.cache import pattern_digest
+from repro_torch.spgemm.cache import CacheStats, PlanCache, default_cache, pattern_digest
 from repro_torch.spgemm.executor import (
     CHUNK_BYTES_ENV,
+    ShardedSpGEMMExecutor,
     SpGEMMExecutor,
     resolve_chunk_bytes,
 )
+from repro_torch.spgemm.persist import PLAN_DIR_ENV, PlanStore
 from repro_torch.spgemm.pipeline import (
     PipelineFullError,
     SpGEMMPipeline,
@@ -39,6 +49,7 @@ from repro_torch.spgemm.pipeline import (
 )
 from repro_torch.spgemm.plan import (
     PlanReport,
+    ShardedSpGEMMPlan,
     SpGEMMChain,
     SpGEMMPlan,
     StructuralPattern,
@@ -47,13 +58,20 @@ from repro_torch.spgemm.plan import (
     plan_from_structural_pattern,
     resolve_backend,
     resolve_device,
+    schedule_build_count,
     spgemm_plan,
 )
 
 __all__ = [
     "CHUNK_BYTES_ENV",
+    "CacheStats",
+    "PLAN_DIR_ENV",
     "PipelineFullError",
+    "PlanCache",
     "PlanReport",
+    "PlanStore",
+    "ShardedSpGEMMExecutor",
+    "ShardedSpGEMMPlan",
     "SpGEMMChain",
     "SpGEMMExecutor",
     "SpGEMMPipeline",
@@ -61,11 +79,13 @@ __all__ = [
     "SpGEMMTicket",
     "StructuralPattern",
     "chain_plans",
+    "default_cache",
     "execute_chain",
     "pattern_digest",
     "plan_from_structural_pattern",
     "resolve_backend",
     "resolve_chunk_bytes",
     "resolve_device",
+    "schedule_build_count",
     "spgemm_plan",
 ]

@@ -50,16 +50,23 @@ its own (:class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`) overlaps
 step ``s + 1``'s copies and kernel with step ``s``'s: the paper's double
 buffer. On the CPU every step runs at once and ``pipe_collect`` returns
 its values.
+
+**Sharded plans.** :class:`ShardedSpGEMMExecutor` has the same surface
+over a schedule partitioned at block-row-group boundaries
+(:func:`~repro_torch.core.schedule.partition_spgemm_schedule`): each
+shard is one program of its own on its device, running the same stage
+cores on its rebased schedule slice, and C is the concatenation of the
+shards' packed segments.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.schedule import AssemblyMap, SpGEMMSchedule
+from repro_torch.core.schedule import AssemblyMap, ScheduleShard, SpGEMMSchedule
 from repro_torch.kernels import ref
 from repro_torch.kernels.gustavson_spgemm import (
     ScheduleRuns,
@@ -71,6 +78,7 @@ from repro_torch.kernels.gustavson_spgemm import (
 
 __all__ = [
     "CHUNK_BYTES_ENV",
+    "ShardedSpGEMMExecutor",
     "SpGEMMExecutor",
     "assemble_batch_core",
     "assemble_core",
@@ -283,6 +291,27 @@ class _Download:
         self.event = event
 
 
+def _download(packed: torch.Tensor):
+    """Start the device-to-host copy of ``packed`` into a fresh pinned
+    tensor and record an event after it on the current stream (CUDA), or
+    hand back the values themselves (CPU)."""
+    if packed.device.type != "cuda":
+        return packed
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return _Download(host, event)
+
+
+def _collect(pending) -> torch.Tensor:
+    """Wait for a :func:`_download` and return its host values."""
+    if isinstance(pending, _Download):
+        pending.event.synchronize()
+        return pending.host
+    return pending
+
+
 class SpGEMMExecutor:
     """A plan's numeric phase with device-resident constants.
 
@@ -455,18 +484,312 @@ class SpGEMMExecutor:
         """Start the device-to-host copy of packed C values: on a CUDA
         executor into a fresh pinned tensor, with an event recorded after
         the copy on the current stream; on the CPU the values themselves."""
-        if packed.device.type != "cuda":
-            return packed
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return _Download(host, event)
+        return _download(packed)
 
     def pipe_collect(self, pending, *, mode: str) -> torch.Tensor:
         """Packed C values on the host: waits for the step's copy (the only
         blocking call of the protocol)."""
-        if isinstance(pending, _Download):
-            pending.event.synchronize()
-            return pending.host
-        return pending
+        return _collect(pending)
+
+
+class _ShardPart:
+    """One launching shard's device constants: its schedule runs and
+    output gather map, its A slot and element ranges in the plan's packed
+    A, and (element plans) the scatter inverse into its own A slots."""
+
+    __slots__ = ("device", "runs", "gather", "a_lo", "a_hi", "e_lo", "e_hi", "a_shape", "a_inv")
+
+    def __init__(self, device, runs, gather, a_lo, a_hi, e_lo, e_hi, a_shape, a_inv):
+        self.device = device
+        self.runs = runs
+        self.gather = gather
+        self.a_lo, self.a_hi = a_lo, a_hi
+        self.e_lo, self.e_hi = e_lo, e_hi
+        self.a_shape = a_shape
+        self.a_inv = a_inv
+
+
+class ShardedSpGEMMExecutor:
+    """Numeric phase of a sharded plan: one program per shard.
+
+    Drop-in for :class:`SpGEMMExecutor` on the plan side (``run``,
+    ``run_values``, ``run_batch``, ``batch_chunk``, ``device_indptr``,
+    ``can_rebind``, ``set_chunk_bytes`` and the ``pipe_*`` stages). Where
+    the JAX package stacks the shards into one ``shard_map`` program over
+    a mesh axis, each shard here runs the single executor's stage cores on
+    its own device and its own rebased schedule slice, through the same
+    kernel (K1, or K2 for a batch), launched once per launching shard.
+
+    Layout:
+
+    * A — row-sharded: shard ``i`` reads packed slots ``[a_lo_i, a_hi_i)``
+      (elements ``[e_lo_i, e_hi_i)``), contiguous because BCSV packs blocks
+      group-major;
+    * B — replicated, once per *distinct* device (shards sharing a device
+      share one copy and one rebind);
+    * C — row-sharded: each shard gathers its packed segment through its
+      own output map, and the segments, contiguous ascending row ranges,
+      are concatenated on the plan's device in shard order.
+
+    A shard launches when it has triples and output values. Empty shards
+    (more shards than block-row groups, or a row range without products)
+    launch nothing and contribute an empty segment: a CUDA launch with an
+    empty grid is an error. Each launching shard's triples keep their
+    parent order after rebasing, so every output tile sums the same
+    triples in the same order as the single plan's: the result is bitwise
+    equal to it.
+    """
+
+    def __init__(
+        self,
+        *,
+        shards: Sequence[ScheduleShard],
+        assemblies: Sequence[AssemblyMap],
+        devices: Sequence[torch.device],
+        backend: str,
+        a_scatter: Optional[np.ndarray] = None,
+        b_scatter: Optional[np.ndarray] = None,
+        a_shape: Tuple[int, ...] = (),
+        b_shape: Tuple[int, ...] = (),
+        a_val_bounds: Optional[np.ndarray] = None,
+        chunk_bytes: Optional[int] = None,
+    ):
+        if not (len(shards) == len(assemblies) == len(devices)):
+            raise ValueError(
+                f"{len(shards)} shards, {len(assemblies)} output maps and "
+                f"{len(devices)} devices"
+            )
+        self.backend = backend
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
+        self.a_shape = tuple(a_shape)
+        self.b_shape = tuple(b_shape)
+        self.group = shards[0].schedule.group
+        bm = a_shape[1] if len(a_shape) == 3 else 0
+        block = tuple(a_shape[1:])
+        self._bn = b_shape[2] if len(b_shape) == 3 else 0
+        self._assemblies = list(assemblies)
+        element = self._element = a_scatter is not None and b_scatter is not None
+        if element and a_val_bounds is None:
+            raise ValueError("element shards need a_val_bounds")
+        self._parts: List[_ShardPart] = []
+        rows = 0
+        for i, (sh, asm, dev) in enumerate(zip(shards, assemblies, self.devices)):
+            rows = max(rows, (sh.n_panels * self.group + sh.num_triples) * bm)
+            if not (sh.num_triples and asm.nnz):
+                continue
+            local = (sh.a_hi - sh.a_lo,) + block
+            e_lo = e_hi = 0
+            a_inv = None
+            if element:
+                e_lo, e_hi = int(a_val_bounds[i]), int(a_val_bounds[i + 1])
+                flat = int(np.prod(local))
+                pos = np.asarray(a_scatter[e_lo:e_hi], np.int64) - sh.a_lo * int(np.prod(block))
+                # Elements of A blocks outside the shard's slot range feed
+                # no triple (no matching B block): they are not bound.
+                sel = (pos >= 0) & (pos < flat)
+                inv = np.full(flat, e_hi - e_lo, np.int32)
+                inv[pos[sel]] = np.arange(e_hi - e_lo, dtype=np.int32)[sel]
+                a_inv = torch.from_numpy(inv).to(dev)
+            self._parts.append(_ShardPart(
+                dev, stage_runs(sh.schedule, dev), torch.from_numpy(asm.gather).to(dev),
+                sh.a_lo, sh.a_hi, e_lo, e_hi, local, a_inv,
+            ))
+        # Per-set rows of the largest shard: the working-set basis of
+        # batch_chunk (each device holds only its own shards' panels).
+        self._per_set_rows = rows
+        self._b_devices = list(dict.fromkeys(p.device for p in self._parts))
+        self._b_inv: Dict[torch.device, torch.Tensor] = {}
+        if element:
+            inv = _invert_scatter(np.asarray(b_scatter), int(np.prod(b_shape)))
+            self._b_inv = {d: torch.from_numpy(inv).to(d) for d in self._b_devices}
+        self._row_ids: Optional[torch.Tensor] = None
+
+    @property
+    def n_launching(self) -> int:
+        """Shards that launch the kernel (those with triples and output
+        values): the launches of one ``run`` or batch chunk."""
+        return len(self._parts)
+
+    @property
+    def can_rebind(self) -> bool:
+        """True for element plans: both operands rebind from value
+        vectors on the device."""
+        return self._element
+
+    def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
+        """Re-resolve the chunk policy with a new per-set budget;
+        ``REPRO_SPGEMM_CHUNK_BYTES`` still wins."""
+        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
+
+    def constants(self) -> list:
+        """Every device tensor the numeric calls read."""
+        out = []
+        for p in self._parts:
+            r = p.runs
+            out += [r.ptr, r.a_slot, r.b_slot, r.panel, r.sub_row, p.gather]
+            if p.a_inv is not None:
+                out.append(p.a_inv)
+        return out + list(self._b_inv.values())
+
+    def batch_chunk(
+        self,
+        small_set_bytes: Optional[int] = None,
+        cache_bytes: Optional[int] = None,
+    ) -> int:
+        """Same policy as :meth:`SpGEMMExecutor.batch_chunk`, applied to
+        the largest shard's working set."""
+        if small_set_bytes is None:
+            small_set_bytes = self._chunk_policy[0]
+        if cache_bytes is None:
+            cache_bytes = self._chunk_policy[1]
+        per_set = 4 * self._per_set_rows * self._bn
+        if per_set <= small_set_bytes:
+            return max(1, cache_bytes // max(per_set, 1))
+        return 1
+
+    def device_indptr(self) -> torch.Tensor:
+        """Plan-wide device CSR ``indptr`` (int32) on the plan's device.
+        Shard row ranges are contiguous and ascending, so the plan-wide
+        row ids are the offset concatenation of the shards' own, in the
+        order the segments are concatenated."""
+        if self._row_ids is None:
+            ids, off = [], 0
+            for asm in self._assemblies:
+                n_rows = int(asm.shape[0])
+                ids.append(off + np.repeat(np.arange(n_rows, dtype=np.int64),
+                                           np.diff(np.asarray(asm.indptr))))
+                off += n_rows
+            self._out_rows = off
+            self._row_ids = torch.from_numpy(
+                np.concatenate(ids) if ids else np.zeros(0, np.int64)).to(self.device)
+        return compact_csr_indptr(self._row_ids, m=self._out_rows)
+
+    # -- layout helpers ----------------------------------------------------
+
+    def _per_device(self, t: torch.Tensor) -> Dict[torch.device, torch.Tensor]:
+        """``t`` on every device a launching shard runs on, copied once per
+        distinct device (asynchronously from pinned host memory)."""
+        return {d: t.to(d, non_blocking=True) for d in self._b_devices}
+
+    def _concat(self, segments: list, batch: Optional[int]) -> torch.Tensor:
+        """The shards' packed segments, in shard order, on the plan's
+        device: one contiguous C (``[nnz_c]``, or ``[batch, nnz_c]``)."""
+        segments = [s.to(self.device, non_blocking=True) for s in segments]
+        if not segments:
+            shape = (0,) if batch is None else (batch, 0)
+            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return torch.cat(segments, dim=-1)
+
+    def stage_a(self, blocks: torch.Tensor) -> list:
+        """Full packed A blocks (host) -> each launching shard's slot slice
+        on its device (fresh copies, never aliases of the host blocks)."""
+        out = []
+        for p in self._parts:
+            part = blocks[p.a_lo:p.a_hi]
+            if p.device.type == "cuda":
+                out.append(_pinned_copy(part).to(p.device, non_blocking=True))
+            else:
+                out.append(part.to(p.device, copy=True))
+        return out
+
+    def stage_b(self, blocks: torch.Tensor) -> dict:
+        """Full packed B blocks (host) -> one copy per distinct device."""
+        out = {}
+        for d in self._b_devices:
+            if d.type == "cuda":
+                out[d] = _pinned_copy(blocks).to(d, non_blocking=True)
+            else:
+                out[d] = blocks.to(d, copy=True)
+        return out
+
+    # -- stages ------------------------------------------------------------
+
+    def _bind(self, a, b, *, mode: str):
+        """Stage 1 for every launching shard: ``(a_blocks per shard, B
+        blocks per device)``. ``a`` and ``b`` are whole operands (host or
+        device tensors); each is copied once per distinct device."""
+        a_on, b_on = self._per_device(a), self._per_device(b)
+        if mode == "values":
+            b_blk = {d: bind_core(b_on[d], self._b_inv[d], shape=self.b_shape) for d in b_on}
+            a_blk = [bind_core(a_on[p.device][p.e_lo:p.e_hi], p.a_inv, shape=p.a_shape)
+                     for p in self._parts]
+        elif mode == "blocks":
+            b_blk = b_on
+            a_blk = [a_on[p.device][p.a_lo:p.a_hi] for p in self._parts]
+        elif mode == "batch_values":
+            b_blk = {d: bind_batch_core(b_on[d], self._b_inv[d], shape=self.b_shape)
+                     for d in b_on}
+            a_blk = [bind_batch_core(a_on[p.device][:, p.e_lo:p.e_hi], p.a_inv, shape=p.a_shape)
+                     for p in self._parts]
+        elif mode == "batch_blocks":
+            b_blk = {d: _stack_blocks(b_on[d], self.b_shape) for d in b_on}
+            a_blk = [_stack_blocks(a_on[p.device][:, p.a_lo:p.a_hi], p.a_shape)
+                     for p in self._parts]
+        else:
+            raise ValueError(f"unknown stage mode {mode!r}")
+        return a_blk, b_blk
+
+    def _kernel(self, staged, *, batch: bool) -> list:
+        """Stage 2: one launch per launching shard, on its own schedule."""
+        a_blk, b_blk = staged
+        if batch:
+            return [kernel_batch_core(a, b_blk[p.device], p.runs, a_slots=p.a_shape[0],
+                                      backend=self.backend)
+                    for p, a in zip(self._parts, a_blk)]
+        return [kernel_core(a, b_blk[p.device], p.runs, backend=self.backend)
+                for p, a in zip(self._parts, a_blk)]
+
+    def _assemble(self, panels: list, *, batch: Optional[int]) -> torch.Tensor:
+        """Stage 3: each shard's gather, then the concatenation."""
+        if batch is None:
+            segs = [assemble_core(x, p.gather) for p, x in zip(self._parts, panels)]
+        else:
+            segs = [assemble_batch_core(x, p.gather) for p, x in zip(self._parts, panels)]
+        return self._concat(segs, batch)
+
+    def run(self, a_staged: list, b_staged: dict) -> torch.Tensor:
+        """Staged operands (:meth:`stage_a` / :meth:`stage_b`) -> packed C."""
+        return self._assemble(self._kernel((a_staged, b_staged), batch=False), batch=None)
+
+    def run_values(self, a_vals, b_vals) -> torch.Tensor:
+        """[nnz] value vectors -> packed C; each shard binds its own A
+        elements and its device's copy of B."""
+        staged = self._bind(a_vals, b_vals, mode="values")
+        return self._assemble(self._kernel(staged, batch=False), batch=None)
+
+    def run_batch(self, a_vals, b_vals, *, rebind: bool) -> torch.Tensor:
+        """Batched values -> packed C values [batch, nnz_c]: one K2 launch
+        per launching shard."""
+        bsz = int(a_vals.shape[0])
+        staged = self._bind(a_vals, b_vals, mode="batch_values" if rebind else "batch_blocks")
+        return self._assemble(self._kernel(staged, batch=True), batch=bsz)
+
+    # -- pipeline protocol (same surface as SpGEMMExecutor) ----------------
+
+    def pipe_stage(self, a, b, *, mode: str):
+        """Copies to each distinct device and each shard's rebind; returns
+        ``(a blocks per shard, B blocks per device, batch or None)``. A
+        ``"blocks"`` operand that :meth:`stage_a` / :meth:`stage_b`
+        already laid out (a list and a dict) passes through."""
+        bsz = int(a.shape[0]) if mode.startswith("batch") else None
+        if mode == "blocks" and isinstance(a, list):
+            return a, b, bsz
+        return self._bind(a, b, mode=mode) + (bsz,)
+
+    def pipe_kernel(self, staged, *, mode: str):
+        """Every launching shard's kernel."""
+        a_blk, b_blk, bsz = staged
+        return self._kernel((a_blk, b_blk), batch=mode != "single"), bsz
+
+    def pipe_assemble(self, panels, *, mode: str):
+        """Every shard's gather and the concatenation."""
+        panels, bsz = panels
+        return self._assemble(panels, batch=None if mode == "single" else bsz)
+
+    def pipe_download(self, packed: torch.Tensor):
+        return _download(packed)
+
+    def pipe_collect(self, pending, *, mode: str) -> torch.Tensor:
+        return _collect(pending)

@@ -23,6 +23,15 @@ to be performed once". This module is that claim as an API:
   (no block fill); plans compose into chains (:meth:`SpGEMMPlan.then`,
   :func:`plan_from_structural_pattern`, :func:`execute_chain`) whose
   intermediates never leave the device.
+* Plans are cached (:mod:`repro_torch.spgemm.cache`) keyed on
+  ``(pattern hash, tile, group, backend, device, mesh key)``: a memory LRU
+  and, opt-in, a disk tier from which a restarted worker rehydrates its
+  plans without re-running the symbolic phase; ``pattern_token`` is the
+  serving warm path's fast key.
+* ``mesh=`` (:func:`repro_torch.launch.mesh.make_shard_mesh`) gives a
+  :class:`ShardedSpGEMMPlan`: the schedule partitioned at block-row-group
+  boundaries, one program per shard on its device, bitwise equal to the
+  single-device plan.
 
 Plans run on the card: ``device="cuda"`` is the default and raises when no
 CUDA device is present; ``device="cpu"`` runs the plain PyTorch version.
@@ -49,32 +58,43 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.schedule import (
     AssemblyMap,
+    ScheduleShard,
     SpGEMMSchedule,
     assembly_from_arrays,
     assembly_to_arrays,
     build_assembly_map,
     build_compact_map,
     build_spgemm_schedule,
+    partition_spgemm_schedule,
     schedule_from_arrays,
     schedule_to_arrays,
+    shards_from_bounds,
+    shards_to_bounds,
     structural_product_pattern,
 )
 from repro_torch.kernels.backend import resolve_backend, resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo, to_coo
 from repro_torch.sparse.formats import BCSR, BCSV, COO, CSR
-from repro_torch.spgemm.cache import pattern_digest
-from repro_torch.spgemm.executor import CHUNK_BYTES_ENV, SpGEMMExecutor, _pinned_copy
+from repro_torch.spgemm.cache import PlanCache, default_cache, pattern_digest
+from repro_torch.spgemm.executor import (
+    CHUNK_BYTES_ENV,
+    ShardedSpGEMMExecutor,
+    SpGEMMExecutor,
+    _pinned_copy,
+)
 from repro_torch.spgemm.pipeline import SpGEMMPipeline, SpGEMMTicket, _Prepared
 
 __all__ = [
     "PlanReport",
+    "ShardedSpGEMMPlan",
     "SpGEMMChain",
     "SpGEMMPlan",
     "StructuralPattern",
@@ -83,8 +103,26 @@ __all__ = [
     "plan_from_structural_pattern",
     "resolve_backend",
     "resolve_device",
+    "schedule_build_count",
     "spgemm_plan",
 ]
+
+# Global count of symbolic-phase runs (schedule constructions). Tests and
+# the card's checks assert that it stays flat across cached and
+# rehydrated plans.
+_SCHEDULE_BUILDS = 0
+
+
+def schedule_build_count() -> int:
+    return _SCHEDULE_BUILDS
+
+
+def _build_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
+    """The symbolic phase, counted."""
+    global _SCHEDULE_BUILDS
+    schedule = build_spgemm_schedule(a, b)
+    _SCHEDULE_BUILDS += 1
+    return schedule
 
 _REPORT_FIELDS = (
     "pattern_key", "pattern_token", "tile", "group", "backend", "shape",
@@ -102,8 +140,10 @@ class PlanReport:
     ``pattern_key``, ``nnz_a``, and ``nnz_b`` may be supplied as zero-arg
     callables: they resolve (and memoize) on first access, so plan paths
     whose report nobody reads never pay the pattern digest or the
-    ``count_nonzero`` scans. The cache, disk-tier and tuning fields keep
-    their names and defaults; nothing in the port sets them yet.
+    ``count_nonzero`` scans. ``cache_hits``, ``loads``, ``load_hits``,
+    ``cache_stats`` and ``pattern_token`` are set by the plan cache; the
+    tuning fields keep their names and defaults (the autotuner is not
+    ported yet).
     """
 
     def __init__(
@@ -319,17 +359,10 @@ class SpGEMMPlan:
                 self.compact = build_compact_map(self.assembly, rows, cols)
             else:
                 self.compact = self.assembly
+        # ``_make_executor`` is the subclass seam: ShardedSpGEMMPlan
+        # replaces it with the sharded executor.
         self._executor = (
-            SpGEMMExecutor(
-                schedule=schedule,
-                assembly=self._active(),
-                backend=self.backend,
-                device=self.device,
-                a_scatter=a_scatter,
-                b_scatter=b_scatter,
-                a_shape=self._a_shape,
-                b_shape=self._b_shape,
-            )
+            self._make_executor()
             if schedule.num_triples and self.assembly.nnz
             else None
         )
@@ -352,6 +385,26 @@ class SpGEMMPlan:
         # pipeline reuses them, and with them the device memory PyTorch's
         # caching allocator keeps per stream.
         self._streams: list = []
+        # (weakref to the cache, key), set by PlanCache on insert;
+        # release() evicts through it so a dead plan never stays resident.
+        self._cache_ref = None
+        # The value dtype names of the inputs the plan was built or found
+        # for (spgemm_plan sets them): a pattern-token hit must not serve
+        # inputs of another value dtype.
+        self._input_dtypes: Optional[Tuple[str, str]] = None
+
+    def _make_executor(self):
+        """The numeric executor (called once, at plan build)."""
+        return SpGEMMExecutor(
+            schedule=self.schedule,
+            assembly=self._active(),
+            backend=self.backend,
+            device=self.device,
+            a_scatter=self._a_scatter,
+            b_scatter=self._b_scatter,
+            a_shape=self._a_shape,
+            b_shape=self._b_shape,
+        )
 
     def _active(self) -> AssemblyMap:
         """The output map results are wrapped in (and the executor gathers
@@ -374,6 +427,14 @@ class SpGEMMPlan:
             return _pinned_copy(blocks).to(self.device, non_blocking=True)
         return blocks.to(self.device, copy=True)
 
+    def _stage_a(self, blocks: torch.Tensor):
+        """Host packed A blocks -> the executor's device layout."""
+        return self._stage(blocks)
+
+    def _stage_b(self, blocks: torch.Tensor):
+        """Host packed B blocks -> the executor's device layout."""
+        return self._stage(blocks)
+
     # -- construction -----------------------------------------------------
 
     @classmethod
@@ -386,19 +447,22 @@ class SpGEMMPlan:
         device="cuda",
         schedule: Optional[SpGEMMSchedule] = None,
         pattern_key: str = "",
+        mesh: Optional[Mesh] = None,
+        mesh_axis: Optional[str] = None,
         output: str = "block",
     ) -> "SpGEMMPlan":
         """Plan from pre-converted block formats (the ops.spgemm shim path).
 
         When ``schedule`` is supplied the symbolic phase is skipped
         (``report.schedule_builds == 0``). The pattern digest and element
-        nnz counts in the report are computed only if read.
+        nnz counts in the report are computed only if read. ``mesh``
+        gives a :class:`ShardedSpGEMMPlan`.
         """
         device = resolve_device(device)
         backend = resolve_backend(backend, device)
         built = 0
         if schedule is None:
-            schedule = build_spgemm_schedule(a, b)
+            schedule = _build_schedule(a, b)
             built = 1
         if not pattern_key:
             idx = (a.brow, a.bcol, a.group_ptr, b.indptr, b.indices)
@@ -416,7 +480,8 @@ class SpGEMMPlan:
             a.nnzb, b.nnzb, schedule,
         )
         report.schedule_builds = built
-        plan = cls(
+        plan_cls, extra = _resolve_plan_cls(mesh, mesh_axis)
+        plan = plan_cls(
             schedule=schedule,
             a_blocks=a.blocks,
             b_blocks=b.blocks,
@@ -426,6 +491,7 @@ class SpGEMMPlan:
             out_shape=(a.shape[0], b.shape[1]),
             report=report,
             output=output,
+            **extra,
         )
         report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
         report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
@@ -437,10 +503,13 @@ class SpGEMMPlan:
         """The plan's value-independent symbolic artifacts as ``(arrays,
         meta)``, in the JAX package's layout: the triple schedule, the
         assembly map, the compact map under the ``casm.`` prefix (compact
-        plans) and the value-scatter indices (element plans); ``meta``
-        holds the geometry (packed block shapes and dtypes, output shape,
-        tile, group, backend). Values are excluded: a warm restart brings
-        its own (:meth:`from_artifacts`)."""
+        plans) and the value-scatter indices (element plans;
+        :class:`ShardedSpGEMMPlan` adds its shard bounds); ``meta`` holds
+        the geometry (packed block shapes and dtypes, output shape, tile,
+        group, backend). Values are excluded: a warm restart brings its
+        own (:meth:`from_artifacts`). This is the payload the disk tier
+        (:class:`repro_torch.spgemm.persist.PlanStore`) writes once per
+        cache key."""
         arrays = {}
         arrays.update(schedule_to_arrays(self.schedule))
         arrays.update(assembly_to_arrays(self.assembly))
@@ -480,20 +549,25 @@ class SpGEMMPlan:
         b_blocks: Optional[np.ndarray] = None,
         a_pattern: Optional[COO] = None,
         b_pattern: Optional[COO] = None,
+        mesh: Optional[Mesh] = None,
+        mesh_axis: Optional[str] = None,
         output: str = "block",
     ) -> "SpGEMMPlan":
         """Build a plan from persisted symbolic artifacts + this call's values.
 
         ``(arrays, meta)`` is what :meth:`persist_artifacts` returns, here
-        or in the JAX package, for a single-device plan: the triple
-        schedule, the assembly map, the compact map (``output="compact"``,
-        which must match the persisted output) and, for element plans, the
-        value-scatter indices. The symbolic phase is **not** re-run
-        (``report.schedule_builds == 0``). The packed block arrays are
-        rebuilt by scattering ``a_vals``/``b_vals`` through the persisted
-        scatter indices (element plans) or taken from
-        ``a_blocks``/``b_blocks`` (block plans). The persisted backend
-        names the other package's backend and is not read. Any
+        or in the JAX package: the triple schedule, the assembly map, the
+        compact map (``output="compact"``, which must match the persisted
+        output), for element plans the value-scatter indices, and for
+        sharded plans the shard bounds. The symbolic phase is **not**
+        re-run (``report.schedule_builds == 0``). The packed block arrays
+        are rebuilt by scattering ``a_vals``/``b_vals`` through the
+        persisted scatter indices (element plans) or taken from
+        ``a_blocks``/``b_blocks`` (block plans). The persisted backend may
+        name the other package's backend and is not read. ``mesh`` gives a
+        :class:`ShardedSpGEMMPlan`, partitioned by the persisted shard
+        bounds when there are any (their shard count must be the mesh's);
+        without ``mesh`` the full schedule makes a single-device plan. Any
         inconsistency between artifacts and inputs raises.
         """
         device = resolve_device(device)
@@ -506,8 +580,6 @@ class SpGEMMPlan:
             raise ValueError(
                 f"persisted output {meta.get('output', 'block')!r} != {output!r}"
             )
-        if "shard_bounds" in arrays:
-            raise ValueError("sharded plan artifacts are not ported")
         schedule = schedule_from_arrays(arrays)
         assembly = assembly_from_arrays(arrays)
         compact = (
@@ -561,7 +633,11 @@ class SpGEMMPlan:
         )
         report.schedule_builds = 0
         report.loads = 1
-        plan = cls(
+        report.load_hits = 1
+        plan_cls, extra = _resolve_plan_cls(mesh, mesh_axis)
+        if mesh is not None and "shard_bounds" in arrays:
+            extra["shards"] = shards_from_bounds(schedule, arrays["shard_bounds"])
+        plan = plan_cls(
             schedule=schedule,
             a_blocks=a_blocks,
             b_blocks=b_blocks,
@@ -577,6 +653,7 @@ class SpGEMMPlan:
             assembly=assembly,
             output=output,
             compact=compact,
+            **extra,
         )
         if kind == "block":
             report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
@@ -733,9 +810,9 @@ class SpGEMMPlan:
             )
             if not fused_values:
                 if self._a_dev is None:
-                    self._a_dev = self._stage(self._a_blocks)
+                    self._a_dev = self._stage_a(self._a_blocks)
                 if self._b_dev is None:
-                    self._b_dev = self._stage(self._b_blocks)
+                    self._b_dev = self._stage_b(self._b_blocks)
                 # Snapshot under the lock so a concurrent rebind cannot mix
                 # one caller's A with another's B.
                 a_dev, b_dev = self._a_dev, self._b_dev
@@ -931,9 +1008,9 @@ class SpGEMMPlan:
                     )
                 if self._executor is not None:
                     if self._a_dev is None:
-                        self._a_dev = self._stage(self._a_blocks)
+                        self._a_dev = self._stage_a(self._a_blocks)
                     if self._b_dev is None:
-                        self._b_dev = self._stage(self._b_blocks)
+                        self._b_dev = self._stage_b(self._b_blocks)
                 return _Prepared("blocks", self._a_dev, self._b_dev, None, 1)
         with self._lock:
             self._check_released()
@@ -988,8 +1065,8 @@ class SpGEMMPlan:
         if stream is None:
             return self._pipe_run(prep)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        for t in self._executor.constants() + [prep.a, prep.b]:
-            if t.device.type == "cuda":
+        for t in _tensors(self._executor.constants() + [prep.a, prep.b]):
+            if t.device == stream.device:
                 t.record_stream(stream)
         with torch.cuda.stream(stream):
             return self._pipe_run(prep)
@@ -1055,10 +1132,11 @@ class SpGEMMPlan:
     def release(self) -> None:
         """Full teardown: values (host and device) and the executor's
         device constants. The plan is dead afterwards: every execute or
-        submit raises. Refuses while pipeline steps are in flight; drain
-        or ``close()`` pipelines first. (The JAX package's plan also
-        evicts itself from its plan cache here; the port has no cache
-        yet.)"""
+        submit raises, and it evicts itself from the cache that holds it,
+        so the next ``spgemm_plan`` for this pattern builds (or loads from
+        disk) a fresh plan instead of hitting the dead one. Refuses while
+        pipeline steps are in flight; drain or ``close()`` pipelines
+        first."""
         with self._lock:
             self._check_no_inflight("release plan")
             self._released = True
@@ -1068,6 +1146,15 @@ class SpGEMMPlan:
             self._a_blocks = None
             self._b_blocks = None
             self._executor = None
+            ref = self._cache_ref
+        # Self-evict outside the plan lock: the cache takes its own lock
+        # first and then reads in_flight under this plan's (cache, then
+        # plan, always). in_flight is 0 and submits now refuse, so the
+        # guarded evict cannot race back to RuntimeError.
+        if ref is not None:
+            cache = ref[0]()
+            if cache is not None:
+                cache.evict(ref[1], only=self)
 
     def host_nbytes(self) -> int:
         """Approximate bytes of host arrays this plan retains."""
@@ -1086,6 +1173,233 @@ class SpGEMMPlan:
         return (self.assembly.nbytes() + compact
                 + sum(a.nbytes for a in arrays if a is not None)
                 + sum(t.numel() * t.element_size() for t in blocks))
+
+
+class ShardedSpGEMMPlan(SpGEMMPlan):
+    """A mesh-aware :class:`SpGEMMPlan`: the panel schedule is partitioned
+    across the devices of one mesh axis, one program per shard.
+
+    Construction (``spgemm_plan(..., mesh=...)``) partitions the symbolic
+    schedule at block-row-group boundaries balanced by **triple count**
+    (:func:`~repro_torch.core.schedule.partition_spgemm_schedule`), builds
+    each shard's own :class:`~repro_torch.core.schedule.AssemblyMap` slice
+    (and compact slice), and stages each shard's schedule and gather map
+    on its device, B once per distinct device
+    (:class:`~repro_torch.spgemm.executor.ShardedSpGEMMExecutor`).
+    ``execute`` / ``execute_batch`` / the pipeline keep the single-device
+    semantics and output: C's per-shard segments are contiguous row
+    ranges, so the packed C is their concatenation along the precomputed
+    indptr bounds, and it equals the single-device plan's bitwise. The
+    plan's ``device`` is the mesh's first device: operands arrive there
+    and C is assembled there.
+    """
+
+    def __init__(
+        self,
+        *,
+        mesh: Mesh,
+        mesh_axis: Optional[str] = None,
+        shards: Optional[list] = None,
+        **kw,
+    ):
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"mesh must be a repro_torch.launch.mesh.Mesh "
+                f"(make_shard_mesh), got {type(mesh).__name__}"
+            )
+        if mesh_axis is None:
+            mesh_axis = mesh.axis_names[0]
+        if mesh_axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no axis {mesh_axis!r}: {mesh.axis_names}")
+        asked = torch.device(kw.get("device", "cuda"))
+        if asked.type != mesh.devices[0].type:
+            raise ValueError(
+                f"plan device {asked} and mesh devices {mesh.devices[0].type} differ"
+            )
+        kw["device"] = mesh.devices[0]
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.n_shards = int(mesh.shape[mesh_axis])
+        # ``shards`` is the persistence seam: a rehydrated plan passes the
+        # deserialized partition so _make_executor skips the partitioner
+        # along with the rest of the symbolic phase.
+        self._preloaded_shards = shards
+        self._shards: List[ScheduleShard] = []
+        self._shard_assemblies: List[AssemblyMap] = []
+        self._shard_compacts: List[AssemblyMap] = []
+        super().__init__(**kw)
+
+    def _make_executor(self):
+        if self._preloaded_shards is not None:
+            if len(self._preloaded_shards) != self.n_shards:
+                raise ValueError(
+                    f"{len(self._preloaded_shards)} persisted shards for a "
+                    f"{self.n_shards}-device mesh axis"
+                )
+            self._shards = self._preloaded_shards
+        else:
+            self._shards = partition_spgemm_schedule(self.schedule, self.n_shards)
+        bm, bn, g = self._bm, self._bn, self._group
+        spans = [(min(sh.group_lo * g * bm, self._m), min(sh.group_hi * g * bm, self._m))
+                 for sh in self._shards]
+        for sh, (row_lo, row_hi) in zip(self._shards, spans):
+            self._shard_assemblies.append(build_assembly_map(
+                sh.schedule, (bm, bn), (row_hi - row_lo, self._n)))
+        if sum(a.nnz for a in self._shard_assemblies) != self.assembly.nnz:
+            raise AssertionError("shard assembly slices do not cover the plan assembly")
+        # Compact output: each shard gathers through its slice of the
+        # element-exact pattern (a subset of its block map, rows rebased to
+        # the shard); shard row ranges are contiguous, so the plan-wide
+        # compact rows split into per-shard runs by searchsorted.
+        active = self._shard_assemblies
+        if self.output == "compact":
+            rows_c = np.repeat(np.arange(self._m, dtype=np.int64),
+                               np.diff(self.compact.indptr))
+            for asm, (row_lo, row_hi) in zip(self._shard_assemblies, spans):
+                lo, hi = np.searchsorted(rows_c, [row_lo, row_hi])
+                self._shard_compacts.append(build_compact_map(
+                    asm, rows_c[lo:hi] - row_lo, self.compact.indices[lo:hi]))
+            if sum(a.nnz for a in self._shard_compacts) != self.compact.nnz:
+                raise AssertionError("shard compact slices do not cover the compact map")
+            active = self._shard_compacts
+        a_val_bounds = None
+        if self._a_scatter is not None:
+            if self.a_pattern is None:
+                raise ValueError("a sharded element plan needs its A pattern")
+            # Element values are canonical row-major and shards own
+            # contiguous row ranges: each shard's A values are one slice.
+            a_val_bounds = np.concatenate([
+                np.searchsorted(self.a_pattern.row, [lo for lo, _ in spans]),
+                [self.a_pattern.nnz],
+            ]).astype(np.int64)
+        return ShardedSpGEMMExecutor(
+            shards=self._shards,
+            assemblies=active,
+            devices=self.mesh.devices,
+            backend=self.backend,
+            a_scatter=self._a_scatter,
+            b_scatter=self._b_scatter,
+            a_shape=self._a_shape,
+            b_shape=self._b_shape,
+            a_val_bounds=a_val_bounds,
+        )
+
+    def _stage_a(self, blocks: torch.Tensor):
+        if self._executor is None:  # empty plan: nothing to lay out
+            return self._stage(blocks)
+        return self._executor.stage_a(blocks)
+
+    def _stage_b(self, blocks: torch.Tensor):
+        if self._executor is None:
+            return self._stage(blocks)
+        return self._executor.stage_b(blocks)
+
+    def shard_stats(self) -> dict:
+        """Per-shard load profile: triple, panel and output-value counts,
+        and the max/mean triple-count imbalance the partitioner reached."""
+        triples = [sh.num_triples for sh in self._shards]
+        mean = sum(triples) / max(len(triples), 1)
+        return {
+            "n_shards": self.n_shards,
+            "mesh_axis": self.mesh_axis,
+            "triples": triples,
+            "panels": [sh.n_panels for sh in self._shards],
+            "nnz_c": [a.nnz for a in self._shard_assemblies],
+            "imbalance": (max(triples) / mean) if mean else 0.0,
+        }
+
+    def host_nbytes(self) -> int:
+        return super().host_nbytes() + sum(
+            a.nbytes() for a in self._shard_assemblies + self._shard_compacts)
+
+    def persist_artifacts(self) -> Tuple[dict, dict]:
+        """Adds the shard partition to the base artifacts: the group-bound
+        vector alone rebuilds every :class:`ScheduleShard` slice bitwise
+        (:func:`repro_torch.core.schedule.shards_from_bounds`). Empty plans
+        (no executor, no shards) persist without bounds and re-partition
+        on load."""
+        arrays, meta = super().persist_artifacts()
+        if self._shards:
+            arrays["shard_bounds"] = shards_to_bounds(self._shards)
+        meta["n_shards"] = self.n_shards
+        meta["mesh_axis"] = self.mesh_axis
+        return arrays, meta
+
+
+def _tensors(items):
+    """The tensors in a list of tensors, staged shard lists (``None`` for
+    nothing) and per-device dicts."""
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            yield from _tensors(x.values())
+        elif isinstance(x, (list, tuple)):
+            yield from _tensors(x)
+
+
+def _resolve_plan_cls(mesh: Optional[Mesh], mesh_axis: Optional[str]):
+    """(plan class, extra constructor kwargs) for an optional mesh."""
+    if mesh is None:
+        if mesh_axis is not None:
+            raise ValueError("mesh_axis without a mesh")
+        return SpGEMMPlan, {}
+    return ShardedSpGEMMPlan, {"mesh": mesh, "mesh_axis": mesh_axis}
+
+
+def _mesh_key(mesh: Optional[Mesh], mesh_axis: Optional[str]):
+    """Cache-key component for the shard axis: sharded plans stage their
+    constants on concrete devices, so the key pins the axis name, the
+    shard count and the device list, repeats included. ``None`` for
+    single-device plans."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a repro_torch.launch.mesh.Mesh (make_shard_mesh), "
+            f"got {type(mesh).__name__}"
+        )
+    axis = mesh_axis if mesh_axis is not None else mesh.axis_names[0]
+    return (axis, mesh.size, tuple(str(d) for d in mesh.devices))
+
+
+def _plan_device(device, mesh: Optional[Mesh]) -> torch.device:
+    """The device a plan stages on: a sharded plan's is its mesh's first
+    (whose type must be the asked device's)."""
+    if mesh is None or not isinstance(mesh, Mesh):
+        return resolve_device(device)
+    if torch.device(device).type != mesh.devices[0].type:
+        raise ValueError(f"plan device {device} and mesh devices {mesh.devices[0].type} differ")
+    return mesh.devices[0]
+
+
+def _input_dtype_name(x) -> Optional[str]:
+    """The value dtype name of a plan input (``"bfloat16"``, ``"float32"``,
+    ``"float64"``...), or ``None`` if unreadable."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).replace("torch.", "")
+    v = getattr(x, "val", None)  # COO/CSR/CSC/CSV
+    if v is None:
+        v = getattr(x, "blocks", None)  # BCSV/BCSR
+    if v is None and isinstance(x, np.ndarray):
+        v = x
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        return str(v.dtype).replace("torch.", "")
+    return np.asarray(v).dtype.name
+
+
+def _cache_check(cache) -> PlanCache:
+    if cache is None:
+        return default_cache()
+    if not isinstance(cache, PlanCache):
+        raise TypeError(
+            f"cache must be a repro_torch.spgemm.cache.PlanCache, got {type(cache).__name__}"
+        )
+    return cache
 
 
 def _check_output(output: str) -> None:
@@ -1153,6 +1467,118 @@ def _normalize_tile(tile: Union[int, Tuple[int, ...]]) -> Tuple[int, int, int]:
     return tile
 
 
+def _canonical_coo(coo: COO) -> COO:
+    """The COO in canonical order, paying the sort only when needed."""
+    return coo if _coo_is_canonical(coo) else coo.sum_duplicates()
+
+
+def _loaded_block_plan(arrays, meta, a: BCSV, b: BCSR, *, backend, device, pattern_key,
+                       mesh, mesh_axis, output) -> SpGEMMPlan:
+    """Block-path disk rehydrate: the persisted symbolic artifacts with
+    this call's packed blocks as the values."""
+    return SpGEMMPlan.from_artifacts(
+        arrays, meta, backend=backend, device=device, pattern_key=pattern_key,
+        a_blocks=a.blocks, b_blocks=b.blocks, mesh=mesh, mesh_axis=mesh_axis,
+        output=output,
+    )
+
+
+def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block"):
+    """The loader :meth:`PlanCache.token_disk_get` rehydrates through.
+
+    The disk alias exists to skip the pattern digest, so the loader checks
+    this call's operands against the *persisted* meta instead: value dtypes
+    must match exactly (``from_artifacts`` would silently round), input
+    types must match the persisted plan kind, and ``from_artifacts``
+    itself re-checks element counts and block geometry. Any mismatch
+    raises, which the cache counts as a load failure; the caller then
+    takes the digest path, which settles conflicts explicitly.
+    """
+
+    def load(key: Tuple, arrays: dict, meta: dict) -> SpGEMMPlan:
+        kind = meta.get("kind")
+        if (_input_dtype_name(a) != meta.get("a_dtype")
+                or _input_dtype_name(b) != meta.get("b_dtype")):
+            raise ValueError("value dtype differs from the persisted plan")
+        if kind == "element" and isinstance(a, COO) and isinstance(b, COO):
+            a_c, b_c = _canonical_coo(a), _canonical_coo(b)
+            plan = SpGEMMPlan.from_artifacts(
+                arrays, meta, backend=backend, device=device, pattern_key=key[0],
+                a_vals=a_c.val, b_vals=b_c.val, a_pattern=a_c, b_pattern=b_c,
+                mesh=mesh, mesh_axis=mesh_axis, output=output,
+            )
+        elif kind == "block" and isinstance(a, BCSV) and isinstance(b, BCSR):
+            plan = _loaded_block_plan(arrays, meta, a, b, backend=backend, device=device,
+                                      pattern_key=key[0], mesh=mesh, mesh_axis=mesh_axis,
+                                      output=output)
+        else:
+            raise ValueError(
+                f"input types {type(a).__name__}/{type(b).__name__} do not match "
+                f"persisted plan kind {kind!r}"
+            )
+        plan._input_dtypes = (_input_dtype_name(a), _input_dtype_name(b))
+        return plan
+
+    return load
+
+
+def _token_hit(plan: SpGEMMPlan, a, b, pattern_token) -> None:
+    """Rebind this call's values into a plan found by its pattern token:
+    COO inputs for element plans (canonical order verified, and restored
+    by a sort only when needed), BCSV/BCSR inputs for block plans, nothing
+    for a pure lookup (``a = b = None``). Any other input type raises: it
+    would silently keep the previous caller's staged values."""
+    element = plan._a_scatter is not None and plan._b_scatter is not None
+    with plan._lock:
+        plan.report.cache_hits += 1
+        if a is None and b is None:
+            return
+        if element and isinstance(a, COO) and isinstance(b, COO):
+            a_c, b_c = _canonical_coo(a), _canonical_coo(b)
+            if a_c.nnz != plan.report.nnz_a or b_c.nnz != plan.report.nnz_b:
+                raise ValueError(
+                    f"pattern_token {pattern_token!r}: input nnz ({a_c.nnz}, {b_c.nnz}) "
+                    f"does not match the token's plan ({plan.report.nnz_a}, "
+                    f"{plan.report.nnz_b}); the token must name this exact sparsity pattern"
+                )
+            plan._a_blocks = plan._rebind(a_c.val, plan._a_blocks, plan._a_scatter,
+                                          plan.report.nnz_a, "a_vals", plan._a_shape,
+                                          plan._a_dtype)
+            plan._b_blocks = plan._rebind(b_c.val, plan._b_blocks, plan._b_scatter,
+                                          plan.report.nnz_b, "b_vals", plan._b_shape,
+                                          plan._b_dtype)
+        elif not element and isinstance(a, BCSV) and isinstance(b, BCSR):
+            if (tuple(a.blocks.shape) != plan._a_shape
+                    or tuple(b.blocks.shape) != plan._b_shape):
+                raise ValueError(
+                    f"pattern_token {pattern_token!r}: packed block shapes "
+                    f"{tuple(a.blocks.shape)}/{tuple(b.blocks.shape)} do not match the "
+                    f"token's plan {plan._a_shape}/{plan._b_shape}"
+                )
+            plan._a_blocks = _host_values(a.blocks, plan._a_dtype)
+            plan._b_blocks = _host_values(b.blocks, plan._b_dtype)
+        else:
+            raise ValueError(
+                f"pattern_token {pattern_token!r}: the token fast path rebinds values "
+                f"only for COO (element plans) or BCSV/BCSR (block plans) inputs, or "
+                f"a=b=None for a pure lookup; got {type(a).__name__}/{type(b).__name__}"
+                f" — drop pattern_token to take the full conversion path"
+            )
+        plan._a_dev = None
+        plan._b_dev = None
+
+
+def _dtype_mismatch(plan: SpGEMMPlan, a, b) -> bool:
+    """True when a token's plan was built for other value dtypes than
+    ``a``/``b`` carry: such a request must not be served (and rounded)
+    through the token."""
+    want = plan._input_dtypes
+    if want is None:
+        return False
+    return any(got is not None and got != w
+               for got, w in zip((_input_dtype_name(a), _input_dtype_name(b)), want))
+
+
 def spgemm_plan(
     a,
     b,
@@ -1161,9 +1587,14 @@ def spgemm_plan(
     group: int = 4,
     backend: str = "auto",
     device="cuda",
+    cache: Optional[PlanCache] = None,
+    mesh: Optional[Mesh] = None,
+    mesh_axis: Optional[str] = None,
+    pattern_token: Optional[str] = None,
     output: str = "block",
 ) -> SpGEMMPlan:
-    """Build an :class:`SpGEMMPlan` for ``C = a @ b``.
+    """Build — or fetch from the plan cache — an :class:`SpGEMMPlan` for
+    ``C = a @ b``.
 
     ``a``/``b`` may be dense numpy arrays, any element-level sparse format
     (COO/CSR/CSC/CSV), pre-converted BCSV/BCSR blocks (in which case
@@ -1171,29 +1602,123 @@ def spgemm_plan(
     tensors (dense, sparse COO or sparse CSR). The plan keeps the packed
     dtype of the values: bfloat16 for bfloat16 values (a numpy array of
     dtype ``bfloat16`` or a bfloat16 tensor), float32 for any other. All
-    symbolic work happens here. There is no plan cache yet: every call
-    builds.
+    symbolic work happens here, once per distinct ``(pattern, value
+    dtypes, tile, group, backend, device, mesh shard axis, output)``.
 
     ``device="cuda"`` (the default) runs the numeric phase through the
     CUDA kernel and raises when no CUDA device is present;
     ``device="cpu"`` runs the plain PyTorch version.
 
+    ``cache`` is a :class:`~repro_torch.spgemm.cache.PlanCache` (default:
+    the process-level :func:`~repro_torch.spgemm.cache.default_cache`,
+    whose disk tier ``REPRO_TORCH_SPGEMM_PLAN_DIR`` enables). A memory hit
+    returns the same plan object with this call's values rebound; a disk
+    hit rehydrates the persisted symbolic artifacts
+    (``report.schedule_builds == 0``, ``report.loads == 1``); a fresh
+    build is written back to the disk tier.
+
+    ``mesh`` (:func:`repro_torch.launch.mesh.make_shard_mesh`) gives a
+    :class:`ShardedSpGEMMPlan` whose panel schedule is partitioned over
+    ``mesh_axis`` (default: the mesh's only axis); the device must be of
+    the mesh devices' type.
+
+    ``pattern_token`` is the serving warm path's fast key: a caller's name
+    for the sparsity pattern. On a cache hit the token resolves the plan
+    directly — no ``to_coo`` canonicalization, no pattern digest. The
+    token is the caller's *claim* of pattern equality: it is checked
+    against the digest whenever both are present (binding one token to two
+    different patterns or configurations raises), and echoed in
+    ``report.pattern_token``. On a token hit, values are rebound for COO
+    inputs (element plans) and BCSV/BCSR inputs (block plans); any other
+    input type raises. A value-dtype mismatch never hits the token: it
+    falls through to the digest path, which raises the token conflict.
+    ``a=None, b=None`` with a token is a pure lookup (``KeyError`` on a
+    miss). With the disk tier, a token miss with operands in hand also
+    consults the store's persisted alias index: a restarted worker's first
+    call resolves token -> key -> disk artifacts without paying the
+    digest (``stats.token_disk_hits``).
+
     ``output="compact"`` makes results store only C's element-exact
     structural nonzeros (no block fill): the plan also builds the compact
     gather map (``plan.compact``), a subset of the block map's positions.
+    Compact plans live under their own cache keys (the base key suffixed
+    ``"compact"``).
     """
     _check_output(output)
-    device = resolve_device(device)
+    device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
+    cache = _cache_check(cache)
+    shard_key = _mesh_key(mesh, mesh_axis)
+    dev_key = str(device)
+    out_key = ("compact",) if output == "compact" else ()
+
+    token_key = None
+    if pattern_token is not None:
+        token_key = ("token", str(pattern_token), _normalize_tile(tile), int(group), backend,
+                     dev_key, shard_key) + out_key
+        plan = cache.token_get(token_key)
+        # The value dtype is part of the full (digest) key but not of the
+        # token key: a mismatch falls through to the digest path, where
+        # token_bind raises the conflict.
+        if plan is not None and _dtype_mismatch(plan, a, b):
+            plan = None
+        if plan is None and a is not None and b is not None:
+            # Warm restart: the store's alias index may resolve the token
+            # straight to a disk load, with no digest.
+            plan, fresh = cache.token_disk_get(
+                token_key, _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output))
+            if fresh:
+                plan.report.pattern_token = str(pattern_token)
+                plan.report.cache_stats = cache.stats()
+                return plan
+            if plan is not None and _dtype_mismatch(plan, a, b):
+                plan = None
+        if plan is not None:
+            _token_hit(plan, a, b, pattern_token)
+            plan.report.cache_stats = cache.stats()
+            return plan
+        if a is None or b is None:
+            raise KeyError(
+                f"pattern_token {pattern_token!r} is not resident in the plan cache and "
+                f"no operands were given to build from"
+            )
+
+    def bind_token(plan: SpGEMMPlan, key: Tuple) -> None:
+        if token_key is None:
+            return
+        cache.token_bind(token_key, key)
+        plan.report.pattern_token = str(pattern_token)
+
+    dtype_names = (_input_dtype_name(a), _input_dtype_name(b))
     if isinstance(a, BCSV) and isinstance(b, BCSR):
         if a.block_shape[1] != b.block_shape[0]:
             raise ValueError(
                 f"block inner dims mismatch: {a.block_shape} vs {b.block_shape}"
             )
-        return SpGEMMPlan.from_blocks(
-            a, b, backend=backend, device=device,
-            pattern_key=_block_pattern_key(a, b), output=output,
+        tile3 = (a.block_shape[0], a.block_shape[1], b.block_shape[1])
+        key = (_block_pattern_key(a, b), tile3, a.group, backend, dev_key,
+               shard_key) + out_key
+        plan, hit = cache.get_or_build(
+            key, lambda: SpGEMMPlan.from_blocks(
+                a, b, backend=backend, device=device, pattern_key=key[0],
+                mesh=mesh, mesh_axis=mesh_axis, output=output),
+            loader=lambda arrays, meta: _loaded_block_plan(
+                arrays, meta, a, b, backend=backend, device=device, pattern_key=key[0],
+                mesh=mesh, mesh_axis=mesh_axis, output=output),
         )
+        plan._input_dtypes = dtype_names
+        bind_token(plan, key)
+        plan.report.cache_stats = cache.stats()
+        if hit:
+            with plan._lock:
+                plan.report.cache_hits += 1
+                # Pattern-equal, possibly fresh values: stage this call's
+                # blocks, so that a no-arg execute() is current.
+                plan._a_blocks = _host_values(a.blocks, plan._a_dtype)
+                plan._b_blocks = _host_values(b.blocks, plan._b_dtype)
+                plan._a_dev = None
+                plan._b_dev = None
+        return plan
 
     bm, bk, bn = _normalize_tile(tile)
     # sum_duplicates already emits canonical row-major order.
@@ -1205,29 +1730,64 @@ def spgemm_plan(
     # bfloat16 tensor's values to float32 (exactly).
     dtypes = tuple(_packed_dtype(x if isinstance(x, torch.Tensor) else coo.val)
                    for x, coo in ((a, a_coo), (b, b_coo)))
+    # The value dtype is part of the key: a float64 request is not served
+    # (and rounded) by a float32-built plan.
     pattern = pattern_digest(
         a_coo.row, a_coo.col, b_coo.row, b_coo.col,
         meta=("coo", a_coo.shape, b_coo.shape) + tuple(
             "bfloat16" if dt == torch.bfloat16 else str(coo.val.dtype)
             for dt, coo in zip(dtypes, (a_coo, b_coo))),
     )
-    return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
-                         device, output)
+    key = (pattern, (bm, bk, bn), group, backend, dev_key, shard_key) + out_key
+
+    def load(arrays: dict, meta: dict) -> SpGEMMPlan:
+        # Disk tier (warm restart): the symbolic artifacts come from the
+        # store, the values from this call's canonical COOs.
+        return SpGEMMPlan.from_artifacts(
+            arrays, meta, backend=backend, device=device, pattern_key=pattern,
+            a_vals=a_coo.val, b_vals=b_coo.val, a_pattern=a_coo, b_pattern=b_coo,
+            mesh=mesh, mesh_axis=mesh_axis, output=output,
+        )
+
+    plan, hit = cache.get_or_build(
+        key,
+        lambda: _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
+                              device, output, mesh, mesh_axis),
+        loader=load,
+    )
+    plan._input_dtypes = dtype_names
+    bind_token(plan, key)
+    plan.report.cache_stats = cache.stats()
+    if hit:
+        with plan._lock:
+            plan.report.cache_hits += 1
+            # A hit may carry the previous caller's values; the pattern
+            # matches by construction, so rebind this call's.
+            plan._a_blocks = plan._rebind(
+                a_coo.val, plan._a_blocks, plan._a_scatter, plan.report.nnz_a,
+                "a_vals", plan._a_shape, plan._a_dtype)
+            plan._a_dev = None
+            plan._b_blocks = plan._rebind(
+                b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
+                "b_vals", plan._b_shape, plan._b_dtype)
+            plan._b_dev = None
+    return plan
 
 
 def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend, device,
-                  output) -> SpGEMMPlan:
+                  output, mesh=None, mesh_axis=None) -> SpGEMMPlan:
     """The symbolic phase of an element plan from canonical COO operands."""
     bm, bk, bn = tile
     a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
     b_bcsr, b_scatter = bcsr_from_coo(b_coo, (bk, bn))
-    schedule = build_spgemm_schedule(a_bcsv, b_bcsr)
+    schedule = _build_schedule(a_bcsv, b_bcsr)
     report = _make_report(
         pattern, (bm, bk, bn), group, backend,
         (a_coo.shape[0], b_coo.shape[1]),
         a_coo.nnz, b_coo.nnz, a_bcsv.nnzb, b_bcsr.nnzb, schedule,
     )
-    return SpGEMMPlan(
+    plan_cls, extra = _resolve_plan_cls(mesh, mesh_axis)
+    return plan_cls(
         schedule=schedule,
         a_blocks=a_bcsv.blocks,
         b_blocks=b_bcsr.blocks,
@@ -1241,6 +1801,7 @@ def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend,
         a_pattern=a_coo,
         b_pattern=b_coo,
         output=output,
+        **extra,
     )
 
 
@@ -1412,9 +1973,9 @@ def plan_from_structural_pattern(
     device="cuda",
     output: str = "block",
     dtype=torch.float32,
-    cache=None,
-    mesh=None,
-    mesh_axis=None,
+    cache: Optional[PlanCache] = None,
+    mesh: Optional[Mesh] = None,
+    mesh_axis: Optional[str] = None,
     validate=None,
 ) -> SpGEMMPlan:
     """Plan ``C @ b`` directly from a prior plan's output pattern: the
@@ -1425,27 +1986,30 @@ def plan_from_structural_pattern(
     by construction) and fingerprints the CSR arrays themselves. A values
     are zero placeholders (chained executes bind the previous stage's
     device values per run); ``dtype`` is the value dtype they flow at
-    (bfloat16, or float32 for any other). ``b`` is anything
-    :func:`spgemm_plan` takes as an element operand; its values set the
-    plan's B dtype.
+    (bfloat16, or float32 for any other; part of the cache key). ``b`` is
+    anything :func:`spgemm_plan` takes as an element operand; its values
+    set the plan's B dtype.
 
-    ``cache``, ``mesh``/``mesh_axis`` and ``validate`` (the JAX package's
-    plan cache, sharding and static verification) are not ported: passing
-    any of them raises ``NotImplementedError``.
+    Chained plans get their own cache keys (a ``"chain"``-tagged digest)
+    and the same two-tier :class:`~repro_torch.spgemm.cache.PlanCache` as
+    any other plan (``cache``, default the process-level one): a warm
+    restart rehydrates a whole chain from disk without re-running any
+    symbolic phase. ``mesh``/``mesh_axis`` give a
+    :class:`ShardedSpGEMMPlan`, as in :func:`spgemm_plan`. ``validate``
+    (the JAX package's static verification) is not ported: passing it
+    raises ``NotImplementedError``.
     """
-    for name, value in (("cache", cache), ("mesh", mesh), ("mesh_axis", mesh_axis),
-                        ("validate", validate)):
-        if value is not None:
-            raise NotImplementedError(
-                f"plan_from_structural_pattern({name}=...) is not ported yet"
-            )
+    if validate is not None:
+        raise NotImplementedError(
+            "plan_from_structural_pattern(validate=...) is not ported yet"
+        )
     _check_output(output)
-    device = resolve_device(device)
+    device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
+    cache = _cache_check(cache)
+    shard_key = _mesh_key(mesh, mesh_axis)
     bm, bk, bn = _normalize_tile(tile)
-    b_coo = to_coo(b)
-    if not _coo_is_canonical(b_coo):
-        b_coo = b_coo.sum_duplicates()
+    b_coo = _canonical_coo(to_coo(b))
     if c_pattern.shape[1] != b_coo.shape[0]:
         raise ValueError(f"inner dims mismatch: {c_pattern.shape} x {b_coo.shape}")
     dtypes = (_value_dtype(dtype),
@@ -1455,5 +2019,36 @@ def plan_from_structural_pattern(
         c_pattern.indptr, c_pattern.indices, b_coo.row, b_coo.col,
         meta=("chain", c_pattern.shape, b_coo.shape) + tuple(_dtype_name(d) for d in dtypes),
     )
-    return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend, device,
-                         output)
+    out_key = ("compact",) if output == "compact" else ()
+    key = (pattern, (bm, bk, bn), group, backend, str(device), shard_key) + out_key
+    with cache._lock:
+        cache.stats.chain_lookups += 1
+
+    def load(arrays: dict, meta: dict) -> SpGEMMPlan:
+        return SpGEMMPlan.from_artifacts(
+            arrays, meta, backend=backend, device=device, pattern_key=pattern,
+            a_vals=a_coo.val, b_vals=b_coo.val, a_pattern=a_coo, b_pattern=b_coo,
+            mesh=mesh, mesh_axis=mesh_axis, output=output,
+        )
+
+    plan, hit = cache.get_or_build(
+        key,
+        lambda: _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
+                              device, output, mesh, mesh_axis),
+        loader=load,
+    )
+    plan.report.cache_stats = cache.stats()
+    if hit:
+        with plan._lock:
+            plan.report.cache_hits += 1
+            # A pattern-equal hit may serve another B operand: rebind this
+            # call's B values (the host blocks and the chained stage's
+            # device copy). The A placeholders stay: chained executes bind
+            # A per run, on the device.
+            plan._b_blocks = plan._rebind(
+                b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
+                "b_vals", plan._b_shape, plan._b_dtype)
+            plan._b_dev = None
+            plan._b_vals_dev = None
+            plan.b_pattern = b_coo
+    return plan

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
 block-Gustavson SpGEMM (K1, K2; also through the asynchronous pipeline,
-on side streams, and a device-resident chain), flash attention (K5), the
-block-sparse SpMM (K3) and the grouped expert matmul (K4), and the LM
-forwards through K5 and K4. Needs no JAX, so it runs on a machine with
+on side streams, a device-resident chain, a sharded plan of four shards on
+one card and a plan rehydrated from the disk tier), flash attention (K5,
+also at prefill lengths that are not multiples of 512), the block-sparse
+SpMM (K3) and the grouped expert matmul (K4), and the LM forwards through
+K5 and K4. Needs no JAX, so it runs on a machine with
 the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -284,6 +286,72 @@ def test_chain_on_card_keeps_intermediates_on_the_device(cuda):
                        torch.from_numpy(stage1.indptr.astype(np.int32)))
 
 
+def test_sharded_plan_on_card_bitwise_equals_single(cuda):
+    """Four shards on cuda:0 (a mesh that repeats the card): ``execute``,
+    ``execute_batch(4)``, compact output and a depth-2 pipeline equal the
+    single-device plan bitwise on random float32 values, and K1 (K2 for a
+    batch chunk) is launched once per launching shard."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.spgemm import PlanCache
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    mesh = make_shard_mesh(4, devices=[cuda] * 4)
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal((4, 2, a.nnz)).astype(np.float32)
+    for output in ("block", "compact"):
+        single = spgemm_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache(),
+                             output=output)
+        plan = spgemm_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache(),
+                           output=output, mesh=mesh)
+        n = plan._executor.n_launching
+        assert n == sum(t > 0 for t in plan.shard_stats()["triples"]) > 1
+        want = single.execute(vals[0, 0], vals[0, 1])
+        before = spgemm_scheduled.launches
+        got = plan.execute(vals[0, 0], vals[0, 1])
+        torch.cuda.synchronize()
+        assert spgemm_scheduled.launches == before + n
+        assert np.array_equal(got.indptr, want.indptr) and np.array_equal(got.data, want.data)
+        batch_want = single.execute_batch(vals[:, 0], vals[:, 1])
+        chunk = min(4, plan._executor.batch_chunk())
+        before = spgemm_scheduled_batch.launches
+        batch = plan.execute_batch(vals[:, 0], vals[:, 1])
+        torch.cuda.synchronize()
+        assert spgemm_scheduled_batch.launches == before + n * -(-4 // chunk)
+        for g, w in zip(batch, batch_want):
+            assert np.array_equal(g.data, w.data)
+        with plan.pipeline(depth=2) as pipe:
+            piped = list(pipe.stream((vals[i, 0], vals[i, 1]) for i in range(4)))
+        for g, w in zip(piped, batch_want):
+            assert np.array_equal(g.data, w.data)
+        assert torch.equal(plan.device_indptr().cpu(),
+                           torch.from_numpy(want.indptr.astype(np.int32)))
+
+
+def test_disk_rehydrate_on_card_bitwise_equals_cold(cuda, tmp_path):
+    """A plan written to the disk tier and rehydrated by a fresh cache
+    runs no symbolic phase, launches K1, and executes bitwise equal to
+    the cold plan."""
+    from repro_torch.spgemm import PlanCache, schedule_build_count
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    coo = a.to_coo()  # the token's disk path rebinds COO operands
+    cold = spgemm_plan(coo, coo, tile=64, group=4, device=cuda,
+                       cache=PlanCache(disk_dir=str(tmp_path)), pattern_token="p3da")
+    builds = schedule_build_count()
+    cache = PlanCache(disk_dir=str(tmp_path))
+    warm = spgemm_plan(coo, coo, tile=64, group=4, device=cuda, cache=cache,
+                       pattern_token="p3da")
+    assert schedule_build_count() == builds and warm.report.loads == 1
+    assert cache.stats.token_disk_hits == 1
+    vals = np.random.default_rng(6).standard_normal((2, a.nnz)).astype(np.float32)
+    want = cold.execute(vals[0], vals[1])
+    before = spgemm_scheduled.launches
+    got = warm.execute(vals[0], vals[1])
+    torch.cuda.synchronize()
+    assert spgemm_scheduled.launches == before + 1
+    assert np.array_equal(got.indices, want.indices) and np.array_equal(got.data, want.data)
+
+
 # -- flash attention (K5) -------------------------------------------------------
 
 # (rtol, atol); see the module docstring for bfloat16's.
@@ -395,6 +463,47 @@ def test_lm_forward_on_card_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 8, 200, 1000, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_at_any_length_runs_the_kernel(cuda, monkeypatch, s, dtype):
+    """``attn_forward`` on the card takes K5 at every sequence length (not
+    only multiples of 512): one launch per call, no torch attention path,
+    and the kernel's output holds against the plain version on the same
+    q, k, v within ``ATTN_TOL``."""
+    from repro_torch.models import attention
+
+    cfg = get_reduced("granite-3-2b").with_(dtype="float32")
+    params = tr.init_lm(0, cfg, device="cpu")
+    layer = copy.deepcopy(params["layers"][0]["mixer"]).to(cuda)
+
+    def no_torch_path(*_a, **_k):
+        raise AssertionError("a torch attention path ran on the card")
+
+    monkeypatch.setattr(attention, "_gqa_scores_apply", no_torch_path)
+    real = ops.attention
+    seen = []
+
+    def spy(q, k, v, *rest):
+        out = real(q, k, v, *rest)
+        want = ref.flash_attention_ref(q, k, v, causal=rest[0], window=rest[1],
+                                       q_offset=rest[2])
+        rtol, atol = ATTN_TOL[dtype]
+        torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+        seen.append(tuple(q.shape))
+        return out
+
+    monkeypatch.setattr(ops, "attention", spy)
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal((2, s, cfg.d_model))
+                         .astype(np.float32)).to(cuda, dtype)
+    before = flash_attention.launches
+    with torch.no_grad():
+        y = attention.attn_forward(layer, x, cfg.with_(kernel_backend="cuda"))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and len(seen) == 1
+    assert seen[0][1] == s and tuple(y.shape) == (2, s, cfg.d_model)
+    assert bool(torch.isfinite(y).all())
 
 
 # -- block-sparse SpMM (K3) -----------------------------------------------------

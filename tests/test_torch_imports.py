@@ -34,10 +34,12 @@ def test_port_and_chip_smoke_import_no_jax():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 25, out.stdout
     # Every kernel wrapper, the MoE layer, the SpGEMM pipeline, the value
-    # stream and the matrix file I/O are among the modules imported.
+    # stream, the matrix file I/O, the plan cache, its disk tier and the
+    # shard mesh are among the modules imported.
     for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
                  "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
                  "repro_torch.spgemm.pipeline", "repro_torch.data.pipeline",
-                 "repro_torch.sparse.io"):
+                 "repro_torch.sparse.io", "repro_torch.spgemm.cache",
+                 "repro_torch.spgemm.persist", "repro_torch.launch.mesh"):
         assert name in out.stdout.split(), name

@@ -9,8 +9,9 @@ equals the reference's pipelined results bitwise, and within 1e-5 on
 random float32. The semantics follow ``tests/test_pipeline.py``:
 out-of-order and oldest-first collect, depth exhaustion, double and
 foreign collects, invalid submits, poisoned steps, close, release guards
-and abandoned tickets. The plan cache's eviction guards and the sharded
-pipeline are not ported yet.
+and abandoned tickets. The plan cache's eviction guards are in
+``tests/test_torch_cache.py``, the sharded pipeline in
+``tests/test_torch_sharded.py``.
 """
 import gc
 

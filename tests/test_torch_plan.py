@@ -363,9 +363,14 @@ def test_from_artifacts_rejects_unported_and_inconsistent():
     _, ra = _pair(ca, va)
     ref_plan = r_spgemm_plan(ra, ra, tile=16, group=2, backend="jnp", cache=PlanCache())
     arrays, meta = ref_plan.persist_artifacts()
-    with pytest.raises(ValueError, match="sharded plan artifacts are not ported"):
+    # Shard bounds whose partition is not this schedule's (a stale or
+    # foreign payload) raise rather than mis-slicing.
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    with pytest.raises(ValueError, match="shard bounds"):
         SpGEMMPlan.from_artifacts(dict(arrays, shard_bounds=np.zeros(2, np.int64)), meta,
-                                  device="cpu", a_vals=va, b_vals=va)
+                                  device="cpu", a_vals=va, b_vals=va,
+                                  mesh=make_shard_mesh(1, devices=["cpu"]))
     with pytest.raises(ValueError, match="persisted scatter"):
         SpGEMMPlan.from_artifacts(arrays, meta, device="cpu", a_vals=va[:-1], b_vals=va)
     with pytest.raises(ValueError, match="a_vals/b_vals"):
@@ -442,7 +447,12 @@ def test_chunk_policy(monkeypatch):
     monkeypatch.setenv(CHUNK_BYTES_ENV, str(3 << 20))
     assert resolve_chunk_bytes(1 << 20, "cpu")[0] == 3 << 20
     a = suite_matrix("poisson3Da", scale=0.01, seed=0)
-    assert spgemm_plan(a, a, tile=32, device="cpu").report.config_source == "env-override"
+    # A plan built while the override is set (a cache of its own: the
+    # process-level cache may hold this pattern's plan from before).
+    from repro_torch.spgemm.cache import PlanCache as TorchPlanCache
+
+    plan = spgemm_plan(a, a, tile=32, device="cpu", cache=TorchPlanCache())
+    assert plan.report.config_source == "env-override"
 
 
 def _imports(path):

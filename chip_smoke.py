@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
 (plan -> execute, compact output, chains, the submit/collect pipeline on
-CUDA streams, the plan cache and its disk tier, sharded plans), serving
+CUDA streams, the plan cache and its disk tier, sharded plans, the
+autotuner, the multi-tenant gateway), serving
 granite-3-2b at full width, the ``ops`` entry points of the block-sparse
 SpMM and the grouped matmul, and serving qwen3-moe-30b-a3b at full width
 through the grouped matmul.
@@ -77,6 +78,32 @@ the run with a nonzero exit code and no result line:
    sharded plan persisted and rehydrated, bitwise; ``shard_stats()`` and
    ``execute`` ms (host) and numeric-phase ms (device) against the single
    plan's. Several cards are not exercised here;
+5h. the autotuner on poisson3Da (float32, block output, requested tile 64
+   and group 4) over a disk-tier store: the default grid on the card,
+   tiles {32, 64, 128} x groups {2, 4, 8}, every candidate's model ms and
+   its measured ``execute_batch(8)`` ms (or "pruned"), the survivors, the
+   depth probes, the ``TunedConfig``, the winner's value sets/s against
+   the default's, the ranking agreement, and the K2 (batch probes) and K1
+   (depth probes) launches; the tuned plan's ``execute``,
+   ``execute_batch(4)`` and ``execute_stream`` bitwise equal to an
+   untuned plan at the winner's (tile, group); a second process (this
+   script with ``--autotune-restart``) applies the persisted config with
+   no probe; then ``measure_chunk_knee`` on the card (the reference's
+   cases and six up to ~250 MiB per set): the measured knee and the
+   suggested ``cuda`` row beside the derived (L2) row;
+5i. the gateway: tenants "p3da" (phase 4's plan) and "p3da-b2" (A·B2,
+   B2 = ``CHAIN_B``), two submitter threads each of 64 requests (values
+   from numpy seeds), ``max_batch=4``, ``depth=2``, ``batch_window=0.002``:
+   a checked pass (every result's SHA-256 equal to a direct ``execute``'s)
+   and a timed pass (requests/s, p50/p99 latency, batch fill per tenant
+   from ``stats()``; K2 launched once per chunk of each dispatch, K1
+   never); a hot tenant's 256 queued requests against a cold tenant's 8
+   (poisson3Da at a tenth of its size) completing the cold ones in the
+   first half; a byte budget below one batch: a burst queued before the
+   scheduler starts admits one request and sheds seven ``shed_bytes``, a
+   burst while it runs sheds what arrives behind requests in flight, all
+   resolved within a bounded wait; ``register(autotune=True)`` over 5h's
+   store with no probe and the tuned depth;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -149,6 +176,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -161,6 +189,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import perfmodel, tuning  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.core.schedule import build_spgemm_schedule  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -185,9 +214,12 @@ from repro_torch.sparse.random import random_block_sparse, random_coo, suite_mat
 from repro_torch.launch.mesh import make_shard_mesh  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.spgemm import (  # noqa: E402
+    Outcome,
     PlanCache,
+    SpGEMMGateway,
     SpGEMMPlan,
     default_cache,
+    probe_run_count,
     schedule_build_count,
     spgemm_plan,
 )
@@ -206,12 +238,12 @@ KERNEL_SHAPES = [
 RUN_TILES = [(32, 32, 32), (64, 64, 64), (64, 64, 128), (128, 128, 128)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ORACLE_TOL = 1e-4
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
-# HBM bandwidth. The kernel's float32 path uses no tensor cores.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# Dense bf16 on the tensor cores: the rate a bf16 attention could reach.
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores (the
+# kernels' float32 paths use none), dense bf16 on the tensor cores, HBM
+# bandwidth; one definition, shared with the autotuner's roofline model.
+PEAK_F32_FLOPS = perfmodel.PEAK_F32_FLOPS
+PEAK_BYTES_PER_S = perfmodel.PEAK_BYTES_PER_S
+PEAK_BF16_FLOPS = perfmodel.PEAK_BF16_FLOPS
 SOURCE = "src/repro_torch/kernels/csrc/gustavson_spgemm.cu"
 SOURCE_K5 = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE_K3 = "src/repro_torch/kernels/csrc/bsr_spmm.cu"
@@ -1107,6 +1139,339 @@ def phase_sharded(mats, dev) -> dict:
     same_csr(warm.execute(av, bv), single.execute(av, bv), "rehydrated sharded plan")
     log("  poisson3Da x4 persisted and rehydrated: no schedule built, bitwise equal to the "
         "single plan")
+    return info
+
+
+# -- phases 5h-5i: the autotuner, the gateway -----------------------------------
+
+# The autotuner's store (the tuned-config sidecar and the candidates'
+# plans), inside the checkout (build/ is not committed); removed after 5i.
+TUNE_STORE = ROOT / "build" / "autotune_store"
+# The reference's knee cases (80 KiB to 8 MiB per set) and six more up to
+# ~250 MiB, well past the card's 50 MiB L2.
+CARD_KNEE_CASES = tuning._KNEE_CASES + tuple(
+    (m, m, m, 0.02, 16, 4) for m in (384, 448, 512, 640, 768)) + ((1024, 1024, 1024, 0.015, 16, 4),)
+
+
+def autotune_restart(store: str) -> int:
+    """The second process of phase 5h: ``spgemm_plan(autotune=True)`` on
+    poisson3Da over the store must apply the persisted config with no
+    probe run; prints the config."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    a = suite_matrix("poisson3Da", scale=1.0, seed=SEED)
+    t0 = time.perf_counter()
+    plan = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev,
+                       cache=PlanCache(disk_dir=store), autotune=True)
+    resolve_s = time.perf_counter() - t0
+    check(probe_run_count() == 0, f"autotune restart ran {probe_run_count()} probes")
+    print(json.dumps({"cfg": plan.tuned_config.to_meta(), "source": plan.report.config_source,
+                      "resolve_s": resolve_s}), flush=True)
+    return 0
+
+
+def phase_autotune(a: CSR, dev) -> dict:
+    """poisson3Da at its published size, float32, block output: the
+    autotuner's default grid around tile 64, group 4 (on the card, tiles
+    {32, 64, 128} x groups {2, 4, 8}), with the disk tier; the tuned plan
+    bitwise equal to an untuned plan at the winner's (tile, group); a
+    second process applying the persisted config with no probe; the
+    chunk-fusion knee measured on the card."""
+    info = {}
+    shutil.rmtree(TUNE_STORE, ignore_errors=True)
+    cache = PlanCache(disk_dir=str(TUNE_STORE))
+    record = {}
+    probes0 = probe_run_count()
+    reset_counts()
+    t0 = time.perf_counter()
+    tuned = spgemm_plan(a, a, tile=TILE, group=GROUP, device=dev, cache=cache,
+                        autotune={"record": record})
+    search_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = counts()
+    cfg = tuned.tuned_config
+    check(cfg is not None and tuned.report.config_source == "tuned", "autotune applied no config")
+    check(probe_run_count() - probes0 == cfg.probes > 0, "probe count")
+    grid = [(tuple(c["tile"]), c["group"]) for c in record["candidates"]]
+    check(sorted({t[0] for t, _ in grid}) == [32, 64, 128]
+          and sorted({g for _, g in grid}) == [2, 4, 8] and len(grid) == 9,
+          f"the card's grid: {grid}")
+    check(all(all(d % 16 == 0 and 16 <= d <= 128 for d in p["tile"]) for p in record["probes"]),
+          "a probe ran at a tile K1 refuses")
+    check(launched["spgemm_scheduled_batch"] > 0 and launched["spgemm_scheduled"] > 0,
+          f"the probes launched {launched}")
+    log(f"  search {search_s:.2f} s, {cfg.probes} probe runs; K2 launches "
+        f"{launched['spgemm_scheduled_batch']} (batch probes), K1 launches "
+        f"{launched['spgemm_scheduled']} (depth probes)")
+    best = {}
+    for p in record["probes"]:
+        key = (tuple(p["tile"]), p["group"])
+        best[key] = min(best.get(key, np.inf), p["ms"])
+    for c in record["candidates"]:
+        key = (tuple(c["tile"]), c["group"])
+        ms = f"{best[key]:.3f} ms" if key in best else "pruned"
+        log(f"  candidate tile {c['tile'][0]} group {c['group']}: model "
+            f"{c['model_s'] * 1e3:.4f} ms, measured (execute_batch of 8) {ms}")
+    log("  probes (tile, group, chunk bytes: best ms): " + "; ".join(
+        f"{p['tile'][0]},{p['group']},{p['chunk_bytes']}: {p['ms']:.3f}" for p in record["probes"]))
+    log(f"  survivors {sorted(best)}; depths (ms per 8-step stream) {record['depths']}")
+    log(f"  TunedConfig {json.dumps(cfg.to_meta())}")
+    log(f"  winner {cfg.values_per_s:.1f} value sets/s against the default's "
+        f"{cfg.default_values_per_s:.1f} (x{cfg.speedup:.3f}); model rank of the winner "
+        f"{cfg.model_rank}; ranking agreement {cfg.ranking_agreement:.3f}")
+    info.update({"search_s": search_s, "cfg": cfg.to_meta(), "launches": launched,
+                 "candidates": record["candidates"], "probes": record["probes"],
+                 "depths": record["depths"]})
+
+    untuned = spgemm_plan(a, a, tile=cfg.tile, group=cfg.group, device=dev, cache=PlanCache())
+    check(untuned.tuned_config is None and untuned is not tuned, "untuned plan")
+    rng = np.random.default_rng(SEED + 11)
+    av, bv = (rng.standard_normal((4, a.nnz), dtype=np.float32) for _ in range(2))
+    same_csr(tuned.execute(av[0], bv[0]), untuned.execute(av[0], bv[0]), "tuned execute")
+    for i, (got, want) in enumerate(zip(tuned.execute_batch(av, bv),
+                                        untuned.execute_batch(av, bv))):
+        same_csr(got, want, f"tuned execute_batch[{i}]")
+    streamed = list(tuned.execute_stream((av[i], bv[i]) for i in range(4)))
+    for i, got in enumerate(streamed):
+        same_csr(got, untuned.execute(av[i], bv[i]), f"tuned execute_stream[{i}]")
+    log(f"  tuned plan (tile {cfg.tile[0]}, group {cfg.group}, depth {cfg.pipeline_depth}): "
+        f"execute, execute_batch(4), execute_stream bitwise equal to an untuned plan there")
+    del untuned
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--autotune-restart",
+                          str(TUNE_STORE)], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"autotune restart process failed:\n{out.stderr[-3000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    want = dict(cfg.to_meta(), source="persisted")
+    check(child["cfg"] == want and child["source"] == "persisted",
+          f"autotune restart: {child} against {want}")
+    info["restart_process"] = {"wall_s": child_s, "resolve_s": child["resolve_s"]}
+    log(f"  second process: the persisted config applied with 0 probes in "
+        f"{child['resolve_s']:.2f} s (process {child_s:.1f} s), to_meta equal but the source")
+
+    t0 = time.perf_counter()
+    knee = tuning.measure_chunk_knee(device=dev, cases=CARD_KNEE_CASES)
+    info["chunk_knee"] = knee
+    for s in knee["samples"]:
+        log(f"  knee case {s['case']}: per set {s['per_set_bytes'] / 2**20:.2f} MiB, fused "
+            f"{s['fused_ms_per_set'] * 1e3:.1f} us per set, split "
+            f"{s['split_ms_per_set'] * 1e3:.1f} us (x{s['speedup']:.2f})")
+    log(f"  chunk knee on {knee['device']}: {knee['knee_bytes']} bytes per set; chunk sweep "
+        + ", ".join(f"{c['chunk']}: {c['ms_per_set'] * 1e3:.1f} us" for c in knee["chunk_sweep"])
+        + f"; suggested cuda row {knee['suggested_policy_row']} against the derived (L2) row "
+        f"{knee['configured_policy_row']} ({time.perf_counter() - t0:.1f} s)")
+    return info, tuned
+
+
+GW_THREADS, GW_REQUESTS, GW_WINDOW = 2, 64, 8
+
+
+def request_values(plan, tenant: int, thread: int, i: int):
+    """Request ``i`` of a submitter thread: float32 values from a numpy
+    seed of (tenant, thread, request)."""
+    rng = np.random.default_rng((SEED, tenant, thread, i))
+    return (rng.standard_normal(plan.report.nnz_a, dtype=np.float32),
+            rng.standard_normal(plan.report.nnz_b, dtype=np.float32))
+
+
+def sha(c: CSR) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(c.data)).hexdigest()
+
+
+def serve_traffic(tenants: dict, values: dict, digest: bool):
+    """Each tenant's submitter threads send their requests through one
+    gateway (``max_batch=4``, ``depth=2``, ``batch_window=0.002``), each
+    keeping ``GW_WINDOW`` requests outstanding. With ``digest`` every
+    result's SHA-256 is kept (results are dropped either way). Returns
+    the gateway's stats, the digests, the wall seconds and the launches."""
+    digests, errors = {}, []
+    lock = threading.Lock()
+    with SpGEMMGateway(cache=PlanCache(), max_batch=4, depth=2, batch_window=0.002) as gw:
+        for name, p in tenants.items():
+            gw.register_plan(name, p)
+
+        def submitter(name: str, th: int):
+            try:
+                window = []
+                for i in range(GW_REQUESTS + GW_WINDOW):
+                    if i < GW_REQUESTS:
+                        window.append((i, gw.submit(name, *values[(name, th, i)])))
+                    if len(window) > GW_WINDOW or (i >= GW_REQUESTS and window):
+                        j, t = window.pop(0)
+                        r = t.wait(300)
+                        check(r.outcome is Outcome.OK,
+                              f"{name} request {j}: {r.outcome} {r.error!r}")
+                        if digest:
+                            h = sha(r.value)
+                            with lock:
+                                digests[(name, th, j)] = h
+            except BaseException as e:  # reported by the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=submitter, args=(name, th))
+                   for name in tenants for th in range(GW_THREADS)]
+        reset_counts()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched = counts()
+        check(not errors, f"a submitter failed: {errors[:1]!r}")
+        check(not any(th.is_alive() for th in threads), "a submitter hung")
+        stats = gw.stats()
+    return stats, digests, wall_s, launched
+
+
+def phase_gateway(a: CSR, plan, tuned, dev) -> dict:
+    """Two tenants on one gateway: "p3da" (phase 4's plan, A·A) and
+    "p3da-b2" (A·B2, B2 = ``CHAIN_B``), each with two submitter threads of
+    64 requests (values drawn from numpy seeds before the run): a checked
+    pass (every result bitwise equal to a direct ``execute``), then a
+    timed pass whose stats give requests/s and p50/p99; then a hot
+    tenant's backlog against a cold tenant, a byte budget below one batch,
+    and an autotuned registration over phase 5h's store."""
+    info = {}
+    n = a.shape[0]
+    b2 = random_coo(n, n, CHAIN_B["density"], CHAIN_B["structure"], seed=CHAIN_B["seed"])
+    plan_b2 = spgemm_plan(a, b2, tile=TILE, group=GROUP, device=dev)
+    tenants = {"p3da": plan, "p3da-b2": plan_b2}
+    values = {(name, th, i): request_values(p, ti, th, i)
+              for ti, (name, p) in enumerate(tenants.items())
+              for th in range(GW_THREADS) for i in range(GW_REQUESTS)}
+    total = GW_THREADS * GW_REQUESTS
+
+    _, digests, check_s, _ = serve_traffic(tenants, values, digest=True)
+    t0 = time.perf_counter()
+    for key, h in sorted(digests.items()):
+        check(sha(tenants[key[0]].execute(*values[key])) == h,
+              f"{key}: differs from a direct execute")
+    check(len(digests) == 2 * total, f"{len(digests)} results")
+    log(f"  checked pass: {len(digests)} results in {check_s:.2f} s, all bitwise equal to a "
+        f"direct execute of their values (SHA-256 of C's values; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    stats, _, wall_s, launched = serve_traffic(tenants, values, digest=False)
+    dispatches = batched = 0
+    for name, p in tenants.items():
+        st = stats["patterns"][name]
+        check(st["completed"] == total and st["failed"] == 0 and st["shed_total"] == 0,
+              f"{name}: {st}")
+        check(st["batch_fill"] > 1.0, f"{name}: batch fill {st['batch_fill']}")
+        dispatches += st["dispatches"]
+        batched += st["batched_requests"]
+        lat = st["latency_s"]
+        info[name] = {"requests_per_s": st["throughput_rps"], "p50_ms": lat["p50"] * 1e3,
+                      "p99_ms": lat["p99"] * 1e3, "batch_fill": st["batch_fill"],
+                      "dispatches": st["dispatches"], "chunk": p._executor.batch_chunk(),
+                      "c_bytes": 4 * p.assembly.nnz}
+        log(f"  {name}: {st['completed']} requests, {st['throughput_rps']:.1f} requests/s, "
+            f"p50 {lat['p50'] * 1e3:.2f} ms, p99 {lat['p99'] * 1e3:.2f} ms, batch fill "
+            f"{st['batch_fill']:.2f} over {st['dispatches']} dispatches (K2 chunk "
+            f"{info[name]['chunk']}), C {4 * p.assembly.nnz / 1e6:.1f} MB per request")
+    # Every dispatch is one batched pipeline submit (a lone request is a
+    # batch of one): K2 once per chunk of it, K1 never.
+    chunks = {info[name]["chunk"] for name in tenants}
+    want_k2 = batched if chunks == {1} else dispatches if min(chunks) >= 4 else None
+    check(launched["spgemm_scheduled"] == 0, f"gateway K1 launches {launched}")
+    if want_k2 is not None:
+        check(launched["spgemm_scheduled_batch"] == want_k2,
+              f"gateway K2 launches {launched} against {want_k2}")
+    else:
+        check(dispatches <= launched["spgemm_scheduled_batch"] <= batched, f"{launched}")
+    info.update({"wall_s": wall_s, "k2_launches": launched["spgemm_scheduled_batch"],
+                 "dispatches": dispatches, "batched_requests": batched})
+    log(f"  timed pass: {2 * total} requests in {wall_s:.2f} s "
+        f"({2 * total / wall_s:.1f} requests/s); K2 launches "
+        f"{launched['spgemm_scheduled_batch']} over {dispatches} dispatches of {batched} "
+        f"requests, K1 launches 0")
+    del plan_b2, tenants, values
+
+    # Fairness: a hot tenant's 256 queued requests against a cold one's 8
+    # (poisson3Da at a tenth of its size, so that results stay small).
+    small = suite_matrix("poisson3Da", scale=0.1, seed=SEED)
+    small2 = suite_matrix("poisson3Da", scale=0.1, seed=SEED + 1)
+    with SpGEMMGateway(cache=PlanCache(), max_pipelines=2, max_batch=4, batch_window=0.0,
+                       start=False) as gw:
+        hot = gw.register("hot", small, small, tile=TILE, group=GROUP, device=dev)
+        cold = gw.register("cold", small2, small2, tile=TILE, group=GROUP, device=dev)
+        hot_t = [gw.submit("hot", *request_values(hot, 2, 0, i)) for i in range(256)]
+        cold_t = [gw.submit("cold", *request_values(cold, 3, 0, i)) for i in range(8)]
+        gw.start()
+        cold_seq = [t.wait(120).seq for t in cold_t]
+        hot_seq = [t.wait(120).seq for t in hot_t]
+        fair = gw.stats()["patterns"]
+    check(all(t.done() and t.wait(0).outcome is Outcome.OK for t in hot_t + cold_t),
+          "fairness requests")
+    check(max(cold_seq) < 0.5 * max(hot_seq), f"cold finished at {max(cold_seq)}, hot at "
+          f"{max(hot_seq)}")
+    info["fairness"] = {"cold_last_seq": max(cold_seq), "hot_last_seq": max(hot_seq),
+                        "cold_p99_ms": fair["cold"]["latency_s"]["p99"] * 1e3,
+                        "hot_p99_ms": fair["hot"]["latency_s"]["p99"] * 1e3}
+    log(f"  fairness: 256 hot and 8 cold requests queued; the cold tenant's last completed "
+        f"{max(cold_seq)}th of {len(hot_seq) + len(cold_seq)} (hot's last: {max(hot_seq)}); "
+        f"p99 cold {info['fairness']['cold_p99_ms']:.2f} ms, hot "
+        f"{info['fairness']['hot_p99_ms']:.2f} ms")
+    del hot_t, cold_t
+
+    # Overload: a byte budget below one batch sheds, typed, and nothing
+    # hangs. A burst queued before the scheduler starts admits exactly one
+    # request; a second burst, sent back to back while it runs, sheds what
+    # arrives while earlier requests are in flight.
+    budget = plan.value_nbytes() * 3 // 2
+    burst = [request_values(plan, 0, 9, i) for i in range(16)]
+    with SpGEMMGateway(cache=PlanCache(), max_batch=4, max_inflight_bytes=budget,
+                       start=False) as gw:
+        gw.register_plan("p3da", plan)
+        t0 = time.perf_counter()
+        tickets = [gw.submit("p3da", *v) for v in burst[:8]]
+        queued = [t.wait(0).outcome if t.done() else None for t in tickets]
+        gw.start()
+        tickets += [gw.submit("p3da", *v) for v in burst[8:]]
+        outs = [t.wait(60) for t in tickets]
+        shed_s = time.perf_counter() - t0
+        over = gw.stats()["patterns"]["p3da"]
+    kinds = [r.outcome for r in outs]
+    check(queued == [None] + [Outcome.SHED_BYTES] * 7, f"queued burst outcomes {queued}")
+    check(set(kinds) <= {Outcome.OK, Outcome.SHED_BYTES} and kinds[0] is Outcome.OK,
+          f"overload outcomes {kinds}")
+    check(over["shed"].get("shed_bytes", 0) == kinds.count(Outcome.SHED_BYTES),
+          f"shed counter {over['shed']}")
+    check(all(r.value is None and r.outcome.shed for r in outs if r.outcome is not Outcome.OK),
+          "a shed carried a value")
+    for i, r in enumerate(outs):
+        if r.outcome is Outcome.OK:
+            same_csr(r.value, plan.execute(*burst[i]), f"overload {i}")
+    info["overload"] = {"ok": kinds.count(Outcome.OK), "shed_bytes": kinds.count(Outcome.SHED_BYTES),
+                        "running_burst_shed": kinds[8:].count(Outcome.SHED_BYTES),
+                        "s": shed_s, "budget": budget}
+    log(f"  overload: budget {budget} B (1.5 requests, below one batch of 4): a queued burst of "
+        f"8 admits 1 and sheds 7 (shed_bytes); a running burst of 8 sheds "
+        f"{kinds[8:].count(Outcome.SHED_BYTES)}; all 16 resolved in {shed_s:.2f} s; admitted "
+        f"results bitwise equal to execute")
+
+    # An autotuned registration over phase 5h's store: zero probes, the
+    # tuned depth.
+    probes0 = probe_run_count()
+    with SpGEMMGateway(cache=PlanCache(disk_dir=str(TUNE_STORE)), depth=2) as gw:
+        reg = gw.register("p3da-tuned", a, a, tile=TILE, group=GROUP, device=dev, autotune=True)
+        st = gw.stats()["patterns"]["p3da-tuned"]
+        r = gw.submit("p3da-tuned", *request_values(reg, 0, 7, 0)).wait(60)
+    cfg = tuned.tuned_config
+    check(probe_run_count() == probes0, "the autotuned registration ran probes")
+    check(st["pipeline_depth"] == cfg.pipeline_depth and st["config_source"] == "persisted"
+          and st["tuned"] == dict(cfg.to_meta(), source="persisted"), f"tuned registration {st}")
+    check(r.outcome is Outcome.OK, f"tuned request {r.outcome}")
+    same_csr(r.value, tuned.execute(*request_values(reg, 0, 7, 0)), "tuned request")
+    log(f"  register(autotune=True) over phase 5h's store: 0 probes, source "
+        f"{st['config_source']}, pipeline depth {st['pipeline_depth']} (the tuned depth); "
+        f"its result bitwise equal to the tuned plan's execute")
     return info
 
 
@@ -2276,6 +2641,20 @@ def main() -> int:
     log(f"  phase 5g: {shard_info['phase_s']:.1f} s")
     shutil.rmtree(PLAN_STORE, ignore_errors=True)
 
+    log("[5h] autotune: poisson3Da, tiles {32, 64, 128} x groups {2, 4, 8}; the chunk knee")
+    t0 = time.perf_counter()
+    tune_info, tuned = phase_autotune(a, dev)
+    tune_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5h: {tune_info['phase_s']:.1f} s")
+
+    log("[5i] gateway: tenants p3da (A·A) and p3da-b2 (A·B2), fairness, overload")
+    t0 = time.perf_counter()
+    gw_info = phase_gateway(a, plan, tuned, dev)
+    gw_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5i: {gw_info['phase_s']:.1f} s")
+    del tuned
+    shutil.rmtree(TUNE_STORE, ignore_errors=True)
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -2289,7 +2668,8 @@ def main() -> int:
     entries, extra = phase_timings(a, plan, launched, chunk, dev, rng)
     extra.update(bf16_plan)
     extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info,
-                  "cache": cache_info, "sharded": shard_info})
+                  "cache": cache_info, "sharded": shard_info, "autotune": tune_info,
+                  "gateway": gw_info})
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2
@@ -2335,4 +2715,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--token-restart"]:
         sys.exit(token_restart(sys.argv[2]))
+    if sys.argv[1:2] == ["--autotune-restart"]:
+        sys.exit(autotune_restart(sys.argv[2]))
     sys.exit(main())

@@ -7,8 +7,10 @@ CUDA kernel for each of ``repro``'s Pallas kernels (block-Gustavson
 SpGEMM, block-sparse SpMM, grouped expert matmul, flash attention) with
 their plain PyTorch versions and ``ops`` entry points (``kernels``),
 plan/execute SpGEMM with compact output, chains, the asynchronous
-pipeline, the plan cache and its disk tier, and sharded plans
-(``spgemm``, ``launch.mesh``), its value stream (``data``), and LM
-serving for text models of attention + MLP or MoE blocks (``configs``,
-``models``, ``runtime.steps``, ``launch.serve``).
+pipeline, the plan cache and its disk tier, sharded plans, the per-pattern
+autotuner and the multi-tenant serving gateway (``spgemm``,
+``launch.mesh``, ``runtime.heartbeat``), the paper's performance models
+and the probe primitives (``core.perfmodel``, ``core.tuning``), its value
+stream (``data``), and LM serving for text models of attention + MLP or
+MoE blocks (``configs``, ``models``, ``runtime.steps``, ``launch.serve``).
 """

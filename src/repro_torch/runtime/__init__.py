@@ -1,1 +1,3 @@
-"""Step builders of the LM stack (serving: prefill and decode)."""
+"""The LM stack's serving steps (prefill and decode), and the metrics
+registry and liveness heartbeat (``heartbeat``) that the SpGEMM serving
+gateway records into."""

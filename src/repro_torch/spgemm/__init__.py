@@ -31,15 +31,36 @@ enables it on the process-level :func:`default_cache`), and
 schedule over the devices of a mesh (:class:`ShardedSpGEMMPlan`), bitwise
 equal to the single-device plan.
 
-The module layout and public names follow the JAX package ``repro.spgemm``;
-its autotuner and gateway are not ported yet.
+Per pattern, ``spgemm_plan(..., autotune=True)`` searches (tile, group) ×
+chunk budget × pipeline depth — a roofline model over the schedule's
+counts prunes the grid, short probes through the kernels measure the
+rest — and applies and persists the winner (:class:`TunedConfig`, a
+sidecar of the disk tier: a restarted worker starts tuned with zero
+probes). :class:`SpGEMMGateway` serves many tenants' patterns at once:
+typed sheds (:class:`Outcome`), micro-batches through each pattern's
+pipeline, deficit round-robin by value bytes, a bounded pipeline pool,
+and p50/p99 metrics in a ``runtime.heartbeat.MetricsRegistry``::
+
+    with SpGEMMGateway(max_batch=8, depth=2) as gw:
+        gw.register("tenant/layer", a, b, tile=64, group=4)
+        c = gw.submit("tenant/layer", a_vals, b_vals).result()
+
+The module layout and public names follow the JAX package ``repro.spgemm``.
 """
+from repro_torch.spgemm.autotune import TunedConfig, autotune_plan, probe_run_count
 from repro_torch.spgemm.cache import CacheStats, PlanCache, default_cache, pattern_digest
 from repro_torch.spgemm.executor import (
     CHUNK_BYTES_ENV,
     ShardedSpGEMMExecutor,
     SpGEMMExecutor,
     resolve_chunk_bytes,
+)
+from repro_torch.spgemm.gateway import (
+    GatewayResult,
+    GatewayShed,
+    GatewayTicket,
+    Outcome,
+    SpGEMMGateway,
 )
 from repro_torch.spgemm.persist import PLAN_DIR_ENV, PlanStore
 from repro_torch.spgemm.pipeline import (
@@ -65,6 +86,10 @@ from repro_torch.spgemm.plan import (
 __all__ = [
     "CHUNK_BYTES_ENV",
     "CacheStats",
+    "GatewayResult",
+    "GatewayShed",
+    "GatewayTicket",
+    "Outcome",
     "PLAN_DIR_ENV",
     "PipelineFullError",
     "PlanCache",
@@ -74,15 +99,19 @@ __all__ = [
     "ShardedSpGEMMPlan",
     "SpGEMMChain",
     "SpGEMMExecutor",
+    "SpGEMMGateway",
     "SpGEMMPipeline",
     "SpGEMMPlan",
     "SpGEMMTicket",
     "StructuralPattern",
+    "TunedConfig",
+    "autotune_plan",
     "chain_plans",
     "default_cache",
     "execute_chain",
     "pattern_digest",
     "plan_from_structural_pattern",
+    "probe_run_count",
     "resolve_backend",
     "resolve_chunk_bytes",
     "resolve_device",

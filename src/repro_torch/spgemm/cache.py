@@ -460,9 +460,9 @@ class PlanCache:
     def tuned_get(self, base_key: Tuple) -> Optional[dict]:
         """The persisted tuned-config meta dict for ``base_key`` (memory
         first, then the disk sidecar), or ``None``: the autotuner's
-        ``TunedConfig`` record (the autotuner is not ported yet). A
-        hit is what lets a warm restart apply the winning config with
-        **zero** probe executions."""
+        :class:`~repro_torch.spgemm.autotune.TunedConfig` record. A hit is
+        what lets a warm restart apply the winning config with **zero**
+        probe executions."""
         tkey = self.tuned_key(base_key)
         with self._lock:
             meta = self._tuned.get(tkey)

@@ -102,9 +102,12 @@ __all__ = [
 # * cuda — not in the table: derived from the card's own L2 size
 #   (torch.cuda.get_device_properties), budget L2/8 and chunk cap the full
 #   L2, by the same rule the JAX package applied to an A100's 40 MiB L2.
-#   Not measured on the card yet.
+#   repro_torch.core.tuning.measure_chunk_knee(device="cuda") measures the
+#   card's knee (PERF.md records its runs); the derived row stays until
+#   two runs agree on a replacement.
 #
-# The env knob overrides any row without a code change.
+# The autotuner brackets a plan device's own row; the env knob overrides
+# any row without a code change.
 CHUNK_BYTES_ENV = "REPRO_SPGEMM_CHUNK_BYTES"
 _CHUNK_POLICY = {
     "cpu": ((3 << 20) // 4, 8 << 20),

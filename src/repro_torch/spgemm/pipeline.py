@@ -164,9 +164,11 @@ class SpGEMMPipeline:
         self._next = 0
         self._closed = False
         # One stream per slot on a CUDA plan (None on the CPU), from the
-        # plan's pool; a slot is free exactly when no outstanding step
-        # holds it, and depth bounds the outstanding steps, so a submit
-        # always finds one.
+        # plan's pool. A slot is free once no step holds it: not while the
+        # step is outstanding, nor while a collect waits for it (collect
+        # drops the step from ``_steps`` first and frees the slot after
+        # its wait), so the free list, not ``_steps``, is the depth bound
+        # a concurrent submit checks.
         self._streams = plan._pipe_streams(self.depth)
         self._free = list(range(self.depth))
         # Abandonment guard: a pipeline (or a lone execute_async ticket)
@@ -189,11 +191,12 @@ class SpGEMMPipeline:
     @property
     def free_slots(self) -> int:
         """Submissions currently possible without
-        :class:`PipelineFullError` (0 once closed)."""
+        :class:`PipelineFullError` (0 once closed): ``depth`` less the
+        outstanding steps and the steps a ``collect`` is waiting for."""
         with self._lock:
             if self._closed:
                 return 0
-            return max(0, self.depth - len(self._steps))
+            return len(self._free)
 
     def __len__(self) -> int:
         return self.in_flight
@@ -217,11 +220,12 @@ class SpGEMMPipeline:
         with self._lock:
             if self._closed:
                 raise RuntimeError("pipeline is closed")
-            if len(self._steps) >= self.depth:
+            if not self._free:
                 raise PipelineFullError(
                     f"pipeline depth {self.depth} exhausted "
-                    f"({len(self._steps)} step(s) in flight); collect a "
-                    f"result before submitting more"
+                    f"({self.depth - len(self._steps)} step(s) being collected, "
+                    f"{len(self._steps)} more in flight); collect a result "
+                    f"before submitting more"
                 )
             prep = self.plan._pipe_check(a_vals, b_vals)
             self.plan._pipe_begin(prep.n_execs)

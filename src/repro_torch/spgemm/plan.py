@@ -141,9 +141,9 @@ class PlanReport:
     callables: they resolve (and memoize) on first access, so plan paths
     whose report nobody reads never pay the pattern digest or the
     ``count_nonzero`` scans. ``cache_hits``, ``loads``, ``load_hits``,
-    ``cache_stats`` and ``pattern_token`` are set by the plan cache; the
-    tuning fields keep their names and defaults (the autotuner is not
-    ported yet).
+    ``cache_stats`` and ``pattern_token`` are set by the plan cache;
+    ``config_source`` and ``tuned`` by :meth:`SpGEMMPlan.apply_tuned_config`
+    (the autotuner's provenance record).
     """
 
     def __init__(
@@ -170,9 +170,11 @@ class PlanReport:
         load_hits: int = 0,
         cache_stats: Optional[dict] = None,
         pattern_token: Optional[str] = None,
-        config_source: str = "default",  # "default" (policy) or
+        config_source: str = "default",  # "default" (policy), "tuned"
+        # (autotuned here), "persisted" (a tuned config loaded from disk),
+        # "stale-tuned" (a config of another tile/group, ignored) or
         # "env-override" (REPRO_SPGEMM_CHUNK_BYTES wins regardless)
-        tuned: Optional[dict] = None,
+        tuned: Optional[dict] = None,  # the applied TunedConfig's meta
     ):
         self._pattern_key = pattern_key
         self._nnz_a = nnz_a
@@ -392,6 +394,12 @@ class SpGEMMPlan:
         # for (spgemm_plan sets them): a pattern-token hit must not serve
         # inputs of another value dtype.
         self._input_dtypes: Optional[Tuple[str, str]] = None
+        # The autotuner's applied TunedConfig (apply_tuned_config), and a
+        # config that was offered for another (tile, group) than this
+        # plan's: recorded instead of raised, the plan runs on policy
+        # defaults and the static verifier reports it.
+        self.tuned_config = None
+        self._stale_tuned = None
 
     def _make_executor(self):
         """The numeric executor (called once, at plan build)."""
@@ -412,11 +420,54 @@ class SpGEMMPlan:
         block-structural map."""
         return self.compact if self.output == "compact" else self.assembly
 
+    def apply_tuned_config(self, cfg) -> None:
+        """Apply an autotuner :class:`~repro_torch.spgemm.autotune.TunedConfig`:
+        set the executor's chunk budget and make ``cfg.pipeline_depth``
+        the default for :meth:`pipeline` / :meth:`execute_stream`.
+
+        Numerics are untouched — chunk and depth are bitwise-invariant
+        knobs, and a config tuned at another (tile, group) is applied to
+        the plan *built at that tile/group* by the autotuner, never here.
+        Report provenance: ``config_source`` becomes ``"tuned"``, or
+        ``"persisted"`` for a config loaded from disk, unless
+        ``REPRO_SPGEMM_CHUNK_BYTES`` is set, which always wins and keeps
+        ``"env-override"``.
+
+        A config whose (tile, group) does not match this plan is *stale*
+        (a persisted record that drifted from the artifact it rode with).
+        It is not an execution error — the plan is correct on policy
+        defaults — so it is recorded instead of raised: the config is
+        ignored, ``report.config_source`` becomes ``"stale-tuned"`` and
+        ``_stale_tuned`` keeps it for the static verifier.
+        """
+        if tuple(cfg.tile) != tuple(self.report.tile) or (
+            int(cfg.group) != int(self.report.group)
+        ):
+            with self._lock:
+                self._stale_tuned = cfg
+                self.tuned_config = None
+                self.report.tuned = None
+                if not os.environ.get(CHUNK_BYTES_ENV):
+                    self.report.config_source = "stale-tuned"
+            return
+        with self._lock:
+            self.tuned_config = cfg
+            self.report.tuned = cfg.to_meta()
+            if os.environ.get(CHUNK_BYTES_ENV):
+                self.report.config_source = "env-override"
+            else:
+                self.report.config_source = (
+                    "persisted" if cfg.source == "persisted" else "tuned"
+                )
+            if self._executor is not None:
+                self._executor.set_chunk_bytes(cfg.chunk_bytes)
+
     def _default_depth(self) -> int:
-        """The pipeline depth when none is asked for: 2, the paper's double
-        buffer (the autotuner, which picks a depth per pattern, is not
-        ported)."""
-        return 2
+        """The pipeline depth when none is asked for: the tuned depth of
+        an applied :class:`TunedConfig`, else 2, the paper's double
+        buffer."""
+        cfg = self.tuned_config
+        return int(cfg.pipeline_depth) if cfg is not None else 2
 
     def _stage(self, blocks: torch.Tensor) -> torch.Tensor:
         """Host packed blocks -> a device copy (never an alias of the host
@@ -532,6 +583,11 @@ class SpGEMMPlan:
             "tile": list(self.report.tile),
             "group": self.report.group,
         }
+        if self.tuned_config is not None:
+            # The tuned exec config rides inside the plan artifact too (in
+            # addition to the cache's sidecar record), so a copied or
+            # shared artifact file rehydrates fully tuned on its own.
+            meta["tuned_config"] = self.tuned_config.to_meta()
         return arrays, meta
 
     @classmethod
@@ -658,6 +714,13 @@ class SpGEMMPlan:
         if kind == "block":
             report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
             report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
+        tuned_meta = meta.get("tuned_config")
+        if tuned_meta is not None:
+            # Imported here: the autotuner imports this module.
+            from repro_torch.spgemm.autotune import TunedConfig
+
+            plan.apply_tuned_config(
+                TunedConfig.from_meta(dict(tuned_meta), source="persisted"))
         return plan
 
     # -- numeric phase ----------------------------------------------------
@@ -920,7 +983,8 @@ class SpGEMMPlan:
 
     def pipeline(self, depth: Optional[int] = None) -> SpGEMMPipeline:
         """A bounded-depth submit/collect pipeline over this plan;
-        ``depth=None`` takes 2, the paper's double buffer (one step
+        ``depth=None`` takes the tuned depth of an applied
+        :class:`TunedConfig`, else 2, the paper's double buffer (one step
         copying while one computes). See
         :class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`."""
         return SpGEMMPipeline(self, depth=self._default_depth() if depth is None else depth)
@@ -935,7 +999,7 @@ class SpGEMMPlan:
 
     def execute_stream(self, value_iter, *, depth: Optional[int] = None):
         """Stream value sets through a ``depth``-deep pipeline (``None``:
-        2), yielding one CSR per item in order. ``value_iter`` yields
+        the tuned depth, else 2), yielding one CSR per item in order. ``value_iter`` yields
         ``(a_vals, b_vals)`` tuples or ``{"a_vals", "b_vals"}`` dicts, e.g.
         :meth:`repro_torch.data.pipeline.SpGEMMValueStream.value_iter`.
         Results are bitwise-equal to calling ``execute`` per item."""
@@ -1591,6 +1655,7 @@ def spgemm_plan(
     mesh: Optional[Mesh] = None,
     mesh_axis: Optional[str] = None,
     pattern_token: Optional[str] = None,
+    autotune: Union[bool, dict, None] = None,
     output: str = "block",
 ) -> SpGEMMPlan:
     """Build — or fetch from the plan cache — an :class:`SpGEMMPlan` for
@@ -1643,8 +1708,30 @@ def spgemm_plan(
     gather map (``plan.compact``), a subset of the block map's positions.
     Compact plans live under their own cache keys (the base key suffixed
     ``"compact"``).
+
+    ``autotune=True`` (or a dict of
+    :func:`repro_torch.spgemm.autotune.autotune_plan` keyword overrides,
+    e.g. ``{"repeats": 5}``) runs the per-pattern config search — or
+    loads its persisted result with zero probes — and returns the winning
+    plan with its :class:`~repro_torch.spgemm.autotune.TunedConfig`
+    applied. It composes with ``output="block"`` only.
     """
     _check_output(output)
+    if autotune and output != "block":
+        raise ValueError(
+            "autotune composes with output='block' only: tune the block "
+            "plan, then request output='compact' separately (tuned knobs "
+            "are output-independent)"
+        )
+    if autotune:
+        from repro_torch.spgemm.autotune import autotune_plan
+
+        spec = dict(autotune) if isinstance(autotune, dict) else {}
+        return autotune_plan(
+            a, b, tile=tile, group=group, backend=backend, device=device,
+            cache=cache, mesh=mesh, mesh_axis=mesh_axis,
+            pattern_token=pattern_token, **spec,
+        )
     device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
     cache = _cache_check(cache)

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
 block-Gustavson SpGEMM (K1, K2; also through the asynchronous pipeline,
 on side streams, a device-resident chain, a sharded plan of four shards on
-one card and a plan rehydrated from the disk tier), flash attention (K5,
+one card, a plan rehydrated from the disk tier, the autotuner's probes and
+the serving gateway; the probe timer's device wait), flash attention (K5,
 also at prefill lengths that are not multiples of 512), the block-sparse
 SpMM (K3) and the grouped expert matmul (K4), and the LM forwards through
 K5 and K4. Needs no JAX, so it runs on a machine with
@@ -726,3 +727,121 @@ def test_moe_forward_on_card_through_the_kernel(cuda):
     assert flash_attention.launches == before_k5 + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+# -- the autotuner and the gateway (K1/K2 through them) ----------------------------------
+
+def test_best_ms_waits_for_the_device_inside_the_timed_region(cuda):
+    """A thunk that only enqueues work returns at once; ``best_ms`` waits
+    for the device of its result between its two timer calls, so it
+    reports at least the enqueued sleep's device time."""
+    from repro_torch.core.tuning import best_ms, interleaved_best_ms
+
+    marker = torch.zeros(1, device=cuda)
+    cycles = 20_000_000  # ~10 ms at the card's clock
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    slept_ms = start.elapsed_time(end)
+    assert slept_ms > 1.0
+
+    def thunk():
+        torch.cuda._sleep(cycles)
+        return [marker]
+
+    assert best_ms(thunk, 3) >= 0.95 * slept_ms
+    assert min(interleaved_best_ms([thunk, lambda: (marker,)], 2)[:1]) >= 0.95 * slept_ms
+
+
+def test_autotune_on_card_keeps_kernel_tiles_and_is_bitwise(cuda):
+    """The default grid on the card holds only tiles K1 takes (around tile
+    64: {32, 64, 128} x groups {2, 4, 8}); the probes launch K2 (batches)
+    and K1 (depth streams); the tuned plan equals an untuned plan at the
+    winner's (tile, group) bitwise; a tile K1 refuses raises before any
+    plan is built."""
+    from repro_torch.spgemm import PlanCache, schedule_build_count
+    from repro_torch.spgemm.autotune import autotune_plan
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    record = {}
+    k1, k2 = spgemm_scheduled.launches, spgemm_scheduled_batch.launches
+    tuned = autotune_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache(),
+                          probe_batch=4, repeats=2, record=record)
+    torch.cuda.synchronize()
+    assert spgemm_scheduled_batch.launches > k2 and spgemm_scheduled.launches > k1
+    grid = [(tuple(c["tile"]), c["group"]) for c in record["candidates"]]
+    assert sorted({t[0] for t, _ in grid}) == [32, 64, 128] and len(grid) == 9
+    assert all(all(d % 16 == 0 and 16 <= d <= 128 for d in p["tile"]) for p in record["probes"])
+    cfg = tuned.tuned_config
+    assert tuned.backend == "cuda" and cfg.probes > 0 and cfg.values_per_s > 0
+    ref = spgemm_plan(a, a, tile=cfg.tile, group=cfg.group, device=cuda, cache=PlanCache())
+    vals = np.random.default_rng(7).standard_normal((3, 2, a.nnz)).astype(np.float32)
+    for x, y in zip(tuned.execute_batch(vals[:, 0], vals[:, 1]),
+                    ref.execute_batch(vals[:, 0], vals[:, 1])):
+        assert np.array_equal(x.data, y.data)
+    for i, got in enumerate(tuned.execute_stream((vals[i, 0], vals[i, 1]) for i in range(3))):
+        assert np.array_equal(got.data, ref.execute(vals[i, 0], vals[i, 1]).data)
+    builds = schedule_build_count()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        autotune_plan(a, a, tile=8, group=4, device=cuda, cache=PlanCache())
+    assert schedule_build_count() == builds
+
+
+def test_gateway_on_card_bitwise_equals_execute(cuda):
+    """Two tenants served on the card from three submitter threads, values
+    as numpy arrays and as CUDA tensors: every result equals a direct
+    ``execute`` bitwise, each dispatch runs K2 (once per chunk of its
+    batch), none runs K1, and a result kept from an early step is not
+    overwritten by later steps."""
+    from repro_torch.spgemm import Outcome, PlanCache, SpGEMMGateway
+    from repro_torch.data.pipeline import SpGEMMValueStream
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    b = suite_matrix("poisson3Da", scale=0.05, seed=1)
+    plans = {"aa": spgemm_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache()),
+             "ab": spgemm_plan(a, b, tile=32, group=2, device=cuda, cache=PlanCache())}
+    streams = {k: SpGEMMValueStream(p.a_pattern, p.b_pattern, seed=i)
+               for i, (k, p) in enumerate(plans.items())}
+    results = {}
+    k1, k2 = spgemm_scheduled.launches, spgemm_scheduled_batch.launches
+    with SpGEMMGateway(cache=PlanCache(), max_batch=4, depth=2, batch_window=0.002) as gw:
+        for k, p in plans.items():
+            gw.register_plan(k, p)
+
+        def tenant(tid, key):
+            tickets = []
+            for s in range(12):
+                av, bv = streams[key].values_at(100 * tid + s)
+                if s % 2:
+                    av = torch.from_numpy(av).to(cuda)
+                tickets.append((100 * tid + s, gw.submit(key, av, bv)))
+            for step, t in tickets:
+                results[(key, step)] = t.wait(120)
+
+        import threading
+
+        threads = [threading.Thread(target=tenant, args=(i, k))
+                   for i, k in enumerate(["aa", "ab", "aa"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        stats = gw.stats()["patterns"]
+    torch.cuda.synchronize()
+    served_k1 = spgemm_scheduled.launches - k1
+    served_k2 = spgemm_scheduled_batch.launches - k2
+    assert len(results) == 36 and all(r.outcome is Outcome.OK for r in results.values())
+    first = results[("aa", 0)].value.data.copy()
+    for (key, step), r in results.items():
+        assert np.array_equal(r.value.data, plans[key].execute(*streams[key].values_at(step)).data)
+    assert np.array_equal(results[("aa", 0)].value.data, first)
+    assert served_k1 == 0
+    chunks = {k: min(4, p._executor.batch_chunk()) for k, p in plans.items()}
+    dispatches = sum(stats[k]["dispatches"] for k in plans)
+    batched = sum(stats[k]["batched_requests"] for k in plans)
+    assert batched == 36 and dispatches < 36
+    assert dispatches <= served_k2 <= batched
+    if all(c == 1 for c in chunks.values()):
+        assert served_k2 == batched

@@ -32,14 +32,19 @@ def test_port_and_chip_smoke_import_no_jax():
                          env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr[-4000:]
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25, out.stdout
+    assert n_modules >= 30, out.stdout
     # Every kernel wrapper, the MoE layer, the SpGEMM pipeline, the value
-    # stream, the matrix file I/O, the plan cache, its disk tier and the
-    # shard mesh are among the modules imported.
+    # stream, the matrix file I/O, the plan cache, its disk tier, the
+    # shard mesh, the performance models, the probe primitives, the
+    # autotuner, the gateway and its metrics are among the modules
+    # imported.
     for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
                  "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
                  "repro_torch.spgemm.pipeline", "repro_torch.data.pipeline",
                  "repro_torch.sparse.io", "repro_torch.spgemm.cache",
-                 "repro_torch.spgemm.persist", "repro_torch.launch.mesh"):
+                 "repro_torch.spgemm.persist", "repro_torch.launch.mesh",
+                 "repro_torch.core.perfmodel", "repro_torch.core.tuning",
+                 "repro_torch.spgemm.autotune", "repro_torch.spgemm.gateway",
+                 "repro_torch.runtime.heartbeat"):
         assert name in out.stdout.split(), name

@@ -391,3 +391,87 @@ def test_released_plan_refuses_work():
                  lambda: plan.pipeline().submit(*stream.values_at(0))):
         with pytest.raises(RuntimeError, match="released"):
             call()
+
+
+def test_submit_while_a_collect_waits(monkeypatch):
+    """A slot is held until its collect has waited: a submit from another
+    thread while a collect is waiting sees a full pipeline (typed), never
+    an empty slot list, and gets the slot once the collect returns."""
+    import threading
+
+    plan = _element_plan(8)
+    stream = _stream(plan)
+    pipe = SpGEMMPipeline(plan, depth=1)
+    ticket = pipe.submit(*stream.values_at(0))
+    waiting, release = threading.Event(), threading.Event()
+    real = plan._pipe_collect
+
+    def slow_collect(prep, packed):
+        waiting.set()
+        release.wait(10)
+        return real(prep, packed)
+
+    monkeypatch.setattr(plan, "_pipe_collect", slow_collect)
+    got = []
+    collector = threading.Thread(target=lambda: got.append(pipe.collect(ticket)))
+    collector.start()
+    assert waiting.wait(10)
+    assert pipe.in_flight == 0 and pipe.free_slots == 0
+    with pytest.raises(PipelineFullError, match="1 step"):
+        pipe.submit(*stream.values_at(1))
+    release.set()
+    collector.join(10)
+    assert pipe.free_slots == 1
+    _assert_same_csr(got[0], plan.execute(*stream.values_at(0)))
+    _assert_same_csr(pipe.submit(*stream.values_at(1)).result(),
+                     plan.execute(*stream.values_at(1)))
+    pipe.close()
+
+
+def test_concurrent_submit_and_collect_stress():
+    """More threads than cores share one depth-2 pipeline, each submitting
+    and then collecting its own steps, with a short switch interval: every
+    submit either takes a slot or raises ``PipelineFullError`` (never an
+    error from an empty slot list), every result equals ``execute``, and
+    all slots come back."""
+    import os
+    import sys
+    import threading
+
+    plan = _element_plan(9)
+    stream = _stream(plan)
+    want = [plan.execute(*stream.values_at(s)).data for s in range(4)]
+    pipe = SpGEMMPipeline(plan, depth=2)
+    n_threads = (os.cpu_count() or 4) + 2
+    errors, done = [], []
+
+    def worker(tid):
+        try:
+            for i in range(6):
+                s = (tid + i) % 4
+                while True:
+                    try:
+                        ticket = pipe.submit(*stream.values_at(s))
+                        break
+                    except PipelineFullError:
+                        pass
+                assert np.array_equal(pipe.collect(ticket).data, want[s])
+            done.append(tid)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:1]
+    assert sorted(done) == list(range(n_threads))
+    assert pipe.in_flight == 0 and pipe.free_slots == 2 and plan.in_flight == 0
+    pipe.close()

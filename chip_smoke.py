@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU: SpGEMM
 (plan -> execute, compact output, chains, the submit/collect pipeline on
 CUDA streams, the plan cache and its disk tier, sharded plans, the
-autotuner, the multi-tenant gateway), serving
+autotuner, the multi-tenant gateway, static analysis of validated
+plans), serving
 granite-3-2b at full width, the ``ops`` entry points of the block-sparse
 SpMM and the grouped matmul, and serving qwen3-moe-30b-a3b at full width
 through the grouped matmul.
@@ -104,6 +105,23 @@ the run with a nonzero exit code and no result line:
    burst while it runs sheds what arrives behind requests in flight, all
    resolved within a bounded wait; ``register(autotune=True)`` over 5h's
    store with no probe and the tuned depth;
+5j. static analysis: the K1/K2 source lint; the launch lint's Python
+   mirror of K1's dynamic shared memory and threads equal to
+   ``gustavson_spgemm_smem_bytes`` / ``_threads`` over every tile
+   {16..128}^3 in both dtypes, each launch and each config of the
+   autotuner's card grid within the device's opt-in limit; then
+   ``repro_torch.analysis.check`` on the card for poisson3Da and
+   2cubes_sphere at full size (tile 32, group 4): element, block, x4
+   sharded and disk-rehydrated plans, each built under
+   ``validate="deep"``, verified (ms per plan and per check, checks run,
+   findings) and linted, then ``execute`` and ``execute_batch(2)`` of each through K1/K2
+   (the element plan against the oracle, the others bitwise equal to it);
+   a persisted poisson3Da artifact whose first A slot is rewritten past A
+   with its digest re-signed, reloaded under ``validate="deep"``:
+   rejected in the loader with K1 and K2 launched zero times, rebuilt
+   bitwise equal to a cold build; the gateway/pipeline lock-order lint on
+   the card (acyclic); OMAR (Eq. 1) of the eight paper matrices at their
+   published sizes;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -129,7 +147,9 @@ the run with a nonzero exit code and no result line:
    calls), the least time the card could take, and end-to-end times:
    SpGEMM ``execute``, prefill and decode, with the device's busy time,
    idle share and kernel count per prefill and per decode step under
-   torch.profiler; granite's weights are then freed;
+   torch.profiler; 2cubes_sphere's ``build_assembly_map`` on the host,
+   sort-free beside the sort (first and last C blocks swapped), both
+   bitwise equal to the plan's map; granite's weights are then freed;
 10. hold the block-sparse SpMM (K3) against its plain version: the JAX
     package's K3 test shapes and the port's card-test shapes in float32
     and bfloat16, an empty column panel and small integers (bitwise, both
@@ -172,6 +192,7 @@ every float32 product here is full float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -191,7 +212,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import perfmodel, tuning  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
-from repro_torch.core.schedule import build_spgemm_schedule  # noqa: E402
+from repro_torch.core.schedule import build_assembly_map, build_spgemm_schedule  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_staged, stage_bsr_index  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -1475,6 +1496,247 @@ def phase_gateway(a: CSR, plan, tuned, dev) -> dict:
     return info
 
 
+# -- phase 5j: static analysis ---------------------------------------------------
+
+# The analysis CLI's plans (element, block, x4 sharded, rehydrated) at full
+# size: tile 32 and group 4, one of the autotuner's card grid configs
+# (5h's winner was tile 32), whose block-structural C is smaller than
+# tile 64's, so the verifier's passes over it take less time.
+ANALYSIS_TILE, ANALYSIS_GROUP, ANALYSIS_SHARDS = 32, 4, 4
+ANALYSIS_STORE = ROOT / "build" / "analysis_store"
+# OMAR (Eq. 1) of every paper matrix at this PE count.
+OMAR_PES = 16
+
+
+def analysis_oracle(a: COO, b: COO, av, bv) -> CSR:
+    """C = A·B on ``a``'s and ``b``'s patterns with values ``av``, ``bv``."""
+    from repro_torch.sparse.convert import to_csr
+
+    return spgemm_gustavson(to_csr(COO(a.row, a.col, av, a.shape)),
+                            to_csr(COO(b.row, b.col, bv, b.shape)))
+
+
+def same_trimmed(got: CSR, want: CSR, what: str) -> None:
+    """``got`` equals ``want`` bitwise on ``want``'s shape, and stores only
+    zeros outside it (a block plan's C spans A's and B's padded block
+    rows and block columns)."""
+    m, n = want.shape
+    indptr = got.indptr[:m + 1]
+    inside = got.indices[:indptr[-1]] < n
+    trimmed = CSR(indptr - np.concatenate([[0], np.cumsum(
+        ~inside)])[indptr], got.indices[:indptr[-1]][inside], got.data[:indptr[-1]][inside],
+        want.shape)
+    same_csr(trimmed, want, what)
+    check(not np.any(got.data[:indptr[-1]][~inside]) and not np.any(got.data[indptr[-1]:]),
+          f"{what}: nonzero values in the padding")
+
+
+def analysis_values(plan, a: COO, b: COO, av, bv):
+    """The operand values a validated plan takes for ``av``/``bv``: the
+    element vectors, or for a block plan the packed blocks of them."""
+    from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo
+
+    if plan._a_scatter is not None:
+        return av, bv
+    tile, group = plan.report.tile, plan.report.group
+    return (bcsv_from_coo(COO(a.row, a.col, av, a.shape), tile[:2], group)[0].blocks,
+            bcsr_from_coo(COO(b.row, b.col, bv, b.shape), tile[1:])[0].blocks)
+
+
+def analysis_lint_grid(dev) -> dict:
+    """The launch lint's shared-memory mirror against the library's export
+    over every tile K1 takes, both dtypes; then every config of the
+    autotuner's card grid against this device's opt-in limit."""
+    from repro_torch.analysis.kernel_lint import (
+        device_smem_limit, k1_smem_bytes, k1_threads, lint_kernel_module, lint_launch_config)
+    from repro_torch.spgemm.autotune import _search_grid
+
+    found = lint_kernel_module()
+    check(found == [], f"kernel module lint: {found}")
+    lib = _build.load_gustavson()
+    limit = device_smem_limit(dev)
+    dims = range(16, 129, 16)
+    tiles = [(m, k, n) for m in dims for k in dims for n in dims]
+    worst = 0
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for tile in tiles:
+            smem = lib.gustavson_spgemm_smem_bytes(code, *tile)
+            check(smem == k1_smem_bytes(dtype, *tile),
+                  f"smem mirror at {tile} {dtype}: {k1_smem_bytes(dtype, *tile)} vs {smem}")
+            check(lib.gustavson_spgemm_threads(code, *tile) == k1_threads(*tile),
+                  f"threads mirror at {tile} {dtype}")
+            found = lint_launch_config(tile, dtype, smem_limit=limit)
+            check(found == [], f"launch lint at {tile} {dtype}: {found}")
+            worst = max(worst, smem)
+    grid = _search_grid((TILE,) * 3, GROUP, None, "cuda")
+    for tile, group in grid:
+        for dtype in (torch.float32, torch.bfloat16):
+            found = lint_launch_config(tile, dtype, bsz=8, smem_limit=limit)
+            check(found == [], f"autotune grid config {tile} x {group} {dtype}: {found}")
+    log(f"  kernel module lint clean; smem mirror equal to gustavson_spgemm_smem_bytes and "
+        f"_threads over {len(tiles)} tiles x 2 dtypes (largest {worst} B); opt-in limit "
+        f"{limit} B (cudaDevAttrMaxSharedMemoryPerBlockOptin); autotuner card grid "
+        f"{sorted({t[0] for t, _ in grid})} x groups {sorted({g for _, g in grid})} lints clean")
+    return {"smem_tiles": len(tiles) * 2, "smem_max_bytes": worst, "smem_optin_bytes": limit,
+            "autotune_grid": [[list(t), g] for t, g in grid]}
+
+
+def analysis_matrix(name: str, dev, rng) -> dict:
+    """``repro_torch.analysis.check`` over one matrix at full size on the
+    card, then every validated plan through K1/K2 against the oracle."""
+    from repro_torch.analysis import check as analysis_check
+
+    failures: list = []
+    store = ANALYSIS_STORE / name
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    plans = analysis_check.check_matrix(
+        name, 1.0, ANALYSIS_SHARDS, "auto", failures, device=dev, tile=ANALYSIS_TILE,
+        group=ANALYSIS_GROUP, store_dir=store)
+    check_s = time.perf_counter() - t0
+    check(not failures, f"analysis check {name}: {failures}")
+    # The plans hold their operands in canonical (row-major) order.
+    a, b = (x.sum_duplicates() for x in analysis_check._operands(name, 1.0))
+    av = rng.standard_normal(a.nnz, dtype=np.float32)
+    bv = rng.standard_normal(b.nnz, dtype=np.float32)
+    info = {"check_s": check_s, "plans": {}}
+    first = None
+    for label, (plan, rep) in plans.items():
+        check(rep.ok and rep.findings == [], f"{name} {label}: {rep.summary()}")
+        x, y = analysis_values(plan, a, b, av, bv)
+        reset_counts()
+        c = plan.execute(x, y)
+        batch = plan.execute_batch(np.stack([x, x]), np.stack([y, y]))
+        torch.cuda.synchronize()
+        launched = counts()
+        shards = getattr(plan, "n_shards", 1)
+        check(launched["spgemm_scheduled"] == shards, f"{name} {label}: K1 launches {launched}")
+        check(launched["spgemm_scheduled_batch"] >= shards,
+              f"{name} {label}: K2 launches {launched}")
+        if first is None:  # the element plan, against the oracle
+            err = compare_to_oracle(c, analysis_oracle(a, b, av, bv),
+                                    f"{name} {label} execute")
+            first = (c, err)
+        else:  # bitwise equal to the element plan's result
+            same_trimmed(c, first[0], f"{name} {label} execute vs the element plan")
+            err = first[1]
+        for i, ci in enumerate(batch):
+            same_csr(ci, c, f"{name} {label} execute_batch[{i}]")
+        info["plans"][label] = {
+            "verify_ms": rep.elapsed_s * 1e3, "checks": len(rep.checks_run),
+            "checks_run": rep.checks_run, "check_ms": {
+                k: v * 1e3 for k, v in rep.check_seconds.items()},
+            "findings": len(rep.findings),
+            "triples": plan.report.num_triples, "nnz_c": plan.assembly.nnz,
+            "loads": plan.report.loads, "k1_launches": launched["spgemm_scheduled"],
+            "k2_launches": launched["spgemm_scheduled_batch"], "max_abs_err": err}
+        log(f"  {name} {label}: verify {rep.elapsed_s * 1e3:.1f} ms ({len(rep.checks_run)} checks: "
+            f"{', '.join(rep.checks_run)}; {len(rep.findings)} findings), triples "
+            f"{plan.report.num_triples}, nnz(C) {plan.assembly.nnz}; execute vs oracle "
+            f"max_abs_err {err:.3g}, execute_batch(2) bitwise; K1 {launched['spgemm_scheduled']}, "
+            f"K2 {launched['spgemm_scheduled_batch']}")
+        log(f"    verify ms by check: " + ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in rep.check_seconds.items()))
+    del plans
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"  {name}: check (four plans built, verified, linted) {check_s:.1f} s")
+    return info
+
+
+def corrupt_a_slot(store: Path) -> int:
+    """Point one A slot of the stored artifact past A, re-signing the
+    payload digest so the store's own checks still pass; returns the slot
+    written."""
+    from repro_torch.spgemm.persist import _META_KEY, _payload_digest
+
+    [path] = sorted(store.glob("*.plan-torch.npz"))
+    with np.load(path, allow_pickle=False) as npz:
+        arrays = {n: npz[n].copy() for n in npz.files if n != _META_KEY}
+        header = json.loads(bytes(np.asarray(npz[_META_KEY])).decode())
+    slot = int(header["meta"]["a_shape"][0])
+    arrays["sched.a_slot"][0] = slot
+    header["digest"] = _payload_digest(arrays, header["meta"])
+    arrays[_META_KEY] = np.frombuffer(json.dumps(header).encode(), np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return slot
+
+
+def analysis_corrupt(dev, rng) -> dict:
+    """A digest-valid artifact whose first A slot points past A: under
+    ``validate="deep"`` the loader rejects it and the plan is rebuilt,
+    with K1 launched zero times, bitwise equal to a cold build."""
+    a = suite_matrix("poisson3Da", scale=1.0, seed=SEED).to_coo()
+    store = ANALYSIS_STORE / "corrupt"
+    shutil.rmtree(store, ignore_errors=True)
+    kw = dict(tile=ANALYSIS_TILE, group=ANALYSIS_GROUP, device=dev)
+    cold = spgemm_plan(a, a, cache=PlanCache(disk_dir=str(store)), **kw)
+    slot = corrupt_a_slot(store)
+    reset_counts()
+    cache = PlanCache(disk_dir=str(store))
+    plan = spgemm_plan(a, a, cache=cache, validate="deep", **kw)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["spgemm_scheduled"] == 0 and launched["spgemm_scheduled_batch"] == 0,
+          f"the corrupted plan launched {launched}")
+    stats = cache.stats()
+    check(stats["load_failures"] == 1 and plan.report.schedule_builds == 1
+          and plan.report.loads == 0, f"corrupted artifact: stats {stats}")
+    for f in ("a_slot", "b_slot", "panel", "sub_row", "start"):
+        check(np.array_equal(getattr(plan.schedule, f), getattr(cold.schedule, f)),
+              f"rebuilt schedule {f} differs from the cold build")
+    for f in ("gather", "indptr", "indices"):
+        check(np.array_equal(getattr(plan.assembly, f), getattr(cold.assembly, f)),
+              f"rebuilt assembly {f} differs from the cold build")
+    av = rng.standard_normal(a.nnz, dtype=np.float32)
+    bv = rng.standard_normal(a.nnz, dtype=np.float32)
+    reset_counts()
+    same_csr(plan.execute(av, bv), cold.execute(av, bv), "rebuilt plan vs cold build")
+    check(spgemm_scheduled.launches == 2, "rebuilt and cold plans: K1 launches")
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"  corrupted artifact (sched.a_slot[0] = {slot} = nnzb_a, digest re-signed): rejected "
+        f"in the loader (load_failures 1), rebuilt (schedule_builds 1) with 0 K1/K2 launches; "
+        f"schedule, assembly and execute bitwise equal to a cold build")
+    return {"slot": slot, "load_failures": stats["load_failures"],
+            "k1_launches_while_loading": launched["spgemm_scheduled"]}
+
+
+def analysis_omar() -> dict:
+    """OMAR (paper Eq. 1, ``core/buffering.py``) of every paper matrix at
+    its published size, at ``OMAR_PES`` PEs, equal to the fetch trace's."""
+    from repro_torch.configs.paper_matrices import PAPER_MATRICES
+    from repro_torch.core.buffering import omar, omar_from_trace
+
+    out = {}
+    for name in PAPER_MATRICES:
+        m = suite_matrix(name, scale=1.0, seed=SEED)
+        out[name] = omar(m, OMAR_PES)
+        check(out[name] == omar_from_trace(m, OMAR_PES),
+              f"{name}: Eq. 1 and the fetch trace disagree")
+    log(f"  OMAR % (Eq. 1) at {OMAR_PES} PEs: "
+        + "; ".join(f"{n} {v:.2f}" for n, v in out.items()))
+    return out
+
+
+def phase_analysis(dev, rng) -> dict:
+    from repro_torch.analysis import check as analysis_check
+
+    info = {"lint": analysis_lint_grid(dev)}
+    for name in ("poisson3Da", "2cubes_sphere"):
+        info[name] = analysis_matrix(name, dev, rng)
+    info["corrupt"] = analysis_corrupt(dev, rng)
+    failures: list = []
+    lock = analysis_check.lock_lint(failures, device=dev)
+    check(not failures, f"lock lint on the card: {failures}")
+    info["locks"] = lock
+    log(f"  lock-order lint on the card: {lock['sites']} sites, "
+        f"{sum(len(v) for v in lock['edges'].values())} edges, {lock['requests']} requests "
+        f"through the gateway, acyclic")
+    info["omar"] = analysis_omar()
+    shutil.rmtree(ANALYSIS_STORE, ignore_errors=True)
+    return info
+
+
 # -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
@@ -1674,6 +1936,27 @@ def breakdown(plan, dev, rng, reps: int) -> dict:
     return {k: float(np.median(v)) for k, v in runs.items()}
 
 
+def assembly_timings(plan) -> dict:
+    """``build_assembly_map`` on the plan's schedule (C blocks ascending:
+    the sort-free path) and on the same schedule with its first and last C
+    blocks swapped (the sort every plan took before that path), one call
+    each on the host clock; both maps bitwise equal to the plan's."""
+    s = plan.schedule
+    swapped = {f: getattr(s, f).copy() for f in ("c_brow", "c_bcol")}
+    for arr in swapped.values():
+        arr[[0, -1]] = arr[[-1, 0]]
+    out = {}
+    for name, sched in (("no_sort", s), ("sort", dataclasses.replace(s, **swapped))):
+        t0 = time.perf_counter()
+        got = build_assembly_map(sched, (plan._bm, plan._bn), (plan._m, plan._n))
+        out[name] = (time.perf_counter() - t0) * 1e3
+        for f in ("gather", "indptr", "indices"):
+            check(np.array_equal(getattr(got, f), getattr(plan.assembly, f)),
+                  f"build_assembly_map ({name}) {f} differs from the plan's")
+        del got
+    return out
+
+
 def phase_second_timings(a, plan, dev, rng, extra):
     a_blocks, b_blocks, runs = kernel_inputs(plan, dev, rng, 1)
     (b_ms, b_by), flops, _ = bound(plan, 1)
@@ -1685,6 +1968,10 @@ def phase_second_timings(a, plan, dev, rng, extra):
     lib_ms = time_ms(library_call(a, dev, rng), reps=5)
     vals = [rng.standard_normal(a.nnz, dtype=np.float32) for _ in range(2)]
     e2e_ms = host_ms(lambda: plan.execute(vals[0], vals[1]), reps=3)
+    extra["2cubes_assembly_map_ms"] = assembly_timings(plan)
+    log(f"  build_assembly_map 2cubes_sphere (host): sort-free "
+        f"{extra['2cubes_assembly_map_ms']['no_sort']:.1f} ms, with the sort "
+        f"{extra['2cubes_assembly_map_ms']['sort']:.1f} ms; both bitwise equal to the plan's")
     extra["2cubes_execute_stages_ms"] = breakdown(plan, dev, rng, reps=3)
     log(f"  execute 2cubes_sphere stages (ms): {extra['2cubes_execute_stages_ms']}")
     extra.update({
@@ -2655,6 +2942,13 @@ def main() -> int:
     del tuned
     shutil.rmtree(TUNE_STORE, ignore_errors=True)
 
+    log("[5j] static analysis: poisson3Da and 2cubes_sphere validated plans through K1/K2, "
+        "the launch lint, a corrupted artifact, the lock-order lint, OMAR")
+    t0 = time.perf_counter()
+    analysis_info = phase_analysis(dev, rng)
+    analysis_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5j: {analysis_info['phase_s']:.1f} s")
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -2669,7 +2963,7 @@ def main() -> int:
     extra.update(bf16_plan)
     extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info,
                   "cache": cache_info, "sharded": shard_info, "autotune": tune_info,
-                  "gateway": gw_info})
+                  "gateway": gw_info, "analysis": analysis_info})
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2

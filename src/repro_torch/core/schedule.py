@@ -247,6 +247,52 @@ class AssemblyMap:
         return self.gather.nbytes + self.indptr.nbytes + self.indices.nbytes
 
 
+def _blocks_ascending(c_brow, c_bcol, grid_n: int) -> bool:
+    """Whether C's blocks are strictly (brow, bcol)-ascending, as
+    :func:`build_spgemm_schedule` emits them."""
+    key = np.asarray(c_brow, np.int64) * grid_n + np.asarray(c_bcol, np.int64)
+    return key.size < 2 or bool((np.diff(key) > 0).all())
+
+
+def _assembly_row_major(brow, bcol, base, bm: int, bn: int, m: int, n: int,
+                        gdtype) -> AssemblyMap:
+    """The assembly map of (brow, bcol)-ascending C blocks, without a sort.
+
+    One output row spans the blocks of its block row, so row-major order
+    is a transpose per block row, ``[k, bm, bn] -> [bm, k, bn]`` (``k`` the
+    row's block count). It is computed on element-row segments (row ``rr``
+    of block ``b`` is ``bn`` elements contiguous in C and in the panel):
+    segment ``(b, rr)`` lands at ``first * bm + rr * k + j``, ``first`` the
+    block row's first block and ``j`` the block's place in it. ``base`` is
+    each block's flat panel offset; overhanging rows and columns are
+    dropped."""
+    nb = brow.shape[0]
+    first = np.searchsorted(brow, brow)
+    k = np.searchsorted(brow, brow, side="right") - first
+    j = np.arange(nb, dtype=np.int64) - first
+    rr = np.arange(bm, dtype=np.int64)
+    order = np.empty(nb * bm, np.int64)
+    order[((first * bm + j)[:, None] + k[:, None] * rr[None, :]).reshape(-1)] = \
+        np.arange(nb * bm, dtype=np.int64)
+    blk, srr = np.divmod(order, bm)
+    row = brow[blk] * bm + srr
+    inside = row < m
+    if not inside.all():
+        blk, srr, row = blk[inside], srr[inside], row[inside]
+    col0 = bcol[blk] * bn
+    width = np.clip(n - col0, 0, bn)
+    cc = np.arange(bn)
+    gather = (base[blk] + srr * bn).astype(gdtype)[:, None] + cc.astype(gdtype)
+    cols = col0.astype(np.int32)[:, None] + cc.astype(np.int32)
+    if (width < bn).any():
+        keep = cc[None, :] < width[:, None]
+        gather, cols = gather[keep], cols[keep]
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(row, weights=width, minlength=m).astype(np.int64),
+              out=indptr[1:])
+    return AssemblyMap(gather.reshape(-1), indptr, cols.reshape(-1), (m, n))
+
+
 def build_assembly_map(
     schedule: SpGEMMSchedule,
     block_shape: Tuple[int, int],
@@ -279,6 +325,14 @@ def build_assembly_map(
     if not np.array_equal(pkey[p_of], ckey):
         raise AssertionError("C block without a matching output panel")
     sub = schedule.c_brow.astype(np.int64) - cgrp * g
+    flat_panels = schedule.n_panels * g * bm * bn
+    gdtype = np.int32 if flat_panels <= np.iinfo(np.int32).max else np.int64
+    # CSR order: row-major. The schedule emits C's blocks ascending, which
+    # needs no sort; any other order takes the reference's sort below.
+    if _blocks_ascending(schedule.c_brow, schedule.c_bcol, schedule.grid_n):
+        return _assembly_row_major(
+            schedule.c_brow.astype(np.int64), schedule.c_bcol.astype(np.int64),
+            p_of * (g * bm * bn) + sub * (bm * bn), bm, bn, m, n, gdtype)
     # Per-block element coordinates and their flat panel offsets.
     rr = np.arange(bm, dtype=np.int64)[None, :, None]  # [1, bm, 1]
     cc = np.arange(bn, dtype=np.int64)[None, None, :]  # [1, 1, bn]
@@ -302,8 +356,6 @@ def build_assembly_map(
     rows, cols, gather = rows[order], cols[order], gather[order]
     indptr = np.zeros(m + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
-    flat_panels = schedule.n_panels * g * bm * bn
-    gdtype = np.int32 if flat_panels <= np.iinfo(np.int32).max else np.int64
     return AssemblyMap(
         gather.astype(gdtype, copy=False), indptr,
         cols.astype(np.int32), (m, n),

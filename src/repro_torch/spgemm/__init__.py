@@ -45,6 +45,13 @@ and p50/p99 metrics in a ``runtime.heartbeat.MetricsRegistry``::
         gw.register("tenant/layer", a, b, tile=64, group=4)
         c = gw.submit("tenant/layer", a_vals, b_vals).result()
 
+``spgemm_plan(..., validate="deep")`` verifies whatever the call returns
+(fresh build, memory hit, disk rehydrate) with
+:func:`repro_torch.analysis.verify_plan`, without running the numeric
+phase; rehydrates are verified inside the loader, so a digest-valid but
+corrupted artifact falls back to a clean symbolic rebuild before it can
+reach the kernel.
+
 The module layout and public names follow the JAX package ``repro.spgemm``.
 """
 from repro_torch.spgemm.autotune import TunedConfig, autotune_plan, probe_run_count

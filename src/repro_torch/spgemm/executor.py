@@ -381,6 +381,12 @@ class SpGEMMExecutor:
         ``REPRO_SPGEMM_CHUNK_BYTES`` still wins (:func:`resolve_chunk_bytes`)."""
         self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
 
+    def staged_runs(self) -> dict:
+        """The schedule runs the kernel reads, as staged on the device:
+        ``{0: ScheduleRuns}`` (keyed like the sharded executor's, by
+        shard)."""
+        return {0: self._runs}
+
     def constants(self) -> list:
         """The device tensors every numeric call reads: schedule runs,
         scatter inverses, gather map."""
@@ -496,13 +502,16 @@ class SpGEMMExecutor:
 
 
 class _ShardPart:
-    """One launching shard's device constants: its schedule runs and
-    output gather map, its A slot and element ranges in the plan's packed
-    A, and (element plans) the scatter inverse into its own A slots."""
+    """One launching shard's device constants: its index among the
+    plan's shards, its schedule runs and output gather map, its A slot and
+    element ranges in the plan's packed A, and (element plans) the scatter
+    inverse into its own A slots."""
 
-    __slots__ = ("device", "runs", "gather", "a_lo", "a_hi", "e_lo", "e_hi", "a_shape", "a_inv")
+    __slots__ = ("shard", "device", "runs", "gather", "a_lo", "a_hi", "e_lo", "e_hi",
+                 "a_shape", "a_inv")
 
-    def __init__(self, device, runs, gather, a_lo, a_hi, e_lo, e_hi, a_shape, a_inv):
+    def __init__(self, shard, device, runs, gather, a_lo, a_hi, e_lo, e_hi, a_shape, a_inv):
+        self.shard = shard
         self.device = device
         self.runs = runs
         self.gather = gather
@@ -596,7 +605,7 @@ class ShardedSpGEMMExecutor:
                 inv[pos[sel]] = np.arange(e_hi - e_lo, dtype=np.int32)[sel]
                 a_inv = torch.from_numpy(inv).to(dev)
             self._parts.append(_ShardPart(
-                dev, stage_runs(sh.schedule, dev), torch.from_numpy(asm.gather).to(dev),
+                i, dev, stage_runs(sh.schedule, dev), torch.from_numpy(asm.gather).to(dev),
                 sh.a_lo, sh.a_hi, e_lo, e_hi, local, a_inv,
             ))
         # Per-set rows of the largest shard: the working-set basis of
@@ -625,6 +634,11 @@ class ShardedSpGEMMExecutor:
         """Re-resolve the chunk policy with a new per-set budget;
         ``REPRO_SPGEMM_CHUNK_BYTES`` still wins."""
         self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
+
+    def staged_runs(self) -> dict:
+        """The schedule runs each launching shard's kernel reads, as
+        staged on its device: ``{shard index: ScheduleRuns}``."""
+        return {p.shard: p.runs for p in self._parts}
 
     def constants(self) -> list:
         """Every device tensor the numeric calls read."""

@@ -61,17 +61,21 @@ class _Prepared:
     """A validated, host-side-prepared submission (built by
     ``SpGEMMPlan._pipe_check``): execution mode, operands (tensors in the
     plan's value dtypes: pinned host tensors on a CUDA plan, or tensors
-    already on the plan's device), batch size (``None`` single-shot), and
-    the executes-counter increment."""
+    already on the plan's device), batch size (``None`` single-shot), the
+    executes-counter increment, and the plan's executor as it stood when
+    the submission was checked (``None`` for an empty plan): dispatch and
+    collect run on it, never on the plan's attribute, which ``release()``
+    clears."""
 
-    __slots__ = ("mode", "a", "b", "batch", "n_execs")
+    __slots__ = ("mode", "a", "b", "batch", "n_execs", "executor")
 
-    def __init__(self, mode, a, b, batch, n_execs):
+    def __init__(self, mode, a, b, batch, n_execs, executor):
         self.mode = mode
         self.a = a
         self.b = b
         self.batch = batch
         self.n_execs = n_execs
+        self.executor = executor
 
 
 class _Step:

@@ -199,6 +199,11 @@ class PlanReport:
         self.pattern_token = pattern_token
         self.config_source = config_source
         self.tuned = tuned
+        # The VerifyReport of the last validate="deep" check that accepted
+        # this plan (None if it was never deep-validated). It is true as of
+        # that check only: apply_tuned_config clears it, and a caller that
+        # needs a current report runs verify_plan.
+        self.verify_report = None
 
     @property
     def pattern_key(self) -> str:
@@ -447,12 +452,14 @@ class SpGEMMPlan:
                 self._stale_tuned = cfg
                 self.tuned_config = None
                 self.report.tuned = None
+                self.report.verify_report = None
                 if not os.environ.get(CHUNK_BYTES_ENV):
                     self.report.config_source = "stale-tuned"
             return
         with self._lock:
             self.tuned_config = cfg
             self.report.tuned = cfg.to_meta()
+            self.report.verify_report = None
             if os.environ.get(CHUNK_BYTES_ENV):
                 self.report.config_source = "env-override"
             else:
@@ -805,9 +812,11 @@ class SpGEMMPlan:
         """Device-resident CSR ``indptr`` (int32) of the active output map.
         Together with a ``_run_packed`` result this is a complete CSR
         replica of C that never leaves the device."""
-        if self._executor is None:
+        with self._lock:
+            ex = self._executor
+        if ex is None:
             return torch.from_numpy(self._active().indptr.astype(np.int32)).to(self.device)
-        return self._executor.device_indptr()
+        return ex.device_indptr()
 
     def then(self, b, **kwargs) -> "SpGEMMChain":
         """Compose this plan with a next operand: plan ``C @ b`` from this
@@ -879,16 +888,20 @@ class SpGEMMPlan:
                 # Snapshot under the lock so a concurrent rebind cannot mix
                 # one caller's A with another's B.
                 a_dev, b_dev = self._a_dev, self._b_dev
+            # The executor too: a release() after this block drops the
+            # plan's reference, not the snapshot, so this execute stays
+            # correct; None here means an empty plan, never a released one.
+            ex = self._executor
             self.report.executes += 1
 
-        if self._executor is None:
+        if ex is None:
             return None
         if fused_values:
-            return self._executor.run_values(
+            return ex.run_values(
                 _device_values(a_vals, self.device, self._a_dtype),
                 _device_values(b_vals, self.device, self._b_dtype),
             )
-        return self._executor.run(a_dev, b_dev)
+        return ex.run(a_dev, b_dev)
 
     def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A later stage of :func:`execute_chain`: the previous stage's
@@ -913,6 +926,7 @@ class SpGEMMPlan:
                 self._b_vals_dev = _device_values(self.b_pattern.val, self.device,
                                                   self._b_dtype)
             b_dev = self._b_vals_dev
+            ex = self._executor  # snapshot: see _run_packed
             self.report.executes += 1
         if c_packed is None:  # previous stage was empty: A values all zero
             c_packed = torch.zeros(self.report.nnz_a, dtype=self._a_dtype, device=self.device)
@@ -921,9 +935,9 @@ class SpGEMMPlan:
                 f"chained values: expected [{self.report.nnz_a}] from the "
                 f"previous stage, got shape {tuple(c_packed.shape)}"
             )
-        if self._executor is None:
+        if ex is None:
             return None
-        return self._executor.run_values(c_packed.to(self._a_dtype), b_dev)
+        return ex.run_values(c_packed.to(self._a_dtype), b_dev)
 
     def execute_batch(self, a_vals, b_vals) -> list:
         """Batched numeric phase over a leading value-batch axis.
@@ -960,18 +974,19 @@ class SpGEMMPlan:
         batch = int(a_shape[0])
         with self._lock:
             self._check_released()
+            ex = self._executor  # snapshot: see _run_packed
             self.report.executes += batch
         if batch == 0:
             return []
-        if self._executor is None:
+        if ex is None:
             return [self._empty_csr() for _ in range(batch)]
         # Oversized batches are split (SpGEMMExecutor.batch_chunk); each
         # chunk is still one fused device call.
-        chunk = min(batch, self._executor.batch_chunk())
+        chunk = min(batch, ex.batch_chunk())
         out = []
         for lo in range(0, batch, chunk):
             hi = min(lo + chunk, batch)
-            packed = self._executor.run_batch(
+            packed = ex.run_batch(
                 _device_values(a_vals[lo:hi], self.device, self._a_dtype),
                 _device_values(b_vals[lo:hi], self.device, self._b_dtype),
                 rebind=rebind,
@@ -1070,14 +1085,18 @@ class SpGEMMPlan:
                         "plan values were released (release_values); pass "
                         "a_vals/b_vals to submit"
                     )
-                if self._executor is not None:
+                ex = self._executor
+                if ex is not None:
                     if self._a_dev is None:
                         self._a_dev = self._stage_a(self._a_blocks)
                     if self._b_dev is None:
                         self._b_dev = self._stage_b(self._b_blocks)
-                return _Prepared("blocks", self._a_dev, self._b_dev, None, 1)
+                return _Prepared("blocks", self._a_dev, self._b_dev, None, 1, ex)
         with self._lock:
             self._check_released()
+            # The step's executor, taken with the released check (see
+            # _run_packed); _pipe_begin checks again before dispatch.
+            ex = self._executor
         if not isinstance(a_vals, torch.Tensor):
             a_vals = np.asarray(a_vals)
         if not isinstance(b_vals, torch.Tensor):
@@ -1099,9 +1118,9 @@ class SpGEMMPlan:
         a = self._pipe_operand(a_vals, self._a_dtype)
         b = self._pipe_operand(b_vals, self._b_dtype)
         if single:
-            return _Prepared("values" if rebind else "blocks", a, b, None, 1)
+            return _Prepared("values" if rebind else "blocks", a, b, None, 1, ex)
         batch = int(a_shape[0])
-        return _Prepared("batch_values" if rebind else "batch_blocks", a, b, batch, batch)
+        return _Prepared("batch_values" if rebind else "batch_blocks", a, b, batch, batch, ex)
 
     def _pipe_begin(self, n_execs: int) -> None:
         with self._lock:
@@ -1124,19 +1143,19 @@ class SpGEMMPlan:
         another stream made is marked with ``record_stream``, so its
         memory is not reused while the step may still read it. On the CPU
         (``stream=None``) the step runs at once."""
-        if self._executor is None or prep.batch == 0:
+        if prep.executor is None or prep.batch == 0:
             return None
         if stream is None:
             return self._pipe_run(prep)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        for t in _tensors(self._executor.constants() + [prep.a, prep.b]):
+        for t in _tensors(prep.executor.constants() + [prep.a, prep.b]):
             if t.device == stream.device:
                 t.record_stream(stream)
         with torch.cuda.stream(stream):
             return self._pipe_run(prep)
 
     def _pipe_run(self, prep: _Prepared):
-        ex = self._executor
+        ex = prep.executor
         if prep.batch is None:
             staged = ex.pipe_stage(prep.a, prep.b, mode=prep.mode)
             panels = ex.pipe_kernel(staged, mode="single")
@@ -1155,15 +1174,16 @@ class SpGEMMPlan:
     def _pipe_collect(self, prep: _Prepared, packed):
         """Wait for one dispatched step and wrap it in the plan's
         precomputed CSR structure."""
+        ex = prep.executor
         if prep.batch is None:
-            if self._executor is None:
+            if ex is None:
                 return self._empty_csr()
-            return self._wrap_packed(self._executor.pipe_collect(packed, mode="single"))
-        if self._executor is None:
+            return self._wrap_packed(ex.pipe_collect(packed, mode="single"))
+        if ex is None:
             return [self._empty_csr() for _ in range(prep.batch)]
         out = []
         for chunk_packed in (packed or ()):
-            arr = self._executor.pipe_collect(chunk_packed, mode="batch")
+            arr = ex.pipe_collect(chunk_packed, mode="batch")
             out.extend(self._wrap_packed(arr[i]) for i in range(arr.shape[0]))
         return out
 
@@ -1536,18 +1556,48 @@ def _canonical_coo(coo: COO) -> COO:
     return coo if _coo_is_canonical(coo) else coo.sum_duplicates()
 
 
+def _check_validate(validate) -> None:
+    if validate not in (None, "deep"):
+        raise ValueError(f"validate must be None or 'deep', got {validate!r}")
+
+
+def _deep_verify(plan: SpGEMMPlan, validate, verified: Optional[list] = None) -> SpGEMMPlan:
+    """``validate="deep"``: run the full static verifier on ``plan``
+    (:func:`repro_torch.analysis.verify.verify_plan`) and return it.
+    ``verified`` lists the plans one call has verified already (a loader's
+    plan is not verified twice); the plan is added to it.
+
+    Raises :class:`~repro_torch.analysis.verify.PlanVerificationError` (an
+    ``AssertionError``) when any invariant fails. Called *inside* a
+    disk-rehydrate loader, the raise is taken by the cache's loader
+    fallback (``load_failures``) and the plan is rebuilt symbolically: a
+    corrupted-but-digest-valid artifact fails verification and never
+    reaches the kernel. Called on a fresh build or a memory hit, the raise
+    propagates to the caller."""
+    if validate == "deep" and not any(p is plan for p in verified or ()):
+        from repro_torch.analysis.verify import verify_plan
+
+        plan.report.verify_report = verify_plan(plan).raise_if_failed()
+        if verified is not None:
+            verified.append(plan)
+    return plan
+
+
 def _loaded_block_plan(arrays, meta, a: BCSV, b: BCSR, *, backend, device, pattern_key,
-                       mesh, mesh_axis, output) -> SpGEMMPlan:
+                       mesh, mesh_axis, output, validate=None,
+                       verified: Optional[list] = None) -> SpGEMMPlan:
     """Block-path disk rehydrate: the persisted symbolic artifacts with
-    this call's packed blocks as the values."""
-    return SpGEMMPlan.from_artifacts(
+    this call's packed blocks as the values (verified under
+    ``validate="deep"``)."""
+    return _deep_verify(SpGEMMPlan.from_artifacts(
         arrays, meta, backend=backend, device=device, pattern_key=pattern_key,
         a_blocks=a.blocks, b_blocks=b.blocks, mesh=mesh, mesh_axis=mesh_axis,
         output=output,
-    )
+    ), validate, verified)
 
 
-def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block"):
+def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block", validate=None,
+                       verified: Optional[list] = None):
     """The loader :meth:`PlanCache.token_disk_get` rehydrates through.
 
     The disk alias exists to skip the pattern digest, so the loader checks
@@ -1556,7 +1606,8 @@ def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block"):
     types must match the persisted plan kind, and ``from_artifacts``
     itself re-checks element counts and block geometry. Any mismatch
     raises, which the cache counts as a load failure; the caller then
-    takes the digest path, which settles conflicts explicitly.
+    takes the digest path, which settles conflicts explicitly. So does a
+    plan that fails ``validate="deep"``.
     """
 
     def load(key: Tuple, arrays: dict, meta: dict) -> SpGEMMPlan:
@@ -1581,7 +1632,7 @@ def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block"):
                 f"persisted plan kind {kind!r}"
             )
         plan._input_dtypes = (_input_dtype_name(a), _input_dtype_name(b))
-        return plan
+        return _deep_verify(plan, validate, verified)
 
     return load
 
@@ -1656,6 +1707,7 @@ def spgemm_plan(
     mesh_axis: Optional[str] = None,
     pattern_token: Optional[str] = None,
     autotune: Union[bool, dict, None] = None,
+    validate: Optional[str] = None,
     output: str = "block",
 ) -> SpGEMMPlan:
     """Build — or fetch from the plan cache — an :class:`SpGEMMPlan` for
@@ -1715,8 +1767,23 @@ def spgemm_plan(
     loads its persisted result with zero probes — and returns the winning
     plan with its :class:`~repro_torch.spgemm.autotune.TunedConfig`
     applied. It composes with ``output="block"`` only.
+
+    ``validate="deep"`` opts this call into full static verification
+    (:func:`repro_torch.analysis.verify.verify_plan`): the returned plan —
+    fresh build, cache hit, disk rehydrate or tuned plan — has every
+    schedule, assembly, race-freedom (over the runs staged for the
+    kernel), compact-map and shard-partition invariant checked, and a
+    failure raises :class:`~repro_torch.analysis.verify.PlanVerificationError`.
+    Disk rehydrates are verified *inside* the loader, so a
+    corrupted-but-digest-valid artifact counts as a ``load_failure`` and
+    falls back to a clean symbolic rebuild instead of executing.
+    ``validate=None`` (the default) verifies nothing; any other value
+    raises ``ValueError``. The accepting check's report is kept in
+    ``plan.report.verify_report``, true as of that check.
     """
+    _check_validate(validate)
     _check_output(output)
+    verified: list = []  # plans a loader of this call verified
     if autotune and output != "block":
         raise ValueError(
             "autotune composes with output='block' only: tune the block "
@@ -1727,11 +1794,13 @@ def spgemm_plan(
         from repro_torch.spgemm.autotune import autotune_plan
 
         spec = dict(autotune) if isinstance(autotune, dict) else {}
-        return autotune_plan(
+        # The tuned plan is verified afterwards (the search builds its
+        # candidates through this function without `validate`).
+        return _deep_verify(autotune_plan(
             a, b, tile=tile, group=group, backend=backend, device=device,
             cache=cache, mesh=mesh, mesh_axis=mesh_axis,
             pattern_token=pattern_token, **spec,
-        )
+        ), validate)
     device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
     cache = _cache_check(cache)
@@ -1753,8 +1822,11 @@ def spgemm_plan(
             # Warm restart: the store's alias index may resolve the token
             # straight to a disk load, with no digest.
             plan, fresh = cache.token_disk_get(
-                token_key, _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output))
+                token_key,
+                _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output, validate,
+                                   verified))
             if fresh:
+                # Verified by the loader; values were bound there.
                 plan.report.pattern_token = str(pattern_token)
                 plan.report.cache_stats = cache.stats()
                 return plan
@@ -1763,7 +1835,7 @@ def spgemm_plan(
         if plan is not None:
             _token_hit(plan, a, b, pattern_token)
             plan.report.cache_stats = cache.stats()
-            return plan
+            return _deep_verify(plan, validate, verified)
         if a is None or b is None:
             raise KeyError(
                 f"pattern_token {pattern_token!r} is not resident in the plan cache and "
@@ -1791,7 +1863,8 @@ def spgemm_plan(
                 mesh=mesh, mesh_axis=mesh_axis, output=output),
             loader=lambda arrays, meta: _loaded_block_plan(
                 arrays, meta, a, b, backend=backend, device=device, pattern_key=key[0],
-                mesh=mesh, mesh_axis=mesh_axis, output=output),
+                mesh=mesh, mesh_axis=mesh_axis, output=output, validate=validate,
+                verified=verified),
         )
         plan._input_dtypes = dtype_names
         bind_token(plan, key)
@@ -1805,7 +1878,7 @@ def spgemm_plan(
                 plan._b_blocks = _host_values(b.blocks, plan._b_dtype)
                 plan._a_dev = None
                 plan._b_dev = None
-        return plan
+        return _deep_verify(plan, validate, verified)
 
     bm, bk, bn = _normalize_tile(tile)
     # sum_duplicates already emits canonical row-major order.
@@ -1830,11 +1903,11 @@ def spgemm_plan(
     def load(arrays: dict, meta: dict) -> SpGEMMPlan:
         # Disk tier (warm restart): the symbolic artifacts come from the
         # store, the values from this call's canonical COOs.
-        return SpGEMMPlan.from_artifacts(
+        return _deep_verify(SpGEMMPlan.from_artifacts(
             arrays, meta, backend=backend, device=device, pattern_key=pattern,
             a_vals=a_coo.val, b_vals=b_coo.val, a_pattern=a_coo, b_pattern=b_coo,
             mesh=mesh, mesh_axis=mesh_axis, output=output,
-        )
+        ), validate, verified)
 
     plan, hit = cache.get_or_build(
         key,
@@ -1858,7 +1931,7 @@ def spgemm_plan(
                 b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
                 "b_vals", plan._b_shape, plan._b_dtype)
             plan._b_dev = None
-    return plan
+    return _deep_verify(plan, validate, verified)
 
 
 def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend, device,
@@ -2082,15 +2155,13 @@ def plan_from_structural_pattern(
     any other plan (``cache``, default the process-level one): a warm
     restart rehydrates a whole chain from disk without re-running any
     symbolic phase. ``mesh``/``mesh_axis`` give a
-    :class:`ShardedSpGEMMPlan`, as in :func:`spgemm_plan`. ``validate``
-    (the JAX package's static verification) is not ported: passing it
-    raises ``NotImplementedError``.
+    :class:`ShardedSpGEMMPlan`, as in :func:`spgemm_plan`.
+    ``validate="deep"`` verifies the returned plan statically, and a disk
+    rehydrate inside its loader, as :func:`spgemm_plan` does.
     """
-    if validate is not None:
-        raise NotImplementedError(
-            "plan_from_structural_pattern(validate=...) is not ported yet"
-        )
+    _check_validate(validate)
     _check_output(output)
+    verified: list = []  # the plan the loader verified, if it loaded one
     device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
     cache = _cache_check(cache)
@@ -2112,11 +2183,11 @@ def plan_from_structural_pattern(
         cache.stats.chain_lookups += 1
 
     def load(arrays: dict, meta: dict) -> SpGEMMPlan:
-        return SpGEMMPlan.from_artifacts(
+        return _deep_verify(SpGEMMPlan.from_artifacts(
             arrays, meta, backend=backend, device=device, pattern_key=pattern,
             a_vals=a_coo.val, b_vals=b_coo.val, a_pattern=a_coo, b_pattern=b_coo,
             mesh=mesh, mesh_axis=mesh_axis, output=output,
-        )
+        ), validate, verified)
 
     plan, hit = cache.get_or_build(
         key,
@@ -2138,4 +2209,4 @@ def plan_from_structural_pattern(
             plan._b_dev = None
             plan._b_vals_dev = None
             plan.b_pattern = b_coo
-    return plan
+    return _deep_verify(plan, validate, verified)

@@ -225,6 +225,79 @@ def test_threads_share_one_cache_under_pressure():
     assert cache.stats.lookups == calls[0] and len(cache) <= 2
 
 
+class _ReleaseAfterUnlock:
+    """Stands in for a plan's lock: once armed, the first time a numeric
+    entry leaves its locked block, another thread calls ``plan.release()``
+    (and is joined) before the entry goes on. That is the window in which
+    ``release()`` clears the plan's executor."""
+
+    def __init__(self, plan):
+        self._lock, self._plan = plan._lock, plan
+        self.armed = False
+        self.released = False
+
+    def acquire(self, *args, **kwargs):
+        return self._lock.acquire(*args, **kwargs)
+
+    def release(self):
+        self._lock.release()
+        if self.armed:
+            self.armed = False
+            t = threading.Thread(target=self._plan.release)
+            t.start()
+            t.join(timeout=60)
+            self.released = self._plan._released
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+
+@pytest.mark.parametrize("entry", ["execute", "execute_noarg", "execute_batch", "chained",
+                                   "submit"])
+def test_release_racing_an_execute_never_returns_an_empty_result(entry):
+    """A ``release()`` that lands between a numeric entry's locked block
+    and its numeric work: the entry returns the oracle's C (it runs on the
+    executor it took under the lock) or raises the plan's "released"
+    error; never an empty CSR, never an AttributeError."""
+    a, b = _pc(41, 40, 32, 0.15), _pc(42, 32, 40, 0.15)
+    want = _oracle(a, b)
+    if entry == "chained":
+        first = _plan(a, b, PlanCache(), output="compact")
+        b2 = _pc(43, 40, 24, 0.2)
+        chain = first.then(b2, cache=PlanCache())
+        plan, want = chain.plans[1], _oracle(a, b) @ b2.todense()
+    else:
+        plan = _plan(a, b, PlanCache())
+    guard = _ReleaseAfterUnlock(plan)
+    plan._lock = guard
+    guard.armed = True
+    try:
+        if entry == "execute":
+            got = [plan.execute(a.val, b.val)]
+        elif entry == "execute_noarg":
+            got = [plan.execute()]
+        elif entry == "execute_batch":
+            got = plan.execute_batch(np.stack([a.val] * 2), np.stack([b.val] * 2))
+        elif entry == "chained":
+            got = [chain.execute(a.val, b.val)]
+        else:
+            got = [plan.pipeline(depth=1).submit(a.val, b.val).result()]
+    except RuntimeError as e:
+        assert "released" in str(e), e
+        got = None
+    assert guard.released and not guard.armed
+    if got is not None:
+        for c in got:
+            assert c.nnz > 0 and np.array_equal(c.todense(), want)
+    with pytest.raises(RuntimeError, match="released"):
+        plan.execute(a.val, b.val)
+
+
 # -- pattern tokens ------------------------------------------------------------------
 
 def test_token_hit_skips_digest_and_rebinds_values(monkeypatch):

@@ -421,11 +421,11 @@ def test_execute_chain_accepts_lists_and_validates():
 
 @pytest.mark.parametrize("arg", ["cache", "mesh", "validate"])
 def test_plan_from_structural_pattern_refuses_unported_arguments(arg):
-    """``validate`` (static verification) is not ported and raises
-    ``NotImplementedError``; ``cache`` and ``mesh`` are, and refuse an
-    object that is not a plan cache or a mesh."""
+    """``cache``, ``mesh`` and ``validate`` (static verification) are
+    ported, and refuse an object that is not a plan cache, a mesh or one
+    of ``None`` and ``"deep"``."""
     (ta, _), (tb, _), (tc, _), _ = _abc(80)
     p1 = spgemm_plan(ta, tb, tile=8, group=2, device="cpu")
-    error = NotImplementedError if arg == "validate" else TypeError
+    error = ValueError if arg == "validate" else TypeError
     with pytest.raises(error, match="validate" if arg == "validate" else "PlanCache|Mesh"):
         plan_from_structural_pattern(p1.output_pattern(), tc, device="cpu", **{arg: object()})

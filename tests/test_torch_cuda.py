@@ -353,6 +353,70 @@ def test_disk_rehydrate_on_card_bitwise_equals_cold(cuda, tmp_path):
     assert np.array_equal(got.indices, want.indices) and np.array_equal(got.data, want.data)
 
 
+def test_smem_mirror_equals_the_librarys_export(cuda):
+    """The launch lint's Python mirror of K1's dynamic shared memory and
+    threads equals what the library exports, over every tile it takes
+    ({16..128}^3 in steps of 16) and both block dtypes, and every such
+    launch lints clean against this device's opt-in limit."""
+    from repro_torch.analysis.kernel_lint import (
+        device_smem_limit, k1_smem_bytes, k1_threads, lint_launch_config)
+    from repro_torch.kernels._build import load_gustavson
+
+    lib = load_gustavson()
+    limit = device_smem_limit(cuda)
+    dims = range(16, 129, 16)
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for tile in [(m, k, n) for m in dims for k in dims for n in dims]:
+            assert lib.gustavson_spgemm_smem_bytes(code, *tile) == k1_smem_bytes(dtype, *tile)
+            assert lib.gustavson_spgemm_threads(code, *tile) == k1_threads(*tile)
+            assert lint_launch_config(tile, dtype, smem_limit=limit) == []
+        assert lib.gustavson_spgemm_smem_bytes(code, 24, 16, 16) == 0
+
+
+def test_deep_validated_plans_on_card(cuda, tmp_path):
+    """``validate="deep"`` on the card: the verifier proves the launch over
+    the runs staged on the device, the plan runs K1 against the oracle; a
+    digest-valid artifact whose A slot points past A is rejected inside
+    the loader and rebuilt, with no launch, bitwise equal to the cold
+    plan."""
+    import glob
+    import json
+    import os
+
+    from repro_torch.analysis.kernel_lint import lint_plan_kernel_specs
+    from repro_torch.analysis.verify import verify_plan
+    from repro_torch.spgemm import PlanCache
+    from repro_torch.spgemm.persist import _META_KEY, _payload_digest
+
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    coo = a.to_coo()
+    cold = spgemm_plan(coo, coo, tile=32, group=4, device=cuda,
+                       cache=PlanCache(disk_dir=str(tmp_path)), validate="deep")
+    assert cold._executor.staged_runs()[0].ptr.is_cuda
+    assert verify_plan(cold).ok and lint_plan_kernel_specs(cold) == []
+    vals = np.random.default_rng(8).standard_normal((2, a.nnz)).astype(np.float32)
+    want = spgemm_gustavson(CSR(a.indptr, a.indices, vals[0], a.shape),
+                            CSR(a.indptr, a.indices, vals[1], a.shape)).todense()
+    np.testing.assert_allclose(cold.execute(vals[0], vals[1]).todense(), want,
+                               rtol=1e-4, atol=1e-4)
+    [path] = glob.glob(os.path.join(str(tmp_path), "*.plan-torch.npz"))
+    with np.load(path, allow_pickle=False) as npz:
+        arrays = {n: npz[n].copy() for n in npz.files if n != _META_KEY}
+        header = json.loads(bytes(np.asarray(npz[_META_KEY])).decode())
+    arrays["sched.a_slot"][0] = header["meta"]["a_shape"][0]
+    header["digest"] = _payload_digest(arrays, header["meta"])
+    with open(path, "wb") as f:
+        np.savez(f, **arrays, **{_META_KEY: np.frombuffer(json.dumps(header).encode(), np.uint8)})
+    before = spgemm_scheduled.launches
+    cache = PlanCache(disk_dir=str(tmp_path))
+    plan = spgemm_plan(coo, coo, tile=32, group=4, device=cuda, cache=cache, validate="deep")
+    torch.cuda.synchronize()
+    assert spgemm_scheduled.launches == before
+    assert cache.stats()["load_failures"] == 1 and plan.report.schedule_builds == 1
+    got = plan.execute(vals[0], vals[1])
+    assert np.array_equal(got.data, cold.execute(vals[0], vals[1]).data)
+
+
 # -- flash attention (K5) -------------------------------------------------------
 
 # (rtol, atol); see the module docstring for bfloat16's.

@@ -36,7 +36,8 @@ def test_port_and_chip_smoke_import_no_jax():
     # Every kernel wrapper, the MoE layer, the SpGEMM pipeline, the value
     # stream, the matrix file I/O, the plan cache, its disk tier, the
     # shard mesh, the performance models, the probe primitives, the
-    # autotuner, the gateway and its metrics are among the modules
+    # autotuner, the gateway and its metrics, the static analysis, the
+    # buffering model and the paper-matrix config are among the modules
     # imported.
     for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
@@ -46,5 +47,27 @@ def test_port_and_chip_smoke_import_no_jax():
                  "repro_torch.spgemm.persist", "repro_torch.launch.mesh",
                  "repro_torch.core.perfmodel", "repro_torch.core.tuning",
                  "repro_torch.spgemm.autotune", "repro_torch.spgemm.gateway",
-                 "repro_torch.runtime.heartbeat"):
+                 "repro_torch.runtime.heartbeat", "repro_torch.analysis",
+                 "repro_torch.analysis.verify", "repro_torch.analysis.kernel_lint",
+                 "repro_torch.analysis.locks", "repro_torch.analysis.check",
+                 "repro_torch.core.buffering", "repro_torch.configs.paper_matrices"):
         assert name in out.stdout.split(), name
+
+
+def test_analysis_cli_runs_on_the_cpu():
+    """The static-analysis CLI end to end on the CPU: kernel lint, the
+    element, block, two-shard and rehydrated plans of poisson3Da at 1 %
+    scale under ``validate="deep"``, and the lock-order lint."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.check", "--paper-matrices",
+         "--matrices", "poisson3Da", "--scale", "0.01", "--device", "cpu", "--shards", "2",
+         "--lock-lint"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=240,
+    )
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    for line in ("element", "block", "sharded x2", "rehydrated"):
+        assert any(x.strip().startswith(line) and " ok " in x for x in out.stdout.splitlines()), (
+            line, out.stdout)
+    assert "acyclic: ok" in out.stdout and "all static checks passed" in out.stdout

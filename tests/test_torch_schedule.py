@@ -101,6 +101,30 @@ def test_assembly_map_bitwise(schedules):
     )
 
 
+@pytest.mark.parametrize("trim", [(0, 0), (5, 3)])
+def test_assembly_map_order_without_sort_and_its_fallback(schedules, trim):
+    """The port puts C's elements in row-major order without a sort when
+    the C blocks are (brow, bcol)-ascending, and sorts (as the reference
+    does) when they are not: both equal the reference's map bitwise, on
+    the true shape and on one trimmed inside the edge blocks."""
+    t_s, r_s, block, shape = schedules
+    shape = (max(shape[0] - trim[0], 1), max(shape[1] - trim[1], 1))
+    _assert_fields_equal(t_sched.build_assembly_map(t_s, block, shape),
+                         r_sched.build_assembly_map(r_s, block, shape))
+    # Swap the first and last C blocks: the keys are no longer ascending.
+    swap = {}
+    for f in ("c_brow", "c_bcol"):
+        arr = getattr(t_s, f).copy()
+        arr[[0, -1]] = arr[[-1, 0]]
+        swap[f] = arr
+    assert t_sched._blocks_ascending(t_s.c_brow, t_s.c_bcol, t_s.grid_n)
+    if t_s.nnzb_c > 1:
+        assert not t_sched._blocks_ascending(swap["c_brow"], swap["c_bcol"], t_s.grid_n)
+    _assert_fields_equal(
+        t_sched.build_assembly_map(dataclasses.replace(t_s, **swap), block, shape),
+        r_sched.build_assembly_map(dataclasses.replace(r_s, **swap), block, shape))
+
+
 def test_codecs_match_and_cross_decode(schedules):
     t_s, r_s, block, shape = schedules
     t_arr = t_sched.schedule_to_arrays(t_s)

@@ -182,9 +182,28 @@ the run with a nonzero exit code and no result line:
     and K5 48 times, all on the tensor-core kernels, with finite logits; the largest logit difference and
     greedy agreement against the plain path; decode at batch 4 and
     ``BatchedServer`` answering 8 requests; prefill, decode and server
-    times with the device's busy share; one ``{"kernels": [...]}`` line
-    with K1-K5;
-14. the last line: ``{"ok": true, "device": {...}}``.
+    times with the device's busy share;
+14. training: (a) ``ops.attention``'s VJP (K5 forward, the reference's
+    plain recompute backward) against autograd through the plain version
+    at phase 6's shapes, windows, a q_offset and ragged lengths, in
+    float32 within 2e-4 and bfloat16 within ``ATTN_TOL``; (b)
+    granite-3-2b at full width, float32, 4 layers, trainable weights
+    drawn on the card from seed 0, on 4 x 2048 ``SyntheticLM`` tokens
+    (seed 0): ``lm_loss`` and every gradient on the K5 path against the
+    plain path (``TRAIN_GRAD_TOL``), K5 twice per layer (forward and
+    remat recompute); (c) granite-3-2b at full width and depth in the
+    config's dtypes (bf16 compute, float32 params, remat "full"):
+    ``make_train_step`` with the launcher's AdamW takes 3 steps with
+    finite loss and grad_norm, moving every parameter, 80 K5 launches per
+    step; the median step time, the peak memory allocated, the device's
+    busy share of a profiled step, and the plain recompute backward of one
+    layer's attention beside SDPA's forward + backward and its bound; (d)
+    ``launch_train`` at the reduced config on the card, 20 steps with
+    checkpoints every 5 under ``build/train_ckpt/``: the loss falls, a
+    second launch resumes at step 20 with params and optimizer state
+    bitwise equal to the saved ones; then one ``{"kernels": [...]}`` line
+    with K1-K5 (K5's launches: the bf16 prefill's and the 3 train steps');
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
@@ -209,7 +228,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs.registry import get_config, get_reduced  # noqa: E402
 from repro_torch.core import perfmodel, tuning  # noqa: E402
 from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.core.schedule import build_assembly_map, build_spgemm_schedule  # noqa: E402
@@ -227,10 +247,16 @@ from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.models import moe, transformer as tr  # noqa: E402
 from repro_torch.models.mlp import sparse_block_mask  # noqa: E402
 from repro_torch.models.nn import cast_params  # noqa: E402
-from repro_torch.runtime.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.runtime.steps import (  # noqa: E402
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)
 from repro_torch.sparse.convert import to_bcsr, to_bcsv  # noqa: E402
 from repro_torch.sparse.formats import BCSV, COO, CSR  # noqa: E402
-from repro_torch.data.pipeline import SpGEMMValueStream  # noqa: E402
+from repro_torch.data.pipeline import SpGEMMValueStream, SyntheticLM  # noqa: E402
+from repro_torch.launch.train import launch_train, make_optimizer  # noqa: E402
+from repro_torch.models.tree import flatten_with_paths, tree_leaves  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse, random_coo, suite_matrix  # noqa: E402
 from repro_torch.launch.mesh import make_shard_mesh  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
@@ -324,6 +350,23 @@ GMM_TOL = 1e-4
 LIB_TOL = 3e-2
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_F32_LAYERS = 4
+# Training (phase 14). (b): granite at full width in float32, depth cut to
+# 4 layers, lm_loss and every gradient on the K5 path against the plain
+# path. Both paths run the same plain recompute backward; they differ only
+# in the attention forwards (K5 against the plain version, within 2e-4 in
+# float32), so the loss is held within rtol 1e-4 and each gradient within
+# 1e-3 of its leaf's largest plain-path magnitude: room for that forward
+# difference carried through 4 layers, the embedding gradient's
+# order-dependent CUDA scatter-add and the reductions' order, and far
+# below what a gradient that misses a term would show.
+TRAIN_F32_LAYERS = 4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# (c): granite at full width and depth, the config's dtypes, 3 steps.
+TRAIN_STEPS = 3
+# (d): launch_train at the reduced config, checkpoints under build/.
+LAUNCH_STEPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_CKPT_EVERY = 20, 64, 64, 5
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 
 
 def log(msg: str) -> None:
@@ -2456,6 +2499,20 @@ def bsr_bound(m, n, w: BCSV, itemsize) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
 
 
+def refuses_grad(call, what: str) -> None:
+    """``call`` (a K3 or K4 entry point on CUDA operands that require
+    grad) must raise, launching nothing: the kernel's output would carry
+    no gradient."""
+    before = counts()
+    try:
+        call()
+    except NotImplementedError as e:
+        check(counts() == before, f"{what}: launched while refusing")
+        log(f"  {what} on CUDA operands that require grad: refused ({e})")
+        return
+    raise AssertionError(f"{what} accepted CUDA operands that require grad")
+
+
 def phase_bsr(dev) -> dict:
     for m, k, n, bk, bn in BSR_SHAPES:
         x = np.random.default_rng(0).standard_normal((m, k), dtype=np.float32)
@@ -2483,6 +2540,10 @@ def phase_bsr(dev) -> dict:
         check(torch.equal(got.cpu(), torch.from_numpy(xi @ wd)),
               f"K3 small integers not bitwise in {dtype}")
         log(f"  K3 (200, 384, 512) {str(dtype)[6:]} small integers: bitwise equal to x @ W")
+
+    _, w = bsr_weight(256, 256, 128, 128, seed=7)
+    xg = torch.from_numpy(x).to(dev).requires_grad_()
+    refuses_grad(lambda: ops.sparse_dense_matmul(xg, w), "K3 ops.sparse_dense_matmul")
 
     # The main path's shape: granite-3-2b's SparseLinear down projection.
     c = BSR_FULL
@@ -2605,6 +2666,11 @@ def phase_gmm(dev) -> tuple:
         check(torch.equal(got, ref.moe_gmm_ref(x, w, te, tm)),
               f"K4 small integers not bitwise at tm {tm}")
         log(f"  K4 (1024, 128, 384) E 8 tm {tm} small integers: bitwise equal to plain")
+    x, w, te = gmm_inputs(dev, 256, 128, 256, 2, 128, torch.float32, SEED)
+    refuses_grad(lambda: ops.grouped_matmul(x.requires_grad_(), w, te, tm=128),
+                 "K4 ops.grouped_matmul (x)")
+    refuses_grad(lambda: ops.grouped_matmul(x.detach(), w.requires_grad_(), te, tm=128),
+                 "K4 ops.grouped_matmul (w)")
 
     # qwen3-moe-30b-a3b's expert shapes: 128 experts, prefill 4 x 2048
     # tokens (capacity 640, tile 128), decode at batch 4 (capacity 8, tile 8).
@@ -2834,6 +2900,257 @@ def phase_moe_timings(params, cfg, dev) -> dict:
     return out
 
 
+# -- phase 14: training ----------------------------------------------------------
+
+def attention_grad_check(q, k, v, what: str, causal=True, window=None, q_offset=0) -> None:
+    """``ops.attention`` on inputs that require grad (K5 forward, the plain
+    recompute backward) against autograd through the plain version: the
+    output and dq, dk, dv within ``ATTN_TOL``."""
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED),
+                    device=q.device).to(q.dtype)
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.attention(*t, causal, window, q_offset)
+    got = torch.autograd.grad(out, t, g)
+    t2 = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain = ref.flash_attention_ref(*t2, causal=causal, window=window,
+                                    q_offset=q_offset).to(q.dtype)
+    want = torch.autograd.grad(plain, t2, g)
+    out, plain = out.detach(), plain.detach()
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol, atol=atol,
+                               msg=f"K5 VJP forward {what}")
+    errs = []
+    for name, a, b in zip("qkv", got, want):
+        check(a.dtype == q.dtype and a.shape == b.shape, f"d{name} {what}: dtype or shape")
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol,
+                                   msg=f"K5 VJP d{name} {what}")
+        errs.append(float((a.float() - b.float()).abs().max()))
+    log(f"  K5 VJP {what}: out max_abs_err {float((out.float() - plain.float()).abs().max()):.3g}"
+        f", dq/dk/dv max_abs_err {max(errs):.3g}")
+
+
+def phase_train_attention(dev) -> int:
+    """(a) the attention VJP at phase 6's shapes; returns its K5 launches."""
+    before = flash_attention.launches
+    for shape in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            attention_grad_check(*attention_inputs(dev, shape, dtype),
+                                 f"{shape} {str(dtype)[6:]} causal")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        attention_grad_check(*attention_inputs(dev, (2, 512, 64), dtype),
+                             f"(2, 512, 64) {name} window 128", window=128)
+        q, k, v = attention_inputs(dev, (2, 256, 64), dtype, sq=128)
+        attention_grad_check(q, k, v, f"(2, 128 of 256, 64) {name} window 64 q_offset 200",
+                             window=64, q_offset=200)
+        for sq, skv, d in ((65, 130, 72), (100, 200, 8)):
+            q, k, v = attention_inputs(dev, (3, skv, d), dtype, sq=sq)
+            attention_grad_check(q, k, v, f"({sq} of {skv}, D {d}) {name} q_offset {skv - sq}",
+                                 q_offset=skv - sq)
+    return flash_attention.launches - before
+
+
+def train_batch(cfg, dev, step: int = 0) -> dict:
+    data = SyntheticLM(cfg, LM_BATCH, LM_SEQ, seed=SEED)
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+
+
+def loss_and_grads(params, cfg, batch) -> tuple:
+    total, metrics = tr.lm_loss(params, cfg, **batch)
+    grads = torch.autograd.grad(total, tree_leaves(params))
+    return total.detach(), metrics, grads
+
+
+def phase_train_float32(dev) -> dict:
+    """(b) granite-3-2b at full width, float32, TRAIN_F32_LAYERS layers:
+    ``lm_loss`` and every gradient on the K5 path against the plain path."""
+    cfg = get_config(LM_ARCH).with_(dtype="float32", n_layers=TRAIN_F32_LAYERS)
+    params = tr.init_lm(SEED, cfg, device=dev, trainable=True)
+    batch = train_batch(cfg, dev)
+    reset_counts()
+    total, metrics, grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["flash_attention"] == 2 * cfg.n_layers,
+          f"K5 launches in a float32 forward and backward with remat full: {launched}")
+    with plain_kernels_in_place():
+        p_total, _, p_grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(total) - float(p_total)) / abs(float(p_total))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"lm_loss K5 {float(total)} vs plain {float(p_total)}")
+    worst, worst_path = 0.0, None
+    for (path, _), a, b in zip(flatten_with_paths(params), grads, p_grads):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_path = rel, path
+    check(worst <= TRAIN_GRAD_TOL, f"gradient {worst_path}: {worst:.3g} of its scale")
+    log(f"  {LM_ARCH} float32, {cfg.n_layers} of 40 layers at full width, {LM_BATCH} x {LM_SEQ} "
+        f"SyntheticLM tokens: lm_loss {float(total):.6f} (plain {float(p_total):.6f}, rel "
+        f"{loss_rel:.3g}); K5 launches {launched['flash_attention']} (forward + remat); "
+        f"{len(grads)} gradients, largest difference {worst:.3g} of its leaf's scale "
+        f"({worst_path}; bound {TRAIN_GRAD_TOL})")
+    del params, grads, p_grads
+    torch.cuda.empty_cache()
+    return {"train_f32_layers": cfg.n_layers, "train_f32_loss": float(total),
+            "train_f32_loss_rel": loss_rel, "train_f32_grad_rel_max": worst,
+            "train_f32_grad_rel_max_leaf": worst_path,
+            "train_f32_k5_launches": launched["flash_attention"],
+            "train_f32_moe_aux": float(metrics["moe_aux"])}
+
+
+def attention_backward_timings(dev) -> dict:
+    """The plain recompute backward of one layer's attention at the train
+    step's shape, [LM_BATCH * heads, LM_SEQ, head_dim] bf16 causal (what
+    ``_Attention.backward`` runs), against SDPA's forward + backward (the
+    yardstick; the port never calls it), also at D = 128; the bound is
+    2.5x the forward's operations at the bf16 peak."""
+    cfg = get_config(LM_ARCH)
+    result = {}
+    for d in (cfg.head_dim, 128):
+        bh, s = LM_BATCH * cfg.n_heads, LM_SEQ
+        q, k, v = attention_inputs(dev, (bh, s, d), torch.bfloat16)
+        g = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+        qs, ks, vs = (x[None].clone().requires_grad_() for x in (q, k, v))
+        t = [x.requires_grad_() for x in (q, k, v)]
+        out = ops.attention(*t, True, None, 0)
+
+        def recompute():  # the VJP's backward alone: its forward ran once, above
+            return torch.autograd.grad(out, t, g, retain_graph=True)
+
+        def sdpa():
+            o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            return torch.autograd.grad(o, (qs, ks, vs), g[None])
+
+        bwd_ms = time_ms(recompute, reps=5)
+        sdpa_ms = time_ms(sdpa, reps=20)
+        _, flops = attention_bound(bh, s, d, 2)
+        bound = 2.5 * flops / PEAK_BF16_FLOPS * 1e3
+        log(f"  attention backward [{bh}, {s}, {d}] bf16 causal: plain recompute {bwd_ms:.3f} ms "
+            f"per layer; SDPA forward + backward {sdpa_ms:.4f} ms; bound (2.5x the forward's "
+            f"{flops / 1e12:.3f} TFLOP at the bf16 peak) {bound:.4f} ms")
+        result[f"d{d}"] = {"plain_recompute_ms": bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms,
+                           "bound_ms": bound}
+        del q, k, v, g, qs, ks, vs, t, out
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_full(dev) -> tuple:
+    """(c) granite-3-2b at full width and depth in the config's dtypes:
+    ``make_train_step`` with the launcher's AdamW takes TRAIN_STEPS steps.
+    Returns (K5 launches of those steps, results)."""
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          f"granite's training dtypes: {cfg.remat}, {cfg.dtype}, {cfg.param_dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev, trainable=True)
+    opt = make_optimizer(cfg, TRAIN_STEPS)
+    state = {"params": params, "opt": opt.init(params)}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(f"  {LM_ARCH}: {cfg.n_layers} layers at full width, {n_params} float32 parameters "
+        f"(trainable) and AdamW state drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    leaves = tree_leaves(params)
+    before = torch.stack([p.detach().double().abs().sum() for p in leaves])
+    step = make_train_step(cfg, opt)
+    batches = [train_batch(cfg, dev, i) for i in range(TRAIN_STEPS)]
+
+    def one_step(batch):
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batch)
+        return m
+
+    step_ms, per_step, metrics = [], [], []
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        k5 = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = one_step(batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(flash_attention.launches - k5)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()), f"train step {i + 1} metrics {m}")
+        log(f"  step {i + 1}: loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, "
+            f"{step_ms[i]:.1f} ms, K5 launches {per_step[i]}")
+    check(all(n == 2 * cfg.n_layers for n in per_step) and launched["flash_attention_bf16"]
+          == launched["flash_attention"] == TRAIN_STEPS * 2 * cfg.n_layers,
+          f"K5 launches per step {per_step} (expected {2 * cfg.n_layers}: forward and remat "
+          f"recompute), {launched}")
+    after = torch.stack([p.detach().double().abs().sum() for p in tree_leaves(state["params"])])
+    moved = int((after != before).sum())
+    check(moved == len(leaves), f"only {moved} of {len(leaves)} parameters moved")
+    check(int(state["opt"]["step"]) == TRAIN_STEPS, "optimizer step count")
+    busy = device_busy(lambda: one_step(batches[0]), reps=1)
+    med = float(np.median(step_ms))
+    log(f"  {TRAIN_STEPS} steps of {LM_BATCH} x {LM_SEQ} tokens: median {med:.1f} ms "
+        f"({LM_BATCH * LM_SEQ / med * 1e3:.0f} tokens/s); peak memory allocated "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); all {moved} parameters moved")
+    log(f"  profiled step: wall {busy['wall_ms']:.1f} ms, device busy {busy['device_ms']:.1f} "
+        f"ms (idle {busy['idle_share']:.1%}); unprofiled wall {busy['unprofiled_wall_ms']:.1f} "
+        f"ms (idle ~{busy['idle_share_unprofiled']:.1%}); {busy['kernels_per_call']:.0f} "
+        f"kernels; top {busy['top_ms']}")
+    del state, params, leaves, batches
+    torch.cuda.empty_cache()
+    bwd = attention_backward_timings(dev)
+    share = cfg.n_layers * bwd[f"d{cfg.head_dim}"]["plain_recompute_ms"] / med
+    log(f"  attention backward (plain recompute) x {cfg.n_layers} layers = {share:.1%} of the "
+        f"median step")
+    return launched["flash_attention"], {
+        "train_params": n_params, "train_steps": TRAIN_STEPS, "train_step_ms": step_ms,
+        "train_step_ms_median": med, "train_tokens_per_s": LM_BATCH * LM_SEQ / med * 1e3,
+        "train_peak_bytes": peak, "train_k5_launches_per_step": per_step,
+        "train_metrics": metrics, "train_profile_step": busy,
+        "train_attention_backward": bwd, "train_attention_backward_share": share,
+    }
+
+
+def phase_launch_train(dev) -> dict:
+    """(d) ``launch_train`` at granite's reduced config on the card: the
+    loss falls over LAUNCH_STEPS steps with checkpoints every
+    LAUNCH_CKPT_EVERY; a second launch over the same directory resumes at
+    the newest step and holds the saved params and optimizer state
+    bitwise."""
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    kw = dict(steps=LAUNCH_STEPS, batch=LAUNCH_BATCH, seq=LAUNCH_SEQ, ckpt_dir=str(TRAIN_CKPT),
+              log_every=LAUNCH_CKPT_EVERY, ckpt_every=LAUNCH_CKPT_EVERY, device=dev)
+    before = flash_attention.launches
+    t0 = time.perf_counter()
+    res = launch_train(LM_ARCH, **kw)
+    train_s = time.perf_counter() - t0
+    k5 = flash_attention.launches - before
+    losses = [h["loss"] for h in res["history"]]
+    check(res["final_step"] == LAUNCH_STEPS and losses[-1] < losses[0],
+          f"launch_train: {res['final_step']} steps, losses {losses}")
+    n_layers = get_reduced(LM_ARCH).n_layers
+    check(k5 == LAUNCH_STEPS * 2 * n_layers,
+          f"launch_train: K5 launches {k5}, expected {LAUNCH_STEPS * 2 * n_layers}")
+    steps_kept = CheckpointManager(str(TRAIN_CKPT)).all_steps()
+    again = launch_train(LM_ARCH, **dict(kw, seed=SEED + 1))
+    check(again["final_step"] == LAUNCH_STEPS and again["history"] == [],
+          f"the second launch did not resume at step {LAUNCH_STEPS}: {again['final_step']}")
+    saved = tree_leaves({"p": res["params"], "o": res["opt_state"]})
+    restored = tree_leaves({"p": again["params"], "o": again["opt_state"]})
+    check(len(saved) == len(restored) and all(
+        a.device == b.device and torch.equal(a.detach(), b.detach())
+        for a, b in zip(saved, restored)), "restored state differs from the saved state")
+    log(f"  launch_train({LM_ARCH}, reduced, {LAUNCH_STEPS} steps of {LAUNCH_BATCH} x "
+        f"{LAUNCH_SEQ}, checkpoints every {LAUNCH_CKPT_EVERY}) on the card in {train_s:.2f} s: "
+        f"loss {' -> '.join(f'{x:.4f}' for x in losses)}; K5 launches {k5}; checkpoints kept "
+        f"{steps_kept}; a second launch resumed at step {again['final_step']}, {len(saved)} "
+        f"tensors of params and optimizer state bitwise equal to the saved ones")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return {"launch_losses": losses, "launch_k5_launches": k5, "launch_s": train_s,
+            "launch_ckpt_steps": steps_kept}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2991,6 +3308,22 @@ def main() -> int:
     extra.update(moe_info)
     extra.update(phase_moe_timings(params, cfg, dev))
     del params
+    torch.cuda.empty_cache()
+
+    log("[14] training: the attention VJP; granite-3-2b float32 (4 layers) gradients, K5 vs "
+        "plain; 3 full-width, full-depth bf16 train steps; launch_train, checkpoints, resume")
+    t0 = time.perf_counter()
+    vjp_launches = phase_train_attention(dev)
+    log(f"  (a) K5 launches in the VJP checks: {vjp_launches}")
+    extra["train_vjp_check_k5_launches"] = vjp_launches
+    extra.update(phase_train_float32(dev))
+    train_launches, train_info = phase_train_full(dev)
+    extra.update(train_info)
+    extra.update(phase_launch_train(dev))
+    extra["train_phase_s"] = time.perf_counter() - t0
+    k5_entry["launches_by_path"] = {"prefill": k5_entry["launches"],
+                                    f"train_step x{TRAIN_STEPS}": train_launches}
+    k5_entry["launches"] += train_launches
     k4_entry = {
         "name": "moe_gmm", "route": "cuda", "source": SOURCE_K4,
         "replaces": "src/repro/kernels/moe_gmm.py:49", "launches": moe_launched["moe_gmm"],

@@ -11,6 +11,11 @@ pipeline, the plan cache and its disk tier, sharded plans, the per-pattern
 autotuner and the multi-tenant serving gateway (``spgemm``,
 ``launch.mesh``, ``runtime.heartbeat``), the paper's performance models
 and the probe primitives (``core.perfmodel``, ``core.tuning``), its value
-stream (``data``), and LM serving for text models of attention + MLP or
-MoE blocks (``configs``, ``models``, ``runtime.steps``, ``launch.serve``).
+stream (``data``), LM serving for text models of attention + MLP or MoE
+blocks (``configs``, ``models``, ``runtime.steps``, ``launch.serve``), and
+LM training: the loss with its backward, AdamW, clipping, schedules and
+gradient compression, the fault-tolerant trainer with checkpoints, the
+synthetic token pipeline and the launcher (``models.transformer.lm_loss``,
+``optim``, ``runtime.trainer``, ``checkpoint``, ``data``,
+``launch.train``).
 """

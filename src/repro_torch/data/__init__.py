@@ -1,2 +1,2 @@
-"""Input pipelines: the SpGEMM value stream that feeds
-``SpGEMMPlan.execute_stream`` (the LM token pipeline is not ported)."""
+"""Input pipelines: the synthetic LM token batches that feed training and
+the SpGEMM value stream that feeds ``SpGEMMPlan.execute_stream``."""

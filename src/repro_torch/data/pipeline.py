@@ -1,12 +1,16 @@
-"""Deterministic SpGEMM value stream (the serving-shaped input side).
+"""Deterministic synthetic data: LM token batches and the SpGEMM value
+stream.
 
-:class:`SpGEMMValueStream` draws fresh values for one fixed sparsity
-pattern at every step, as a pure function of ``(seed, step)`` with numpy,
-so that it gives the same arrays as the JAX package's stream of the same
-name; :func:`_prefetch_iter` runs the drawing in a background thread, so
-it overlaps the pipeline's device work. The LM token pipeline
-(``SyntheticLM``, ``batch_specs``, ``shard_batch``) belongs to the
-training slice and is not ported.
+:class:`SyntheticLM` draws LM batches and :class:`SpGEMMValueStream`
+fresh values for one fixed sparsity pattern, each as a pure function of
+``(seed, step)`` with numpy, so that they give the same arrays as the JAX
+package's classes of the same names; :func:`_prefetch_iter` runs the
+drawing in a background thread, so it overlaps the device's work.
+
+``batch_specs`` (``ShapeDtypeStruct`` stand-ins for the dry-run) waits
+for the dry-run tooling. ``shard_batch`` has no counterpart: it lays the
+global batch out on the mesh's data axes, and on one card the caller
+moves the batch with ``.to(device)``.
 """
 from __future__ import annotations
 
@@ -16,9 +20,10 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from repro_torch.models.config import ModelConfig
 from repro_torch.sparse.formats import COO
 
-__all__ = ["SpGEMMValueStream"]
+__all__ = ["SyntheticLM", "SpGEMMValueStream"]
 
 
 def _prefetch_iter(batch_at, start_step: int, prefetch: int) -> Iterator[Dict]:
@@ -62,6 +67,78 @@ def _prefetch_iter(batch_at, start_step: int, prefetch: int) -> Iterator[Dict]:
             yield payload
     finally:
         stop.set()
+
+
+class SyntheticLM:
+    """Deterministic synthetic LM batches for a given config.
+
+    The token stream is a mixture of structured sequences (ramps, repeats,
+    n-gram chains) so that a tiny model's training visibly reduces the
+    loss; pure-uniform tokens have no learnable signal. ``batch_at(step)``
+    is bitwise equal to the reference's.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        batch: int,
+        seq: int,
+        seed: int = 0,
+    ):
+        self.cfg = cfg
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+
+    def _tokens(self, rng: np.random.Generator, b: int, s: int) -> np.ndarray:
+        v = self.cfg.vocab
+        kind = rng.integers(0, 3, b)
+        out = np.empty((b, s), np.int32)
+        for i in range(b):
+            if kind[i] == 0:  # ramp with random stride
+                start, stride = rng.integers(0, v), rng.integers(1, 7)
+                out[i] = (start + stride * np.arange(s)) % v
+            elif kind[i] == 1:  # repeated motif
+                mlen = int(rng.integers(2, 17))
+                motif = rng.integers(0, v, mlen)
+                out[i] = np.tile(motif, s // mlen + 1)[:s]
+            else:  # first-order chain: next = (3*prev + c) % v
+                c = int(rng.integers(1, v))
+                seq = np.empty(s, np.int64)
+                seq[0] = rng.integers(0, v)
+                for t in range(1, s):
+                    seq[t] = (3 * seq[t - 1] + c) % v
+                out[i] = seq
+        return out
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            feats = rng.standard_normal(
+                (self.batch, self.seq, cfg.frontend_dim)
+            ).astype(np.float32)
+            labels = rng.integers(0, cfg.vocab, (self.batch, self.seq)).astype(np.int32)
+            mask = (rng.random((self.batch, self.seq)) < 0.08).astype(np.float32)
+            return {"feats": feats, "labels": labels, "mask": mask}
+        if cfg.frontend == "vision":
+            s_text = self.seq - cfg.num_patches
+            toks = self._tokens(rng, self.batch, s_text + 1)
+            feats = rng.standard_normal(
+                (self.batch, cfg.num_patches, cfg.frontend_dim)
+            ).astype(np.float32)
+            return {
+                "tokens": toks[:, :-1],
+                "labels": toks[:, 1:],
+                "feats": feats,
+            }
+        toks = self._tokens(rng, self.batch, self.seq + 1)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+    def iter(self, start_step: int = 0, prefetch: int = 2) -> Iterator[Dict]:
+        """Background-thread prefetching iterator starting at start_step."""
+        return _prefetch_iter(self.batch_at, start_step, prefetch)
 
 
 class SpGEMMValueStream:

@@ -6,12 +6,21 @@
   (K3, the SparseLinear forward);
 * ``grouped_matmul``: the MoE expert compute over expert-sorted tokens
   (K4);
-* ``attention``: prefill attention (the flash kernel, K5).
+* ``attention``: prefill attention (the flash kernel, K5), with the
+  reference's recompute backward.
 
 Each takes ``backend`` as :func:`repro_torch.kernels.backend.resolve_backend`
 checks it and runs where its tensors lie: the kernel for CUDA tensors, its
 plain version for CPU tensors (``spgemm`` takes ``device``, since its
 inputs are host arrays).
+
+Gradients: ``attention`` has the reference's custom VJP, a recompute
+through the plain version. The reference gives K3 and K4 no VJP (its MoE
+and SparseLinear train through ``jnp`` products), and their launches here
+write a fresh tensor outside autograd, so ``sparse_dense_matmul`` and
+``grouped_matmul`` refuse CUDA inputs that require grad rather than drop
+the gradient without a word (ROADMAP queue 1, item 4: MoE training on the
+card). On CPU tensors their plain versions are differentiable.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.schedule import SpGEMMSchedule
+from repro_torch.kernels import ref
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.bsr_spmm import bsr_spmm, plan_bsr
 from repro_torch.kernels.flash_attention import flash_attention
@@ -73,6 +83,18 @@ def spgemm(
         plan.release_device_values()
 
 
+def _refuse_grad_on_card(what: str, *tensors: torch.Tensor) -> None:
+    """Raise for CUDA operands that require grad: the kernel's launch
+    writes its output outside autograd, so they would get no gradient."""
+    if tensors[0].device.type == "cuda" and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors
+    ):
+        raise NotImplementedError(
+            f"{what} has no backward on the card: its kernel's output would carry no "
+            "gradient to its operands (ROADMAP queue 1, item 4: MoE training on the card)"
+        )
+
+
 def _bsr_operands(w: BCSV) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """W's blocks in the SpMM kernel's order, with every column panel
     covered: (blocks, brow, bcol, flags), host arrays.
@@ -114,9 +136,11 @@ def sparse_dense_matmul(
     [M, N] float32.
 
     W's blocks (host numpy) go to x's device in x's dtype; M is padded to
-    a multiple of ``tm`` for the kernel and the padding sliced off.
+    a multiple of ``tm`` for the kernel and the padding sliced off. A CUDA
+    ``x`` that requires grad is refused (see the module docstring).
     """
     resolve_backend(backend, x.device)
+    _refuse_grad_on_card("sparse_dense_matmul (K3)", x)
     k, n = w.shape
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
@@ -138,8 +162,10 @@ def grouped_matmul(
     backend: str = "auto",
 ) -> torch.Tensor:
     """out[tile i] = x[tile i] @ w[tile_expert[i]] over ``tm``-row tiles;
-    returns [T, F] float32 (:func:`moe_gmm`)."""
+    returns [T, F] float32 (:func:`moe_gmm`). CUDA operands that require
+    grad are refused (see the module docstring)."""
     resolve_backend(backend, x.device)
+    _refuse_grad_on_card("grouped_matmul (K4)", x, w)
     return moe_gmm(x, w, tile_expert, tm=tm)
 
 
@@ -160,16 +186,36 @@ def attention(
     launches the kernel for CUDA tensors and takes the plain version for
     CPU tensors, so both backends give the plain version on the CPU.
 
-    Forward only: the reference's recompute backward (a custom VJP through
-    the plain version) comes with the training slice, so CUDA inputs that
-    require grad raise.
+    Differentiable: when grad is enabled and q, k or v requires it, the
+    call goes through :class:`_Attention`, the reference's custom VJP.
     """
     resolve_backend(backend, q.device)
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v)
-    ):
-        raise NotImplementedError(
-            "attention has no backward on the card yet: the recompute VJP "
-            "comes with the training slice (ROADMAP queue 1, item 15)"
-        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window, q_offset)
     return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+class _Attention(torch.autograd.Function):
+    """The reference's ``attention`` VJP: the forward is
+    :func:`flash_attention` (K5 for CUDA tensors) and saves q, k and v;
+    the backward recomputes the plain version under autograd and returns
+    its dq, dk and dv (``_attention_bwd``). The reference has no backward
+    Pallas kernel ("a TPU-side optimization; semantics identical"), so the
+    plain recompute holds [BH, Sq, Skv] float32 scores while it runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = ref.flash_attention_ref(qd, kd, vd, causal=causal, window=window,
+                                          q_offset=q_offset).to(q.dtype)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None, None, None

@@ -1,2 +1,2 @@
-"""Launchers: the batched LM server, and the device meshes of sharded
-SpGEMM plans."""
+"""Launchers: the training launcher (``train``), the batched LM server,
+and the device meshes of sharded SpGEMM plans."""

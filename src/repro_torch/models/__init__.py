@@ -1,3 +1,4 @@
 """The LM stack of the port: config, NN primitives, attention, MLP, blocks,
-the transformer, and the carrying of the reference's weights
-(``convert``). Text models with attention + MLP blocks are ported."""
+the transformer with its loss, trees of tensors (``tree``), and the
+carrying of the reference's weights (``convert``). Text models with
+attention + MLP or attention + MoE blocks are ported."""

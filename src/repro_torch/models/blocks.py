@@ -23,7 +23,8 @@ __all__ = ["block_t", "block_forward", "block_decode"]
 def _check_spec(spec: BlockSpec) -> None:
     if spec.mixer == "ssm":
         raise NotImplementedError(
-            "SSM (Mamba2/SSD) mixers are not ported yet (ROADMAP queue 1, item 16)"
+            "SSM (Mamba2/SSD) mixers are not ported yet (ROADMAP queue 1, item 5: SSM and "
+            "the frontends)"
         )
     if spec.mixer != "attn" or spec.ff not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown block spec {spec}")

@@ -24,7 +24,8 @@ from repro_torch.kernels.backend import resolve_device
 __all__ = ["params_from_jax"]
 
 
-def _fill(template: Any, tree: Any, path: str, period, n_periods: int, dtype, device):
+def _fill(template: Any, tree: Any, path: str, period, n_periods: int, dtype, device,
+          trainable: bool):
     """Fill ``template`` from ``tree``. With ``period`` set, every leaf of
     ``tree`` is stacked over ``n_periods`` and the port takes that row."""
     if isinstance(template, Param):
@@ -45,14 +46,15 @@ def _fill(template: Any, tree: Any, path: str, period, n_periods: int, dtype, de
     if missing or extra:
         raise ValueError(f"{path}: missing leaves {missing}, unexpected leaves {extra}")
     return ParamTree({k: _fill(template[k], tree[k], f"{path}/{k}", period, n_periods,
-                               dtype, device)
-                      for k in template})
+                               dtype, device, trainable)
+                      for k in template}, trainable)
 
 
-def params_from_jax(tree: Any, cfg: ModelConfig, device="cuda") -> nn.Module:
+def params_from_jax(tree: Any, cfg: ModelConfig, device="cuda",
+                    trainable: bool = False) -> nn.Module:
     """The port's parameters for ``cfg`` from the reference's tree (numpy
-    leaves), in ``cfg.param_dtype`` on ``device``. Raises on any missing,
-    extra or misshapen leaf."""
+    leaves), in ``cfg.param_dtype`` on ``device``, requiring grad iff
+    ``trainable``. Raises on any missing, extra or misshapen leaf."""
     device = resolve_device(device)
     dtype = cfg.params_dtype()
     template = lm_template(cfg)
@@ -64,13 +66,13 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device="cuda") -> nn.Module:
         if key == "layers":
             out[key] = nn.ModuleList([
                 _fill(layer_t, stacks[i % cfg.period], f"layers[{i % cfg.period}]",
-                      i // cfg.period, cfg.n_periods, dtype, device)
+                      i // cfg.period, cfg.n_periods, dtype, device, trainable)
                 for i, layer_t in enumerate(t)
             ])
         elif key not in tree:
             raise ValueError(f"missing leaves ['{key}']")
         else:
-            out[key] = _fill(t, tree[key], key, None, cfg.n_periods, dtype, device)
+            out[key] = _fill(t, tree[key], key, None, cfg.n_periods, dtype, device, trainable)
     extra = sorted(set(tree) - set(template))
     if extra:
         raise ValueError(f"unexpected leaves {extra}")

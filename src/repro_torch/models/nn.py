@@ -5,12 +5,14 @@ The port of ``repro.models.nn``. Each module describes its parameters as a
 shape and an initialiser. :func:`init_params` materialises a template into
 modules: a dict becomes a :class:`ParamTree` (an ``nn.Module`` indexed like
 the reference's dict, ``p["wq"]["w"]``), a list an ``nn.ModuleList``, a
-leaf an ``nn.Parameter``. Parameters are created without gradients: this
-is the serving slice.
+leaf an ``nn.Parameter``. Parameters require gradients when they are
+made with ``trainable=True`` (training); by default they do not
+(serving, whose steps run under ``torch.no_grad``).
 
-The reference's ``optimization_barrier`` and ``logical_axes`` are left
-out: the one fences XLA's scheduling and the other feeds the mesh's
-sharding rules, and neither has a job in eager inference on one card.
+The reference's ``optimization_barrier`` and ``logical_axes`` have no
+counterpart: the one fences XLA's scheduling across a scan's carry and
+the other feeds the mesh's sharding rules, and eager PyTorch on one card
+has neither.
 """
 from __future__ import annotations
 
@@ -42,14 +44,18 @@ class Param:
 
 
 class ParamTree(nn.Module):
-    """A dict of parameters and sub-trees, indexed by key."""
+    """A dict of parameters and sub-trees, indexed by key. A tensor entry
+    becomes an ``nn.Parameter`` that requires grad iff ``trainable``; an
+    ``nn.Parameter`` entry is kept as it is."""
 
-    def __init__(self, entries: Dict[str, Any]):
+    def __init__(self, entries: Dict[str, Any], trainable: bool = False):
         super().__init__()
         self._names = list(entries)
         for name, value in entries.items():
-            if isinstance(value, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            if isinstance(value, nn.Parameter):
+                self.register_parameter(name, value)
+            elif isinstance(value, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(value, requires_grad=trainable))
             elif isinstance(value, nn.Module):
                 self.add_module(name, value)
             else:
@@ -79,9 +85,11 @@ def _init_leaf(p: Param, generator: torch.Generator, dtype, device) -> torch.Ten
     raise ValueError(f"unknown init {p.init}")
 
 
-def init_params(template: Any, generator: torch.Generator, dtype, device) -> nn.Module:
+def init_params(template: Any, generator: torch.Generator, dtype, device,
+                trainable: bool = False) -> nn.Module:
     """Materialise a template on ``device``, drawing every normal leaf from
-    ``generator`` (which must live on ``device``) in template order.
+    ``generator`` (which must live on ``device``) in template order; the
+    parameters require grad iff ``trainable``.
 
     A leaf's default std is 1/sqrt(shape[0]) of its own shape. The
     reference applies the same rule to templates stacked over layer
@@ -92,7 +100,7 @@ def init_params(template: Any, generator: torch.Generator, dtype, device) -> nn.
         if isinstance(t, Param):
             return _init_leaf(t, generator, dtype, device)
         if isinstance(t, dict):
-            return ParamTree({k: build(v) for k, v in t.items()})
+            return ParamTree({k: build(v) for k, v in t.items()}, trainable)
         if isinstance(t, (list, tuple)):
             return nn.ModuleList([build(v) for v in t])
         raise TypeError(f"unexpected template node {type(t)}")

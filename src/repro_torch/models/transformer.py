@@ -6,17 +6,28 @@ load-balance losses into its aux output, as the reference does. The
 reference scans over layer periods with stacked parameters; the port keeps one parameter tree per layer
 (``params["layers"]``, an ``nn.ModuleList`` of ``n_layers`` trees, layer
 ``i`` of pattern position ``i % period``) and loops over them in Python.
-The reference's remat policy (``cfg.remat``) trades memory for recompute
-in the backward pass and has no meaning in inference; its sharding
-annotations and scheduling fences have no counterpart on one card.
-``lm_loss`` comes with the training slice.
+
+The reference's remat policy (``cfg.remat``) wraps its scan body, one
+layer period; the port wraps each layer's ``block_forward`` (for the
+ported configs a period is one layer) in ``torch.utils.checkpoint``
+when grad is enabled: ``"full"`` keeps only the layer's input and
+recomputes the rest in the backward, ``"dots"`` also keeps the outputs
+of the matrix products without batch dimensions (``aten.mm`` and
+``aten.addmm``; the reference's ``checkpoint_dots_with_no_batch_dims``)
+through a selective-checkpoint policy. Under ``torch.no_grad`` (serving)
+no layer is wrapped. ``lm_loss`` is the cross-entropy LM loss with the
+reference's compute-dtype backward (``_token_nll``). The reference's
+sharding annotations (``shard``, ``lm_axes``) and its scheduling fence
+(``optimization_barrier``) have no counterpart on one card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.blocks import block_decode, block_forward, block_t
@@ -32,14 +43,15 @@ from repro_torch.models.nn import (
 )
 from repro_torch.kernels.backend import resolve_device
 
-__all__ = ["lm_template", "init_lm", "forward", "decode_step", "init_cache"]
+__all__ = ["lm_template", "init_lm", "forward", "decode_step", "init_cache", "lm_loss"]
+
+_NOT_PORTED = "ROADMAP queue 1, item 5: SSM and the frontends"
 
 
 def lm_template(cfg: ModelConfig) -> Dict:
     if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP queue 1, item 16)"
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet ({_NOT_PORTED})"
         )
     t: Dict = {
         "embed": embedding_t(cfg.vocab_padded, cfg.d_model),
@@ -52,13 +64,14 @@ def lm_template(cfg: ModelConfig) -> Dict:
     return t
 
 
-def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> nn.Module:
+def init_lm(seed: int, cfg: ModelConfig, *, device="cuda", trainable: bool = False) -> nn.Module:
     """Random parameters in ``cfg.param_dtype`` on ``device`` (default the
     card; raises without one), drawn from a ``torch.Generator`` on that
-    device seeded with ``seed`` (where the reference takes a PRNG key)."""
+    device seeded with ``seed`` (where the reference takes a PRNG key);
+    they require grad iff ``trainable``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return init_params(lm_template(cfg), gen, cfg.params_dtype(), device)
+    return init_params(lm_template(cfg), gen, cfg.params_dtype(), device, trainable)
 
 
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -83,7 +96,7 @@ def _head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _check_text(cfg: ModelConfig, tokens, feats) -> None:
     if feats is not None or cfg.frontend != "none":
-        raise NotImplementedError("only text models are ported (ROADMAP queue 1, item 16)")
+        raise NotImplementedError(f"only text models are ported ({_NOT_PORTED})")
     if tokens is None:
         raise ValueError("tokens are required")
 
@@ -100,10 +113,41 @@ def forward(
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    run = _remat(cfg.remat) if torch.is_grad_enabled() else _call
     for i, layer in enumerate(params["layers"]):
-        h, a = block_forward(layer, h, cfg, cfg.block_pattern[i % cfg.period], positions)
+        h, a = run(block_forward, layer, h, cfg, cfg.block_pattern[i % cfg.period], positions)
         aux = aux + a
     return _head(params, h, cfg), aux
+
+
+# Matrix products without batch dimensions: the outputs that remat "dots"
+# keeps (the reference's checkpoint_dots_with_no_batch_dims).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _remat(policy: str):
+    """A runner ``(fn, *args) -> fn(*args)`` that checkpoints per the
+    config's remat policy."""
+    if policy == "none":
+        return _call
+    if policy == "full":
+        return functools.partial(_ckpt.checkpoint, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, use_reentrant=False,
+            context_fn=functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -139,3 +183,55 @@ def decode_step(
                             kv=(ck[i], cv[i]))
     logits = _head(params, h, cfg)
     return logits, {"pos": pos + 1, "kv": cache["kv"]}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+class _TokenNLL(torch.autograd.Function):
+    """Per-token -log p(label), the reference's ``_token_nll``. Its
+    backward keeps every [T, V] tensor in the compute dtype: the softmax
+    ``exp(logits - lse)`` cast to the logits' dtype, times g, minus g at
+    the label (``_token_nll_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - picked.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        dt = logits.dtype
+        p = torch.exp(logits.float() - lse[..., None]).to(dt)
+        dl = p * g[..., None].to(dt)
+        dl.scatter_add_(-1, labels[..., None], -g[..., None].to(dt))
+        return dl, None
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return _TokenNLL.apply(logits, labels.long())
+
+
+def lm_loss(
+    params,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    feats: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy LM loss over next-token ``labels`` (pre-shifted by the
+    pipeline), averaged over ``mask`` (all positions by default). Returns
+    (loss + ``router_aux_weight`` * MoE aux, {"loss", "moe_aux"})."""
+    logits, aux = forward(params, cfg, tokens=tokens, feats=feats)
+    nll = _token_nll(logits, labels)
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "moe_aux": aux}

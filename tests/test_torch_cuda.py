@@ -4,9 +4,11 @@ on side streams, a device-resident chain, a sharded plan of four shards on
 one card, a plan rehydrated from the disk tier, the autotuner's probes and
 the serving gateway; the probe timer's device wait), flash attention (K5,
 also at prefill lengths that are not multiples of 512), the block-sparse
-SpMM (K3) and the grouped expert matmul (K4), and the LM forwards through
-K5 and K4. Needs no JAX, so it runs on a machine with
-the card:
+SpMM (K3) and the grouped expert matmul (K4), the LM forwards through
+K5 and K4, and training: the attention VJP (K5 forward, plain recompute
+backward), K3 and K4 refusing CUDA operands that require grad, and train
+steps of the reduced granite through K5. Needs no JAX, so it runs on a
+machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -510,8 +512,9 @@ def test_flash_kernel_refusals(cuda):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.attention(q.requires_grad_(), k, v)
+    # Not a refusal any more: inputs that require grad take the recompute
+    # VJP (K5 forward, plain backward).
+    assert ops.attention(q.requires_grad_(), k, v).grad_fn is not None
 
 
 def test_lm_forward_on_card_through_the_kernel(cuda):
@@ -909,3 +912,78 @@ def test_gateway_on_card_bitwise_equals_execute(cuda):
     assert dispatches <= served_k2 <= batched
     if all(c == 1 for c in chunks.values()):
         assert served_k2 == batched
+
+
+# -- training on the card ---------------------------------------------------------
+
+def test_grouped_and_sparse_matmul_refuse_grad_on_card(cuda):
+    """K3 and K4 write a fresh tensor outside autograd: CUDA operands that
+    require grad are refused, where the gradient would be dropped without
+    a word; without grad (or under no_grad) they launch as before."""
+    x, w, te = _gmm_case(256, 128, 256, 2, 128, 2, torch.float32, cuda)
+    for xg, wg in ((x.clone().requires_grad_(), w), (x, w.clone().requires_grad_())):
+        with pytest.raises(NotImplementedError, match="MoE training on the card"):
+            ops.grouped_matmul(xg, wg, te, tm=128)
+    before = moe_gmm.launches
+    with torch.no_grad():
+        ops.grouped_matmul(x.clone().requires_grad_(), w, te, tm=128)
+    assert moe_gmm.launches == before + 1
+    xs, _, bw = _bsr_case(64, 256, 256, 128, 128, seed=7)
+    xt = torch.from_numpy(xs).to(cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="MoE training on the card"):
+        ops.sparse_dense_matmul(xt, bw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,sq", [(None, 512), (128, 512), (None, 200)])
+def test_attention_backward_on_card_equals_plain_autograd(cuda, dtype, window, sq):
+    """``ops.attention`` on CUDA inputs that require grad: K5 forward (one
+    launch), the plain recompute backward. Its output holds against the
+    plain version within ``ATTN_TOL``; dq, dk, dv equal autograd through
+    the plain version (the same computation) within the same tolerance."""
+    q, k, v = _attn_inputs(cuda, (2, 512, 64), dtype, sq=sq)
+    off = 512 - sq
+    g = torch.randn(q.shape, device=cuda).to(dtype)
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = flash_attention.launches
+    out = ops.attention(*t, True, window, off)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, t, g)
+    t2 = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain = ref.flash_attention_ref(*t2, causal=True, window=window, q_offset=off).to(dtype)
+    want = torch.autograd.grad(plain, t2, g)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol, atol=atol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+def test_train_step_on_card_through_k5(cuda):
+    """Two ``make_train_step`` steps of the reduced granite (float32, remat
+    "full") on 2 x 512 tokens on the card: K5 launches twice per layer per
+    step (the forward and the remat recompute), and the first step's
+    metrics equal the CPU step's on the same weights and batch within
+    1e-4 (the forward's tolerance on the card)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_reduced("granite-3-2b").with_(dtype="float32")
+    assert cfg.remat == "full"
+    params = tr.init_lm(0, cfg, device="cpu", trainable=True)
+    on_card = copy.deepcopy(params).to(cuda)
+    opt = AdamW(lr=1e-3)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, 2, 512).batch_at(0).items()}
+    _, _, want = make_train_step(cfg, opt)(params, opt.init(params), batch)
+    step = make_train_step(cfg, opt)
+    state = opt.init(on_card)
+    for i in range(2):
+        before = flash_attention.launches
+        on_card, state, met = step(on_card, state, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 2 * cfg.n_layers
+        assert all(bool(torch.isfinite(m)) for m in met.values())
+        if i == 0:
+            for key in ("loss", "grad_norm", "total_loss"):
+                torch.testing.assert_close(met[key].cpu(), want[key], rtol=1e-4, atol=1e-4)

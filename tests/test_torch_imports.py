@@ -1,5 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
-everything ``chip_smoke.py`` imports loads neither JAX nor the JAX package.
+"""The port stands alone: importing every module of ``repro_torch``,
+everything ``chip_smoke.py`` imports and the port's example
+(``examples_torch/train_tiny_lm.py``) loads neither JAX nor the JAX
+package.
 
 Runs in a fresh interpreter, so that nothing this test process imported
 (the parity tests import both packages) can hide an import.
@@ -22,6 +24,8 @@ def test_port_and_chip_smoke_import_no_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # its imports only: main() runs under __main__
+        sys.path.insert(0, {os.path.join(ROOT, 'examples_torch')!r})
+        import train_tiny_lm  # the port's example: main() runs under __main__
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
         print(len(names), bad, " ".join(names))
@@ -37,8 +41,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # stream, the matrix file I/O, the plan cache, its disk tier, the
     # shard mesh, the performance models, the probe primitives, the
     # autotuner, the gateway and its metrics, the static analysis, the
-    # buffering model and the paper-matrix config are among the modules
-    # imported.
+    # buffering model, the paper-matrix config and the training stack
+    # (optimizer, checkpoints, trainer, straggler detector, trees of
+    # tensors, launcher) are among the modules imported.
     for name in ("repro_torch.kernels.bsr_spmm", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.gustavson_spgemm",
                  "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
@@ -50,7 +55,12 @@ def test_port_and_chip_smoke_import_no_jax():
                  "repro_torch.runtime.heartbeat", "repro_torch.analysis",
                  "repro_torch.analysis.verify", "repro_torch.analysis.kernel_lint",
                  "repro_torch.analysis.locks", "repro_torch.analysis.check",
-                 "repro_torch.core.buffering", "repro_torch.configs.paper_matrices"):
+                 "repro_torch.core.buffering", "repro_torch.configs.paper_matrices",
+                 "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.clip",
+                 "repro_torch.optim.schedules", "repro_torch.optim.compress",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                 "repro_torch.runtime.trainer", "repro_torch.runtime.straggler",
+                 "repro_torch.models.tree", "repro_torch.launch.train"):
         assert name in out.stdout.split(), name
 
 

@@ -5,8 +5,9 @@ CUDA streams, the plan cache and its disk tier, sharded plans, the
 autotuner, the multi-tenant gateway, static analysis of validated
 plans), serving
 granite-3-2b at full width, the ``ops`` entry points of the block-sparse
-SpMM and the grouped matmul, and serving qwen3-moe-30b-a3b at full width
-through the grouped matmul.
+SpMM and the grouped matmul, serving qwen3-moe-30b-a3b at full width
+through the grouped matmul, training granite-3-2b, and serving the other
+eight architectures of the registry at full width.
 
 Run from the repository root, with no arguments:
 
@@ -201,9 +202,31 @@ the run with a nonzero exit code and no result line:
     ``launch_train`` at the reduced config on the card, 20 steps with
     checkpoints every 5 under ``build/train_ckpt/``: the loss falls, a
     second launch resumes at step 20 with params and optimizer state
-    bitwise equal to the saved ones; then one ``{"kernels": [...]}`` line
-    with K1-K5 (K5's launches: the bf16 prefill's and the 3 train steps');
-15. the last line: ``{"ok": true, "device": {...}}``.
+    bitwise equal to the saved ones;
+15. the other eight architectures (``ARCH_RUNS``), weights drawn on the
+    card from seed 0, inputs from a numpy seed: LM_BATCH x LM_SEQ tokens
+    (hubert: frames of 512; paligemma: 256 patches of 1152 before the
+    text; h2o-danube 1 x 8192, so that its window of 4096 masks). Each:
+    (a) float32 at full width over one period (the fewest layers that
+    hold every block kind: 1, jamba 8): all-position logits through K5
+    and K4 against the plain versions within LM_TOL, K5 once per attention
+    layer and K4 three times per MoE layer, then 32 teacher-forced decode
+    steps against the prefill within LM_TOL (paligemma: against its
+    backbone's text-only forward; hubert, encoder-only, has no decode);
+    (b) bf16 weights (float32 routers) at full width, full depth where it
+    fits and else the most layers that do: the prefill through
+    ``make_prefill_step`` with its launches and peak memory, 8 bf16
+    decode steps against the forward (drift, greedy agreement),
+    ``BatchedServer`` answering 8 requests for mamba2 and jamba (the SSM
+    state across slots); (c) prefill ms and tokens/s, decode ms per step,
+    the MoE dispatch's share of a profiled prefill; then K5 alone at
+    hubert's, paligemma's, h2o-danube's and command-r's prefill shapes
+    and K4 at llama4-scout's and jamba's expert shapes, each against its
+    plain version, SDPA / ``torch.bmm`` and its bound. Then one
+    ``{"kernels": [...]}`` line with K1-K5 (K5's launches: the bf16
+    prefills and the 3 train steps; K4's: the bf16 prefills; the new
+    shapes under ``shapes``);
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
@@ -2135,11 +2158,15 @@ def moe_layers(cfg) -> int:
     return sum(cfg.block_pattern[i % cfg.period].ff == "moe" for i in range(cfg.n_layers))
 
 
+def attention_layers(cfg) -> int:
+    return sum(cfg.block_pattern[i % cfg.period].mixer == "attn" for i in range(cfg.n_layers))
+
+
 def check_launches(launched: dict, cfg, what: str) -> None:
-    """One K5 launch per layer and three K4 launches per MoE layer; with a
-    bfloat16 compute dtype every one of them on the tensor-core kernels,
-    with float32 none."""
-    check(launched["flash_attention"] == cfg.n_layers
+    """One K5 launch per attention layer and three K4 launches per MoE
+    layer; with a bfloat16 compute dtype every one of them on the
+    tensor-core kernels, with float32 none."""
+    check(launched["flash_attention"] == attention_layers(cfg)
           and launched["moe_gmm"] == 3 * moe_layers(cfg),
           f"{what}: launches {launched} for {cfg.n_layers} layers")
     bf16 = cfg.dtype == "bfloat16"
@@ -2148,61 +2175,72 @@ def check_launches(launched: dict, cfg, what: str) -> None:
               f"{what}: {name} launches {launched} with compute dtype {cfg.dtype}")
 
 
-def kernel_and_dense_logits(params, cfg, tokens):
-    """All-position logits through the kernels, then through the plain
-    versions, and the experts each run's MoE layers chose."""
+def model_seq(cfg, batch: dict) -> tuple:
+    """(batch, sequence) of the model's positions for an input batch:
+    frames (audio), patches and text (vision), or tokens."""
+    if cfg.frontend == "audio":
+        return tuple(batch["feats"].shape[:2])
+    b, s = batch["tokens"].shape
+    return b, s + (cfg.num_patches if cfg.frontend == "vision" else 0)
+
+
+def kernel_and_dense_logits(params, cfg, batch: dict):
+    """All-position logits of ``batch`` (tokens and/or feats) through the
+    kernels, then through the plain versions, and the experts each run's
+    MoE layers chose."""
     routes, plain_routes = [], []
     reset_counts()
     with torch.no_grad():
         with recording_routes(routes):
-            full, _ = tr.forward(params, cfg, tokens=tokens)
+            full, _ = tr.forward(params, cfg, **batch)
         torch.cuda.synchronize()
         launched = counts()
         with plain_kernels_in_place(), recording_routes(plain_routes):
-            dense, _ = tr.forward(params, cfg, tokens=tokens)
+            dense, _ = tr.forward(params, cfg, **batch)
     torch.cuda.synchronize()
     check_launches(launched, cfg, "the forward")
     for name, x in (("kernel", full), ("dense", dense)):
-        check(tuple(x.shape) == tuple(tokens.shape) + (cfg.vocab_padded,)
+        check(tuple(x.shape) == model_seq(cfg, batch) + (cfg.vocab_padded,)
               and bool(torch.isfinite(x[..., :cfg.vocab]).all()), f"{name} logits")
     return full, dense, routes, plain_routes
 
 
-def prefill_main_path(params, cfg, tokens) -> dict:
-    """The main path: ``make_prefill_step`` once; returns its launches."""
+def prefill_main_path(params, cfg, batch: dict) -> dict:
+    """The main path: ``make_prefill_step`` once on ``batch`` (tokens
+    and/or feats); returns its launches."""
     prefill = make_prefill_step(cfg)
     reset_counts()
-    last = prefill(params, {"tokens": tokens})
+    last = prefill(params, batch)
     torch.cuda.synchronize()
     launched = counts()
     check_launches(launched, cfg, "prefill")
-    check(tuple(last.shape) == (LM_BATCH, cfg.vocab_padded)
+    check(tuple(last.shape) == (model_seq(cfg, batch)[0], cfg.vocab_padded)
           and bool(torch.isfinite(last[:, :cfg.vocab]).all()), "prefill logits")
     return launched
 
 
-def teacher_forced_decode(params, cfg, tokens, full, dev) -> tuple:
-    """``decode_step`` at batch 1 over the first DECODE_TOKENS tokens of
-    sequence 0, against the prefill's logits of those positions; returns
-    (max abs difference, ms per step). Gated at LM_TOL."""
-    cache = tr.init_cache(cfg, 1, DECODE_TOKENS, device=dev)
+def teacher_forced_decode(params, cfg, tokens, full, dev, n=DECODE_TOKENS) -> tuple:
+    """``decode_step`` at batch 1 over the first ``n`` tokens of sequence
+    0, against the prefill's logits of those positions; returns (max abs
+    difference, ms per step). Gated at LM_TOL."""
+    cache = tr.init_cache(cfg, 1, n, device=dev)
     step = make_decode_step(cfg)
     outs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(DECODE_TOKENS):
+    for t in range(n):
         logits, cache = step(params, cache, tokens[:1, t:t + 1])
         outs.append(logits[:, 0])
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     dec = torch.stack(outs, dim=1)
-    derr = float((dec.float() - full[:1, :DECODE_TOKENS].float()).abs().max())
-    log(f"  teacher-forced decode of {DECODE_TOKENS} tokens (batch 1): max_abs_err "
-        f"{derr:.3g} against the prefill's logits; {dec_s / DECODE_TOKENS * 1e3:.2f} ms "
+    derr = float((dec.float() - full[:1, :n].float()).abs().max())
+    log(f"  teacher-forced decode of {n} tokens (batch 1): max_abs_err "
+        f"{derr:.3g} against the prefill's logits; {dec_s / n * 1e3:.2f} ms "
         f"per step")
-    torch.testing.assert_close(dec, full[:1, :DECODE_TOKENS], rtol=LM_TOL, atol=LM_TOL,
+    torch.testing.assert_close(dec, full[:1, :n], rtol=LM_TOL, atol=LM_TOL,
                                msg="teacher-forced decode against the prefill's logits")
-    return derr, dec_s / DECODE_TOKENS * 1e3
+    return derr, dec_s / n * 1e3
 
 
 def phase_lm_float32(dev):
@@ -2216,9 +2254,9 @@ def phase_lm_float32(dev):
         f"(padded {cfg.vocab_padded}); {n_params} float32 parameters drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     tokens = lm_tokens(cfg, dev)
-    launches = prefill_main_path(params, cfg, tokens)["flash_attention"]
+    launches = prefill_main_path(params, cfg, {"tokens": tokens})["flash_attention"]
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K5 launches {launches}")
-    full, dense, _, _ = kernel_and_dense_logits(params, cfg, tokens)
+    full, dense, _, _ = kernel_and_dense_logits(params, cfg, {"tokens": tokens})
     err = float((full - dense).abs().max())
     torch.testing.assert_close(full, dense, rtol=LM_TOL, atol=LM_TOL,
                                msg="float32 logits: kernel against dense path")
@@ -2266,29 +2304,9 @@ def torch_attention_forbidden():
         attention._gqa_scores_apply = real
 
 
-def phase_lm_bfloat16(params16, dev) -> dict:
-    cfg = get_config(LM_ARCH)
-    info = {}
-    for seq in (LM_SEQ, LM_SEQ_RAGGED):
-        tokens = lm_tokens(cfg, dev, seq)
-        with torch_attention_forbidden():
-            launches = prefill_main_path(params16, cfg, tokens)["flash_attention"]
-            log(f"  prefill {LM_BATCH} x {seq} (make_prefill_step): K5 launches {launches}, "
-                f"no torch attention path")
-            full, dense, _, _ = kernel_and_dense_logits(params16, cfg, tokens)
-        dmax, agree = logit_drift(full, dense, cfg.vocab)
-        log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
-            f"tokens agree at {agree:.4%} of {LM_BATCH * seq} positions")
-        del full, dense
-        tag = "bf16" if seq == LM_SEQ else f"bf16_s{seq}"
-        info.update({f"{tag}_prefill_k5_launches": launches, f"{tag}_kernel_vs_dense_max_abs": dmax,
-                     f"{tag}_greedy_agreement": agree})
-    prefill = make_prefill_step(cfg)
-    info[f"prefill_bf16_s{LM_SEQ_RAGGED}_ms"] = host_ms(
-        lambda: prefill(params16, {"tokens": tokens}), reps=5)
-    log(f"  prefill {LM_BATCH} x {LM_SEQ_RAGGED}, bf16: "
-        f"{info[f'prefill_bf16_s{LM_SEQ_RAGGED}_ms']:.2f} ms (host clock, median of 5)")
-    server = BatchedServer(cfg, batch_slots=4, max_seq=256, seed=SEED, device=dev)
+def serve_requests(server, cfg) -> dict:
+    """``server`` answers 8 requests (8 prompt tokens from a numpy seed,
+    16 new tokens each): every answer checked in full; the times."""
     rng = np.random.default_rng(SEED)
     for i in range(8):
         server.submit(Request(i, rng.integers(0, cfg.vocab, 8).tolist(), 16))
@@ -2304,21 +2322,51 @@ def phase_lm_bfloat16(params16, dev) -> dict:
     log(f"  BatchedServer(batch_slots=4, max_seq=256): {len(done)} requests, {st['tokens']} "
         f"tokens in {st['steps']} steps, {serve_s:.3f} s: {st['tokens'] / serve_s:.1f} "
         f"tokens/s, {serve_s / st['steps'] * 1e3:.2f} ms per step")
-    log(f"  first requests: " + "; ".join(f"{r.rid}: {r.out[:6]}" for r in done[:2]))
+    log("  first requests: " + "; ".join(f"{r.rid}: {r.out[:6]}" for r in done[:2]))
+    return {"serve_s": serve_s, "serve_steps": st["steps"], "serve_tokens": st["tokens"],
+            "serve_tokens_per_s": st["tokens"] / serve_s,
+            "serve_ms_per_step": serve_s / st["steps"] * 1e3}
+
+
+def phase_lm_bfloat16(params16, dev) -> dict:
+    cfg = get_config(LM_ARCH)
+    info = {}
+    for seq in (LM_SEQ, LM_SEQ_RAGGED):
+        tokens = lm_tokens(cfg, dev, seq)
+        with torch_attention_forbidden():
+            launches = prefill_main_path(params16, cfg, {"tokens": tokens})["flash_attention"]
+            log(f"  prefill {LM_BATCH} x {seq} (make_prefill_step): K5 launches {launches}, "
+                f"no torch attention path")
+            full, dense, _, _ = kernel_and_dense_logits(params16, cfg, {"tokens": tokens})
+        dmax, agree = logit_drift(full, dense, cfg.vocab)
+        log(f"  all-position logits, kernel vs dense path: max |dlogit| {dmax:.3g}; greedy "
+            f"tokens agree at {agree:.4%} of {LM_BATCH * seq} positions")
+        del full, dense
+        tag = "bf16" if seq == LM_SEQ else f"bf16_s{seq}"
+        info.update({f"{tag}_prefill_k5_launches": launches, f"{tag}_kernel_vs_dense_max_abs": dmax,
+                     f"{tag}_greedy_agreement": agree})
+    prefill = make_prefill_step(cfg)
+    info[f"prefill_bf16_s{LM_SEQ_RAGGED}_ms"] = host_ms(
+        lambda: prefill(params16, {"tokens": tokens}), reps=5)
+    log(f"  prefill {LM_BATCH} x {LM_SEQ_RAGGED}, bf16: "
+        f"{info[f'prefill_bf16_s{LM_SEQ_RAGGED}_ms']:.2f} ms (host clock, median of 5)")
+    server = BatchedServer(cfg, batch_slots=4, max_seq=256, seed=SEED, device=dev)
+    info.update(serve_requests(server, cfg))
     del server
     torch.cuda.empty_cache()
-    return {
-        **info, "serve_s": serve_s, "serve_steps": st["steps"],
-        "serve_tokens": st["tokens"], "serve_tokens_per_s": st["tokens"] / serve_s,
-        "serve_ms_per_step": serve_s / st["steps"] * 1e3,
-    }
+    return info
 
 
-def attention_bound(bh, s, d, itemsize, causal=True) -> tuple:
+def attention_bound(bh, s, d, itemsize, causal=True, window=None) -> tuple:
     """Least time (ms) for attention over [bh, s, d]: 4*d flops per visible
     (q, k) pair at the bf16 tensor-core peak, against q, k, v read once and
-    o written once at the memory rate; the larger of the two."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+    o written once at the memory rate; the larger of the two. Row i sees
+    i + 1 keys (causal, at most ``window`` of them) or all s."""
+    if not causal:
+        pairs = s * s
+    else:
+        w = min(window or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
     flops = 4.0 * d * pairs * bh
     nbytes = 4.0 * bh * s * d * itemsize
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -2326,14 +2374,16 @@ def attention_bound(bh, s, d, itemsize, causal=True) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
 
 
-def device_busy(fn, reps: int) -> dict:
+def device_busy(fn, reps: int, match: str = "") -> dict:
     """``reps`` calls of ``fn`` unprofiled, then ``reps`` more under
     torch.profiler: the wall time per call of each window, the device's
     kernel time per call, kernels per call and the five kernels that take
     the most time. Recording every op costs host time, so the profiled
     window's idle share is an upper bound; ``idle_share_unprofiled``
     divides the same device time by the adjacent unprofiled window's wall
-    time, an estimate of the idle share without the profiler."""
+    time, an estimate of the idle share without the profiler.
+    ``matched_ms``: the device time per call of the kernels whose name
+    holds ``match``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2356,8 +2406,9 @@ def device_busy(fn, reps: int) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    matched_us = sum(us for name, us in by_name.items() if match and match in name)
     return {"wall_ms": wall_us / reps / 1e3, "device_ms": busy_us / reps / 1e3,
-            "idle_share": 1.0 - busy_us / wall_us,
+            "matched_ms": matched_us / reps / 1e3, "idle_share": 1.0 - busy_us / wall_us,
             "unprofiled_wall_ms": plain_wall_us / reps / 1e3,
             "idle_share_unprofiled": max(0.0, 1.0 - busy_us / plain_wall_us),
             "kernels_per_call": len(kernels) / reps,
@@ -2655,6 +2706,28 @@ def gmm_bound(t, d, f, e, tm, itemsize) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
 
 
+def gmm_timing(x, w, te, tm, got, what: str) -> dict:
+    """K4 at one bf16 expert shape (x [E*C, D], w [E, D, F]), its output
+    ``got`` already checked: the yardstick, the reference's einsum twin
+    as one batched product over [E, C, D] x [E, D, F] (cuBLAS bf16),
+    checked against it; K4, its plain version and the yardstick timed;
+    the bound."""
+    (e, din, dout), t = w.shape, x.shape[0]
+    xb = x.view(e, t // e, din)
+    lib_err = float((torch.bmm(xb, w).float().view(t, dout) - got).abs().max())
+    check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())), f"bmm vs K4: {lib_err}")
+    k_ms = time_ms(lambda: moe_gmm(x, w, te, tm=tm), reps=10)
+    p_ms = time_ms(lambda: ref.moe_gmm_ref(x, w, te, tm), reps=5)
+    lib_ms = time_ms(lambda: torch.bmm(xb, w), reps=20)
+    (b_ms, b_by), flops = gmm_bound(t, din, dout, e, tm, 2)
+    log(f"  K4 timing, {what} bf16: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; "
+        f"torch.bmm over [E, C, D] x [E, D, F] {lib_ms:.4f} ms (K4 / bmm "
+        f"{k_ms / lib_ms:.2f}x; max |bmm - K4| {lib_err:.3g})")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "tflops": flops / k_ms / 1e9, "bmm_max_abs": lib_err}
+
+
 def phase_gmm(dev) -> tuple:
     for t, d, f, e, tm in GMM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2690,27 +2763,13 @@ def phase_gmm(dev) -> tuple:
                                  f"[{e}, {din}, {dout}] tm {tm} {str(dtype)[6:]}")
             if dtype != torch.bfloat16:
                 continue
-            # The yardstick: the reference's einsum twin as one batched
-            # product over [E, C, D] x [E, D, F] (cuBLAS bf16).
-            xb = x.view(e, cap, din)
-            lib_err = float((torch.bmm(xb, w).float().view(e * cap, dout) - got).abs().max())
-            check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())), f"bmm vs K4: {lib_err}")
-            k_ms = time_ms(lambda: moe_gmm(x, w, te, tm=tm), reps=10)
-            p_ms = time_ms(lambda: ref.moe_gmm_ref(x, w, te, tm), reps=5)
-            lib_ms = time_ms(lambda: torch.bmm(xb, w), reps=20)
-            (b_ms, b_by), flops = gmm_bound(e * cap, din, dout, e, tm, 2)
+            row = gmm_timing(x, w, te, tm, got, name)
             key = f"K4_{name.replace(' ', '_').replace('/', '')}"
-            extra.update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms, f"{key}_bmm_ms": lib_ms,
-                          f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
-                          f"{key}_tflops": flops / k_ms / 1e9, f"{key}_max_abs_err": err,
-                          f"{key}_bmm_max_abs": lib_err})
-            log(f"  K4 timing, {name} bf16: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
-                f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; "
-                f"torch.bmm over [E, C, D] x [E, D, F] {lib_ms:.4f} ms (K4 / bmm "
-                f"{k_ms / lib_ms:.2f}x; max |bmm - K4| {lib_err:.3g})")
+            extra.update({f"{key}_{k.replace('library', 'bmm')}": v for k, v in row.items()})
+            extra[f"{key}_max_abs_err"] = err
             if name == "prefill gate/up":
-                timing = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib_ms}
+                timing = {"max_abs_err": err, **{k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
             if name == "decode gate/up":
                 # Host time the two tensor maps add to every launch.
                 lib, reps = _build.load_moe_gmm(), 1000
@@ -2765,7 +2824,7 @@ def describe_lm(cfg, params, t0) -> int:
 def moe_kernel_vs_plain(params, cfg, tokens) -> tuple:
     """Logits of every position through K4/K5 and through their plain
     versions, the expert choices that differ and the dropped pairs."""
-    full, dense, routes, plain_routes = kernel_and_dense_logits(params, cfg, tokens)
+    full, dense, routes, plain_routes = kernel_and_dense_logits(params, cfg, {"tokens": tokens})
     diff = choice_diff(routes, plain_routes, cfg.n_experts)
     drops, first = dropped_pairs(routes, cfg.n_experts, moe._capacity(tokens.numel(), cfg))
     dmax, agree = logit_drift(full, dense, cfg.vocab)
@@ -2784,7 +2843,7 @@ def phase_moe_float32(dev) -> dict:
     torch.cuda.synchronize()
     describe_lm(cfg, params, t0)
     tokens = lm_tokens(cfg, dev)
-    launched = prefill_main_path(params, cfg, tokens)
+    launched = prefill_main_path(params, cfg, {"tokens": tokens})
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K4 launches "
         f"{launched['moe_gmm']}, K5 launches {launched['flash_attention']}")
     full, dense, stats = moe_kernel_vs_plain(params, cfg, tokens)
@@ -2808,7 +2867,7 @@ def float32_routers(params, cfg, dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n = 0
     for layer in params["layers"]:
-        if "router" not in layer["ff"]:
+        if "ff" not in layer or "router" not in layer["ff"]:
             continue
         w = layer["ff"]["router"]["w"]
         w.data = torch.randn(tuple(w.shape), generator=gen, device=dev).mul_(0.02)
@@ -2829,7 +2888,7 @@ def phase_moe_bfloat16(dev) -> tuple:
     log(f"  {len(routers)} routers kept in float32 ({n_router} parameters, "
         f"{4 * n_router / 1e6:.1f} MB); every other weight bfloat16")
     tokens = lm_tokens(cfg, dev)
-    launched = prefill_main_path(params, cfg, tokens)
+    launched = prefill_main_path(params, cfg, {"tokens": tokens})
     log(f"  prefill {LM_BATCH} x {LM_SEQ} (make_prefill_step): K4 launches "
         f"{launched['moe_gmm']}, K5 launches {launched['flash_attention']}")
     full, dense, stats = moe_kernel_vs_plain(params, cfg, tokens)
@@ -2842,30 +2901,13 @@ def phase_moe_bfloat16(dev) -> tuple:
     server = BatchedServer(cfg, batch_slots=4, max_seq=256, device=dev, params=params)
     check(all(layer["ff"]["router"]["w"].dtype == torch.float32
               for layer in server.params["layers"]), "BatchedServer's routers are not float32")
-    rng = np.random.default_rng(SEED)
-    for i in range(8):
-        server.submit(Request(i, rng.integers(0, cfg.vocab, 8).tolist(), 16))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = server.run_until_done()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    check(len(done) == 8 and all(r.done and len(r.out) == 16 for r in done),
-          "BatchedServer did not answer every request in full")
-    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "BatchedServer token ids")
-    st = server.stats
-    log(f"  BatchedServer(batch_slots=4, max_seq=256): {len(done)} requests, {st['tokens']} "
-        f"tokens in {st['steps']} steps, {serve_s:.3f} s: {st['tokens'] / serve_s:.1f} "
-        f"tokens/s, {serve_s / st['steps'] * 1e3:.2f} ms per step")
-    log("  first requests: " + "; ".join(f"{r.rid}: {r.out[:6]}" for r in done[:2]))
+    served = serve_requests(server, cfg)
     del server
     return params, cfg, launched, {
         "moe_params": n_params, "moe_bf16_k4_launches": launched["moe_gmm"],
         "moe_bf16_k5_launches": launched["flash_attention"],
         **{f"moe_bf16_{k}": v for k, v in stats.items()},
-        "moe_serve_s": serve_s, "moe_serve_steps": st["steps"], "moe_serve_tokens": st["tokens"],
-        "moe_serve_tokens_per_s": st["tokens"] / serve_s,
-        "moe_serve_ms_per_step": serve_s / st["steps"] * 1e3,
+        **{f"moe_{k}": v for k, v in served.items()},
     }
 
 
@@ -3151,6 +3193,258 @@ def phase_launch_train(dev) -> dict:
             "launch_ckpt_steps": steps_kept}
 
 
+# -- phase 15: the other eight architectures ------------------------------------
+
+# The eight architectures beyond granite and qwen3, in the registry's
+# order. Traffic: the earlier LM phases' LM_BATCH x LM_SEQ (hubert: frames
+# of frontend_dim; paligemma: its num_patches patches before LM_SEQ text
+# tokens), but h2o-danube at 1 x 8192, so that K5's window (4096) masks.
+# ``layers``: the depth at bf16 weights on the 80 GB card, full where the
+# weights and the prefill's transients fit (command-r: 60.6 GB of weights,
+# a 65.1 GB peak). llama4-scout (4.16 GB a layer beside 4.1 GB of
+# embedding and head, ~7 GB of prefill transients at its 202,112-wide
+# head) and jamba (26 GB a period of 8) are cut to the most layers that
+# fit with their prefill: 16 of 48 (~77 GB peak) and 2 of 4 periods
+# (55.4 GB; a third would need ~81 GB).
+ARCH_RUNS = {
+    "hubert-xlarge": dict(batch=LM_BATCH, seq=LM_SEQ, layers=48),
+    "command-r-35b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=40),
+    "yi-9b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=48),
+    "h2o-danube-3-4b": dict(batch=1, seq=8192, layers=24),
+    "mamba2-130m": dict(batch=LM_BATCH, seq=LM_SEQ, layers=24),
+    "llama4-scout-17b-a16e": dict(batch=LM_BATCH, seq=LM_SEQ, layers=16),
+    "paligemma-3b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=18),
+    "jamba-v0.1-52b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=16),
+}
+# Teacher-forced decode steps against the prefill: float32 gate (LM_TOL)
+# and bf16 (reported).
+ARCH_DECODE_F32, ARCH_DECODE_BF16 = 32, 8
+# Archs whose BatchedServer runs here: the SSM state across slots.
+ARCH_SERVED = ("mamba2-130m", "jamba-v0.1-52b")
+# The kernel name of the MoE dispatch's index_put_(accumulate=True).
+DISPATCH_KERNEL = "indexing_backward_kernel"
+
+
+def arch_batch(cfg, dev, batch: int, seq: int) -> dict:
+    """Inputs of one prefill from a numpy seed: ``seq`` text tokens, or
+    frames (audio), or patches and ``seq`` text tokens (vision)."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    if cfg.frontend != "audio":
+        out["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(dev)
+    if cfg.frontend != "none":
+        n = seq if cfg.frontend == "audio" else cfg.num_patches
+        out["feats"] = torch.from_numpy(
+            rng.standard_normal((batch, n, cfg.frontend_dim), dtype=np.float32)).to(dev)
+    return out
+
+
+def decode_reference(params, cfg, batch: dict, n: int) -> torch.Tensor:
+    """Logits [1, n, V] that teacher-forced decode of sequence 0's first
+    ``n`` tokens must reproduce: the forward of those tokens. The decode
+    cache holds text only (as the reference's ``decode_step``), so for a
+    vision model it is the text-only forward of its backbone."""
+    text_cfg = cfg.with_(frontend="none") if cfg.frontend == "vision" else cfg
+    with torch.no_grad():
+        return tr.forward(params, text_cfg, tokens=batch["tokens"][:1, :n])[0]
+
+
+def arch_float32_gate(arch: str, dev) -> dict:
+    """(a) Full width, float32, the fewest layers that hold every block
+    kind (one period): all-position logits through K5/K4 against the plain
+    versions within LM_TOL, then teacher-forced decode within LM_TOL."""
+    base, run = get_config(arch), ARCH_RUNS[arch]
+    cfg = base.with_(dtype="float32", n_layers=base.period)
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = arch_batch(cfg, dev, run["batch"], run["seq"])
+    full, dense, _, _ = kernel_and_dense_logits(params, cfg, batch)
+    launched = counts()  # the kernel forward's; the plain one launches nothing
+    err = float((full - dense).abs().max())
+    torch.testing.assert_close(full, dense, rtol=LM_TOL, atol=LM_TOL,
+                               msg=f"{arch} float32 logits: kernels against the plain versions")
+    log(f"  (a) float32, {cfg.n_layers} layer(s), {n_params} parameters, "
+        f"{model_seq(cfg, batch)}: K5 {launched['flash_attention']}, K4 "
+        f"{launched['moe_gmm']} launches; logits kernels vs plain max_abs_err {err:.3g} "
+        f"(bound {LM_TOL})")
+    out = {"f32_layers": cfg.n_layers, "f32_kernel_vs_plain_max_abs": err,
+           "f32_k5_launches": launched["flash_attention"], "f32_k4_launches": launched["moe_gmm"]}
+    del dense
+    if not cfg.is_encoder_only:
+        n = ARCH_DECODE_F32
+        want = (decode_reference(params, cfg, batch, n) if cfg.frontend == "vision"
+                else full[:1, :n])
+        out["f32_decode_vs_prefill_max_abs"], _ = teacher_forced_decode(
+            params, cfg, batch["tokens"], want, dev, n)
+    del full, params
+    torch.cuda.empty_cache()
+    out["f32_s"] = time.perf_counter() - t0
+    return out
+
+
+def arch_bfloat16(arch: str, dev) -> tuple:
+    """(b) bf16 weights (float32 routers) at full width and the depth of
+    ``ARCH_RUNS``: the prefill (main path) with its launches and peak
+    memory, bf16 teacher-forced decode against the forward, BatchedServer
+    for the SSM archs; (c) prefill and decode times, and the MoE
+    dispatch's share of a profiled prefill."""
+    run = ARCH_RUNS[arch]
+    cfg = get_config(arch).with_(param_dtype="bfloat16", n_layers=run["layers"])
+    t0 = time.perf_counter()
+    params = tr.init_lm(SEED, cfg, device=dev)
+    float32_routers(params, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    batch = arch_batch(cfg, dev, run["batch"], run["seq"])
+    b, s = model_seq(cfg, batch)
+    torch.cuda.reset_peak_memory_stats()
+    launched = prefill_main_path(params, cfg, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  (b) bf16 weights, {cfg.n_layers} of {get_config(arch).n_layers} layers, "
+        f"{n_params} parameters ({weights_gb:.1f} GB allocated): prefill {b} x {s} "
+        f"(make_prefill_step): K5 {launched['flash_attention']}, K4 {launched['moe_gmm']} "
+        f"launches (attention layers {attention_layers(cfg)}, MoE layers {moe_layers(cfg)}); "
+        f"peak {peak_gb:.1f} GB")
+    out = {"layers": cfg.n_layers, "params": n_params, "weights_gb": weights_gb,
+           "prefill_peak_gb": peak_gb, "k5_launches": launched["flash_attention"],
+           "k4_launches": launched["moe_gmm"]}
+    prefill = make_prefill_step(cfg)
+    out["prefill_ms"] = host_ms(lambda: prefill(params, batch), reps=2)
+    out["prefill_tokens_per_s"] = b * s / (out["prefill_ms"] / 1e3)
+    if cfg.has_moe:
+        prof = device_busy(lambda: prefill(params, batch), reps=1, match=DISPATCH_KERNEL)
+        out["prefill_dispatch_share"] = prof["matched_ms"] / prof["device_ms"]
+        out["profile_prefill"] = prof
+        log(f"  profiled prefill: device busy {prof['device_ms']:.2f} ms, MoE dispatch "
+            f"(index_put_) {prof['matched_ms']:.2f} ms = {out['prefill_dispatch_share']:.1%}; "
+            f"top {prof['top_ms'][:3]}")
+    if not cfg.is_encoder_only:
+        n = ARCH_DECODE_BF16
+        want = decode_reference(params, cfg, batch, n)
+        cache = tr.init_cache(cfg, 1, n, device=dev)
+        step = make_decode_step(cfg)
+        got = []
+        for t in range(n):
+            logits, cache = step(params, cache, batch["tokens"][:1, t:t + 1])
+            got.append(logits[:, 0])
+        got = torch.stack(got, dim=1)
+        check(bool(torch.isfinite(got[..., :cfg.vocab]).all()), f"{arch} bf16 decode logits")
+        dmax, agree = logit_drift(got, want, cfg.vocab)
+        out.update({"bf16_decode_vs_forward_max_abs": dmax, "bf16_decode_greedy_agreement": agree})
+        state = {"cache": tr.init_cache(cfg, b, 256, device=dev)}
+
+        def decode_once():
+            _, state["cache"] = step(params, state["cache"], batch["tokens"][:, :1])
+
+        out["decode_ms_per_step"] = host_ms(decode_once, reps=5, warmup=1)
+        out["decode_tokens_per_s"] = b / (out["decode_ms_per_step"] / 1e3)
+        del state
+        log(f"  bf16 teacher-forced decode of {n} tokens: max |dlogit| {dmax:.3g} against the "
+            f"forward, greedy tokens agree at {agree:.1%}")
+    log(f"  (c) prefill {out['prefill_ms']:.2f} ms ({out['prefill_tokens_per_s']:.0f} tokens/s)"
+        + (f"; decode step at batch {b}: {out['decode_ms_per_step']:.2f} ms "
+           f"({out['decode_tokens_per_s']:.1f} tokens/s)" if "decode_ms_per_step" in out
+           else "; no decode step (encoder-only)"))
+    if arch in ARCH_SERVED:
+        server = BatchedServer(cfg, batch_slots=4, max_seq=256, device=dev, params=params)
+        out.update(serve_requests(server, cfg))
+        del server
+    del params
+    torch.cuda.empty_cache()
+    out["bf16_s"] = time.perf_counter() - t0
+    return launched, out
+
+
+def sdpa_call(q, k, v, causal: bool, window):
+    """``scaled_dot_product_attention`` over [1, BH, S, D] with K5's mask:
+    causal, or a causal window as a boolean mask."""
+    import torch.nn.functional as F
+
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                      is_causal=causal)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)
+
+
+def arch_attention_shape(arch: str, dev) -> dict:
+    """K5 alone at one architecture's prefill shape, bf16: against its
+    plain version (ATTN_TOL), SDPA and its bound."""
+    cfg, run = get_config(arch), ARCH_RUNS[arch]
+    seq = run["seq"] + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    bh, d, window = run["batch"] * cfg.n_heads, cfg.head_dim, cfg.window
+    q, k, v = attention_inputs(dev, (bh, seq, d), torch.bfloat16)
+    kw = dict(causal=cfg.causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    rtol, atol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol,
+                               msg=f"K5 at {arch}'s shape")
+    err = float((got.float() - want).abs().max())
+    del want
+    sdpa = sdpa_call(q, k, v, cfg.causal, window)
+    lib_err = float((sdpa()[0].float() - got.float()).abs().max())
+    check(lib_err <= SDPA_TOL, f"SDPA against K5 at {arch}'s shape: {lib_err}")
+    k_ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps=10)
+    p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), reps=3)
+    lib_ms = time_ms(sdpa, reps=10)
+    (b_ms, b_by), flops = attention_bound(bh, seq, d, 2, cfg.causal, window)
+    log(f"  K5 timing, {arch} bf16 [{bh}, {seq}, {d}]: {k_ms:.4f} ms "
+        f"({flops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.1%} of the bound {b_ms:.4f} ms, "
+        f"{b_by}); plain {p_ms:.4f} ms; SDPA {lib_ms:.4f} ms (K5 / SDPA {k_ms / lib_ms:.2f}x)")
+    return {"arch": arch, "shape": [bh, seq, d], "causal": cfg.causal, "window": window,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "tflops": flops / k_ms / 1e9}
+
+
+def arch_gmm_shapes(arch: str, dev) -> list:
+    """K4 alone at one MoE architecture's prefill expert shapes (gate/up
+    and down; capacity of LM_BATCH x LM_SEQ tokens), bf16: against its
+    plain version (GMM_TOL), ``torch.bmm`` and its bound."""
+    cfg = get_config(arch)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_ff
+    cap = moe._capacity(LM_BATCH * LM_SEQ, cfg)
+    tm = moe._tile_rows(cap)
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(cap // tm)
+    rows = []
+    for name, (din, dout) in (("gate/up", (d, f)), ("down", (f, d))):
+        x, w, _ = gmm_inputs(dev, e * cap, din, dout, e, tm, torch.bfloat16, SEED, te=te)
+        got, err = gmm_check(x, w, te, tm, f"{arch} {name} [{e * cap}, {din}] x "
+                             f"[{e}, {din}, {dout}] tm {tm} bfloat16")
+        rows.append({"arch": arch, "shape": f"{name} [{e * cap}, {din}] x [{e}, {din}, {dout}]",
+                     "max_abs_err": err, **gmm_timing(x, w, te, tm, got, f"{arch} {name}")})
+        del x, w, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_archs(dev) -> tuple:
+    """Phase 15: each of the eight architectures (a) float32 gate, (b)
+    bf16 at full width, (c) timings; then K5 and K4 alone at their new
+    shapes. Returns (K5 and K4 launches by arch prefill, K5 shapes, K4
+    shapes, info)."""
+    launches, info = {}, {}
+    for arch in ARCH_RUNS:
+        t0 = time.perf_counter()
+        log(f"  -- {arch}")
+        row = arch_float32_gate(arch, dev)
+        launched, bf16 = arch_bfloat16(arch, dev)
+        row.update(bf16)
+        launches[arch] = launched
+        info[arch] = row
+        log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    k5 = [arch_attention_shape(arch, dev) for arch in
+          ("hubert-xlarge", "paligemma-3b", "h2o-danube-3-4b", "command-r-35b")]
+    torch.cuda.empty_cache()
+    k4 = [row for arch in ("llama4-scout-17b-a16e", "jamba-v0.1-52b")
+          for row in arch_gmm_shapes(arch, dev)]
+    return launches, k5, k4, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3321,14 +3615,29 @@ def main() -> int:
     extra.update(train_info)
     extra.update(phase_launch_train(dev))
     extra["train_phase_s"] = time.perf_counter() - t0
+
+    log("[15] architectures: hubert-xlarge, command-r-35b, yi-9b, h2o-danube-3-4b, "
+        "mamba2-130m, llama4-scout-17b-a16e, paligemma-3b, jamba-v0.1-52b at full width")
+    t0 = time.perf_counter()
+    arch_launches, k5_shapes, k4_shapes, arch_info = phase_archs(dev)
+    extra["archs"] = arch_info
+    extra["archs_phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15: {extra['archs_phase_s']:.1f} s")
     k5_entry["launches_by_path"] = {"prefill": k5_entry["launches"],
                                     f"train_step x{TRAIN_STEPS}": train_launches}
     k5_entry["launches"] += train_launches
     k4_entry = {
         "name": "moe_gmm", "route": "cuda", "source": SOURCE_K4,
         "replaces": "src/repro/kernels/moe_gmm.py:49", "launches": moe_launched["moe_gmm"],
-        **k4_timing,
+        **k4_timing, "launches_by_path": {f"{MOE_ARCH} prefill": moe_launched["moe_gmm"]},
     }
+    for arch, launched in arch_launches.items():
+        for entry in (k5_entry, k4_entry):
+            n = launched[entry["name"]]
+            if n:
+                entry["launches_by_path"][f"{arch} prefill"] = n
+                entry["launches"] += n
+    k5_entry["shapes"], k4_entry["shapes"] = k5_shapes, k4_shapes
     entries += [k3_entry, k4_entry, k5_entry]
     extra["total_s"] = time.perf_counter() - t_start
     log("timing " + json.dumps(extra))

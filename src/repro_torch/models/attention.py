@@ -134,8 +134,10 @@ def attn_forward(
 
     backend = resolve_backend(cfg.kernel_backend, x.device)
     if backend == "cuda" and (x.device.type == "cuda" or s % _FLASH_SEQ_MULTIPLE == 0):
-        # Flash kernel path: flatten (B, KV, R) into the BH axis.
-        qf = qg.permute(0, 2, 3, 1, 4).reshape(b * kv * rep, s, hd)
+        # Flash kernel path: flatten (B, KV, R) into the BH axis. The kernel
+        # takes contiguous operands; at B = 1 the reshape of q is a strided
+        # view, not a copy.
+        qf = qg.permute(0, 2, 3, 1, 4).reshape(b * kv * rep, s, hd).contiguous()
         kf = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1).reshape(b * kv * rep, s, hd)
         vf = v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1).reshape(b * kv * rep, s, hd)
         of = kops.attention(qf, kf, vf, cfg.causal, cfg.window, 0, cfg.kernel_backend)

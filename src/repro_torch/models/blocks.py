@@ -1,9 +1,7 @@
-"""Decoder blocks: pre-norm attention + MLP or MoE, composed per the
-config's ``block_pattern``.
+"""Decoder/encoder blocks: pre-norm mixer (attention or SSD) + FF (MLP,
+MoE or none), composed per the config's ``block_pattern``.
 
-The port of ``repro.models.blocks`` for ``attn`` mixers and ``mlp``,
-``moe`` (or ``none``) feed-forwards. SSM mixers wait for their module and
-raise.
+The port of ``repro.models.blocks``.
 """
 from __future__ import annotations
 
@@ -16,23 +14,22 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.mlp import mlp_forward, mlp_t
 from repro_torch.models.moe import moe_forward, moe_t
 from repro_torch.models.nn import rmsnorm, rmsnorm_t
+from repro_torch.models.ssm import ssm_decode, ssm_forward, ssm_t
 
 __all__ = ["block_t", "block_forward", "block_decode"]
 
 
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer == "ssm":
-        raise NotImplementedError(
-            "SSM (Mamba2/SSD) mixers are not ported yet (ROADMAP queue 1, item 5: SSM and "
-            "the frontends)"
-        )
-    if spec.mixer != "attn" or spec.ff not in ("mlp", "moe", "none"):
+    if spec.mixer not in ("attn", "ssm") or spec.ff not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown block spec {spec}")
 
 
 def block_t(cfg: ModelConfig, spec: BlockSpec) -> Dict:
     _check_spec(spec)
-    t = {"ln1": rmsnorm_t(cfg.d_model), "mixer": attn_t(cfg)}
+    t = {
+        "ln1": rmsnorm_t(cfg.d_model),
+        "mixer": attn_t(cfg) if spec.mixer == "attn" else ssm_t(cfg),
+    }
     if spec.ff != "none":
         t["ln2"] = rmsnorm_t(cfg.d_model)
         t["ff"] = mlp_t(cfg) if spec.ff == "mlp" else moe_t(cfg)
@@ -50,7 +47,11 @@ def block_forward(
     _check_spec(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn_forward(p["mixer"], h, cfg, positions)
+    if spec.mixer == "attn":
+        h = attn_forward(p["mixer"], h, cfg, positions)
+    else:
+        h = ssm_forward(p["mixer"], h, cfg)
+    x = x + h
     if spec.ff == "none":
         return x, aux
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -66,18 +67,28 @@ def block_decode(
     cfg: ModelConfig,
     spec: BlockSpec,
     pos: int,
-    kv: Tuple[torch.Tensor, torch.Tensor],
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ssm_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """One decode step through one block. Returns (x, (cache_k, cache_v)),
-    the cache written in place (see :func:`attn_decode`)."""
+    """One decode step through one block. Returns (x, new_kv, new_ssm):
+    for an attention mixer the cache ``kv`` written in place (see
+    :func:`attn_decode`) and None, for an SSM mixer None and the new
+    (state, conv) from ``ssm_state``, which is left as it is."""
     _check_spec(spec)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h, ck, cv = attn_decode(p["mixer"], h, kv[0], kv[1], pos, cfg)
+    new_kv = new_ssm = None
+    if spec.mixer == "attn":
+        h, ck, cv = attn_decode(p["mixer"], h, kv[0], kv[1], pos, cfg)
+        new_kv = (ck, cv)
+    else:
+        h, st, conv = ssm_decode(p["mixer"], h, ssm_state[0], ssm_state[1], cfg)
+        new_ssm = (st, conv)
     x = x + h
     if spec.ff == "none":
-        return x, (ck, cv)
+        return x, new_kv, new_ssm
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if spec.ff == "mlp":
-        return x + mlp_forward(p["ff"], h, cfg), (ck, cv)
-    h, _ = moe_forward(p["ff"], h, cfg)
-    return x + h, (ck, cv)
+        h = mlp_forward(p["ff"], h, cfg)
+    else:
+        h, _ = moe_forward(p["ff"], h, cfg)
+    return x + h, new_kv, new_ssm

@@ -5,7 +5,9 @@ one card, a plan rehydrated from the disk tier, the autotuner's probes and
 the serving gateway; the probe timer's device wait), flash attention (K5,
 also at prefill lengths that are not multiples of 512), the block-sparse
 SpMM (K3) and the grouped expert matmul (K4), the LM forwards through
-K5 and K4, and training: the attention VJP (K5 forward, plain recompute
+K5 and K4 (the eight architectures beyond granite and qwen3 too: their
+head widths, MQA, their expert widths, their reduced forwards), and
+training: the attention VJP (K5 forward, plain recompute
 backward), K3 and K4 refusing CUDA operands that require grad, and train
 steps of the reduced granite through K5. Needs no JAX, so it runs on a
 machine with the card:
@@ -540,6 +542,18 @@ def test_prefill_at_any_length_runs_the_kernel(cuda, monkeypatch, s, dtype):
     only multiples of 512): one launch per call, no torch attention path,
     and the kernel's output holds against the plain version on the same
     q, k, v within ``ATTN_TOL``."""
+    _prefill_runs_the_kernel(cuda, monkeypatch, 2, s, dtype)
+
+
+@pytest.mark.parametrize("s", [8, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_at_batch_1_runs_the_kernel(cuda, monkeypatch, s, dtype):
+    """The same at batch 1, where flattening q's heads is a strided view
+    that ``attn_forward`` must make contiguous for the kernel."""
+    _prefill_runs_the_kernel(cuda, monkeypatch, 1, s, dtype)
+
+
+def _prefill_runs_the_kernel(cuda, monkeypatch, b, s, dtype):
     from repro_torch.models import attention
 
     cfg = get_reduced("granite-3-2b").with_(dtype="float32")
@@ -563,14 +577,14 @@ def test_prefill_at_any_length_runs_the_kernel(cuda, monkeypatch, s, dtype):
         return out
 
     monkeypatch.setattr(ops, "attention", spy)
-    x = torch.from_numpy(np.random.default_rng(s).standard_normal((2, s, cfg.d_model))
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal((b, s, cfg.d_model))
                          .astype(np.float32)).to(cuda, dtype)
     before = flash_attention.launches
     with torch.no_grad():
         y = attention.attn_forward(layer, x, cfg.with_(kernel_backend="cuda"))
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1 and len(seen) == 1
-    assert seen[0][1] == s and tuple(y.shape) == (2, s, cfg.d_model)
+    assert seen[0][1] == s and tuple(y.shape) == (b, s, cfg.d_model)
     assert bool(torch.isfinite(y).all())
 
 
@@ -792,6 +806,76 @@ def test_moe_forward_on_card_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert moe_gmm.launches == before_k4 + 3 * cfg.n_layers
     assert flash_attention.launches == before_k5 + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+# -- the other architectures' K5 and K4 shapes ---------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,kw", [
+    (16, 512, 80, dict(causal=False)),               # hubert-xlarge: D 80, encoder
+    (8, 1024, 120, dict(causal=True, window=256)),   # h2o-danube-3-4b: D 120, windowed
+    (8, 768, 256, dict(causal=True)),                # paligemma-3b: D 256
+    (16, 512, 128, dict(causal=True)),               # command-r, yi, llama4, jamba: D 128
+])
+def test_flash_kernel_new_arch_head_widths(cuda, bh, s, d, kw, dtype):
+    """The head widths of the eight architectures beyond granite and
+    qwen3 (D 80 and 120 zero-padded to the 128-wide kernel, D 256 its
+    widest), non-causal and windowed as their configs ask."""
+    _attn_check(*_attn_inputs(cuda, (bh, s, d), dtype), **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_mqa_repeated_kv(cuda, dtype):
+    """paligemma's MQA: one kv head repeated for 8 query heads, as
+    ``attn_forward`` flattens it (R = 8), against the plain version."""
+    q, k, v = _attn_inputs(cuda, (2, 640, 256), dtype)
+    q = torch.cat([q] * 4)  # 8 query heads
+    k = k[:1].repeat_interleave(8, dim=0).contiguous()
+    v = v[:1].repeat_interleave(8, dim=0).contiguous()
+    _attn_check(q.contiguous(), k, v, causal=True)
+
+
+@pytest.mark.parametrize("tm,din,dout", [(128, 5120, 8192), (128, 8192, 5120),
+                                         (128, 4096, 14336), (128, 14336, 4096)])
+def test_gmm_kernel_llama4_and_jamba_expert_widths(cuda, tm, din, dout):
+    """llama4-scout's experts (D 5120 <-> F 8192) and jamba's (D 4096 <->
+    F 14336), bf16, at the prefill's tile over 4 tiles of 2 experts."""
+    x, w, _ = _gmm_case(4 * tm, din, dout, 2, tm, 10, torch.bfloat16, cuda)
+    te = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda)
+    before = moe_gmm.bf16_launches
+    got = ops.grouped_matmul(x, w, te, tm=tm)
+    assert moe_gmm.bf16_launches == before + 1
+    want = ref.moe_gmm_ref(x, w, te, tm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "command-r-35b", "yi-9b",
+                                  "h2o-danube-3-4b", "mamba2-130m", "llama4-scout-17b-a16e",
+                                  "paligemma-3b", "jamba-v0.1-52b"])
+def test_new_arch_forward_on_card_through_the_kernels(cuda, arch):
+    """Each reduced config at S = 512 on the card: K5 once per attention
+    layer, K4 three times per MoE layer (none for mamba2), and the logits
+    equal the port's CPU forward (the plain versions) on the same weights
+    and inputs (``SyntheticLM``'s frames, patches and tokens)."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    cfg = get_reduced(arch).with_(dtype="float32")
+    params = tr.init_lm(0, cfg, device="cpu")
+    on_card = copy.deepcopy(params).to(cuda)
+    batch = SyntheticLM(cfg, 2, 512, seed=1).batch_at(0)
+    inputs = {k: torch.from_numpy(batch[k]) for k in ("tokens", "feats") if k in batch}
+    if "tokens" in inputs:
+        inputs["tokens"] = inputs["tokens"].long()
+    want, want_aux = tr.forward(params, cfg, **inputs)
+    before_k4, before_k5 = moe_gmm.launches, flash_attention.launches
+    got, aux = tr.forward(on_card, cfg, **{k: v.to(cuda) for k, v in inputs.items()})
+    torch.cuda.synchronize()
+    specs = [cfg.block_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+    assert flash_attention.launches == before_k5 + sum(b.mixer == "attn" for b in specs)
+    assert moe_gmm.launches == before_k4 + 3 * sum(b.ff == "moe" for b in specs)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
 

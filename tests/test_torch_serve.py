@@ -1,6 +1,8 @@
 """Port parity of the batched server: the port's ``BatchedServer`` against
 the JAX package's on the reduced granite-3-2b and the reduced
-qwen3-moe-30b-a3b (MoE layers) in float32, serving the JAX server's own
+qwen3-moe-30b-a3b (MoE layers) in float32, and on the reduced mamba2-130m
+(SSM layers) and jamba-v0.1-52b (the hybrid: SSM states beside one
+attention layer's KV cache per period), serving the JAX server's own
 weights (carried across by ``params_from_jax``).
 
 Five requests of different prompt lengths over two slots, so that requests
@@ -74,6 +76,17 @@ def test_outputs_identical(served):
     assert got == want
     assert all(len(out) == m and done for (out, done), m in zip(
         (got[i] for i in range(len(MAX_NEW))), MAX_NEW))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_hybrid_outputs_and_stats_identical(arch):
+    """The SSM state rides the cache across slots as in the reference,
+    which does nothing to it per slot: a reused slot continues from the
+    state its last request left."""
+    ref, want, port, got = _serve_both(arch)
+    assert got == want and len(got) == len(PROMPT_LENS)
+    assert port.stats == ref.stats
+    assert "ssm" in port.cache and bool(port.cache["ssm"]["state"].any())
 
 
 def test_stats_identical(served):

@@ -6,8 +6,9 @@ autotuner, the multi-tenant gateway, static analysis of validated
 plans), serving
 granite-3-2b at full width, the ``ops`` entry points of the block-sparse
 SpMM and the grouped matmul, serving qwen3-moe-30b-a3b at full width
-through the grouped matmul, training granite-3-2b, and serving the other
-eight architectures of the registry at full width.
+through the grouped matmul, training granite-3-2b, serving the other
+eight architectures of the registry at full width, and training the other
+nine (the MoE layers' backward through the grouped matmul).
 
 Run from the repository root, with no arguments:
 
@@ -222,11 +223,31 @@ the run with a nonzero exit code and no result line:
     the MoE dispatch's share of a profiled prefill; then K5 alone at
     hubert's, paligemma's, h2o-danube's and command-r's prefill shapes
     and K4 at llama4-scout's and jamba's expert shapes, each against its
-    plain version, SDPA / ``torch.bmm`` and its bound. Then one
-    ``{"kernels": [...]}`` line with K1-K5 (K5's launches: the bf16
-    prefills and the 3 train steps; K4's: the bf16 prefills; the new
-    shapes under ``shapes``);
-16. the last line: ``{"ok": true, "device": {...}}``.
+    plain version, SDPA / ``torch.bmm`` and its bound (the new shapes go
+    under ``shapes`` of the kernels line);
+16. training the nine architectures beside granite (``TRAIN_RUNS``), in
+    the registry's order, at full width in the config's dtypes (bf16
+    compute, float32 params and AdamW state, remat "full"), full depth
+    where the state fits and else the most layers that do: (a)
+    ``make_train_step`` with the launcher's AdamW on ``SyntheticLM``
+    batches (hubert's frames, labels and mask; paligemma's patches) takes
+    2 steps with finite metrics that move every parameter, K5 launched
+    once per attention layer in the forward and once in the remat
+    recompute, K4 3 times per MoE layer in each and 6 times in the
+    expert backward (12 a layer), counted by phase; median step ms,
+    tokens/s, peak memory, the expert backward's device ms, and one
+    profiled step (idle share, K4's and the MoE dispatch's shares); (b)
+    the float32 gradient gate for hubert, h2o-danube, mamba2, qwen3,
+    llama4, paligemma and jamba at 1-2 layers: ``lm_loss`` and every
+    gradient through K5 and K4 against the plain path within phase 14's
+    bounds; (c) the expert backward's dx and dw K4 launches alone at
+    qwen3's and llama4's train shapes against their plain versions,
+    ``torch.bmm`` and their bounds; (d) ``launch_train`` of the reduced
+    qwen3 and mamba2 on the card: the loss falls. Then one
+    ``{"kernels": [...]}`` line with K1-K5 (K5's and K4's launches by
+    path: the bf16 prefills and the train steps of phases 14 and 16; K4's
+    backward timings under ``backward_shapes``);
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
@@ -2374,7 +2395,7 @@ def attention_bound(bh, s, d, itemsize, causal=True, window=None) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), flops
 
 
-def device_busy(fn, reps: int, match: str = "") -> dict:
+def device_busy(fn, reps: int, match: str = "", warmup: int = 1, split: tuple = ()) -> dict:
     """``reps`` calls of ``fn`` unprofiled, then ``reps`` more under
     torch.profiler: the wall time per call of each window, the device's
     kernel time per call, kernels per call and the five kernels that take
@@ -2383,11 +2404,13 @@ def device_busy(fn, reps: int, match: str = "") -> dict:
     divides the same device time by the adjacent unprofiled window's wall
     time, an estimate of the idle share without the profiler.
     ``matched_ms``: the device time per call of the kernels whose name
-    holds ``match``."""
+    holds ``match``; ``split_ms``, with ``split``: the same for each of
+    its strings. ``warmup`` calls run first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2412,7 +2435,9 @@ def device_busy(fn, reps: int, match: str = "") -> dict:
             "unprofiled_wall_ms": plain_wall_us / reps / 1e3,
             "idle_share_unprofiled": max(0.0, 1.0 - busy_us / plain_wall_us),
             "kernels_per_call": len(kernels) / reps,
-            "top_ms": [[name[:80], us / reps / 1e3] for name, us in top]}
+            "top_ms": [[name[:80], us / reps / 1e3] for name, us in top],
+            **({"split_ms": {key: sum(us for name, us in by_name.items() if key in name)
+                             / reps / 1e3 for key in split}} if split else {})}
 
 
 def phase_lm_timings(params16, lm, dev, extra) -> dict:
@@ -3445,6 +3470,361 @@ def phase_archs(dev) -> tuple:
     return launches, k5, k4, info
 
 
+# -- phase 16: training the other nine architectures ----------------------------
+
+# (a) Train steps of each architecture but granite (phase 14), in the
+# registry's order, at full width in the config's dtypes: bf16 compute,
+# float32 params and AdamW state, remat "full". A step holds ~18 B per
+# parameter (params 4, m and v 8, the bf16 copies 2, the gradient 4) beside
+# its activations, and the card ~84 GB. ``layers``: full depth where that
+# fits, else the most layers that do with ~10 GB to spare for the loss
+# (the float32 logits and their softmax, [tokens, vocab]) and the backward
+# of one layer (the plain attention recompute's [B*H, S, S] float32
+# scores; the expert backward's transposed weight and float32 dw):
+# hubert 0.95 B (17 GB), mamba2 0.13 B and paligemma 2.51 B (45 GB; its
+# 257,280-wide head over 4 x 2304 positions is the largest loss) at full
+# depth; command-r 2.10 B of embedding and 0.705 B a layer: 1 layer
+# (50 GB; a second would leave no room for its 256,000-wide loss at
+# 4 x 2048); yi 0.52 B + 0.173 B a layer: 16 of 48 (59 GB); h2o 0.25 B +
+# 0.155 B a layer at 1 x 8192 (so that its window of 4096 masks) with
+# ~35 GB of attention recompute at S = 8192: 12 of 24 (38 GB); qwen3
+# 0.62 B + 0.614 B a layer: 4 of 48 (55 GB); llama4 2.07 B + 2.08 B a
+# layer: 1 of 48 (75 GB at the end of the backward, 77 GB with the
+# embedding's bf16 gradient), with 2 x 2048 tokens: at 4 x 2048 its
+# 202,112-wide loss would peak at ~75 GB before the gradients exist, with
+# no margin for the allocator; jamba: its first two layers (ssm + mlp,
+# ssm + moe: 3.73 B, 67 GB), so no attention layer fits.
+TRAIN_RUNS = {
+    "hubert-xlarge": dict(batch=LM_BATCH, seq=LM_SEQ, layers=48),
+    "command-r-35b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=1),
+    "yi-9b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=16),
+    "h2o-danube-3-4b": dict(batch=1, seq=8192, layers=12),
+    "mamba2-130m": dict(batch=LM_BATCH, seq=LM_SEQ, layers=24),
+    "qwen3-moe-30b-a3b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=4),
+    "llama4-scout-17b-a16e": dict(batch=2, seq=LM_SEQ, layers=1),
+    "paligemma-3b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=18),
+    "jamba-v0.1-52b": dict(batch=LM_BATCH, seq=LM_SEQ, layers=2),
+}
+ARCH_TRAIN_STEPS = 2
+# (b) The float32 gradient gate (kernels against the plain path, held to
+# phase 14's TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL) for the archs whose
+# training path differs from granite's: the K4 backward (qwen3, llama4,
+# jamba), the SSD's autograd (mamba2, jamba), the frontends (hubert's
+# non-causal K5, paligemma's D 256) and K5's window in the VJP (h2o).
+# Full width, 1-2 layers; params and both gradients in float32 (12 B a
+# parameter): tokens cut to 1 x 2048 where the head or the experts are
+# large, h2o at 1 x 8192 so that its window masks.
+TRAIN_GATES = {
+    "hubert-xlarge": dict(batch=LM_BATCH, seq=LM_SEQ, layers=2),
+    "h2o-danube-3-4b": dict(batch=1, seq=8192, layers=1),
+    "mamba2-130m": dict(batch=LM_BATCH, seq=LM_SEQ, layers=2),
+    "qwen3-moe-30b-a3b": dict(batch=1, seq=LM_SEQ, layers=2),
+    "llama4-scout-17b-a16e": dict(batch=1, seq=LM_SEQ, layers=1),
+    "paligemma-3b": dict(batch=1, seq=LM_SEQ, layers=2),
+    "jamba-v0.1-52b": dict(batch=1, seq=LM_SEQ, layers=2),
+}
+# (d) launch_train at the reduced configs.
+LAUNCH_ARCHS = ("qwen3-moe-30b-a3b", "mamba2-130m")
+
+
+def train_config(arch: str, layers: int, **kw):
+    """The arch's config cut to ``layers`` layers; jamba's pattern (a
+    period of 8) to its first ``layers`` positions."""
+    cfg = get_config(arch)
+    if layers % cfg.period:
+        kw["block_pattern"] = cfg.block_pattern[:layers]
+    return cfg.with_(n_layers=layers, **kw)
+
+
+def arch_train_batch(cfg, run: dict, step: int, dev) -> dict:
+    """A ``SyntheticLM`` batch on the card: ``seq`` text tokens (paligemma:
+    after its patches), or hubert's frames, labels and mask."""
+    seq = run["seq"] + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    data = SyntheticLM(cfg, run["batch"], seq, seed=SEED)
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+
+
+@contextlib.contextmanager
+def launch_phases(store: dict, timed: list = None):
+    """Split the K4 and K5 launches of a train step by where they happen:
+    ``forward``, ``recompute`` (a forward inside the backward: remat) and
+    ``backward`` (K4 inside ``_ExpertMatmul.backward``; K5 has none).
+    With ``timed``, each expert backward is bracketed by CUDA events,
+    appended as (start, end) pairs."""
+    em, att = moe._ExpertMatmul, ops._Attention
+    real = {"em_fwd": em.forward, "em_bwd": em.backward, "att_fwd": att.forward}
+
+    def counted(kernel, fn, phase=None):
+        def spy(ctx, *args):
+            where = phase or ("forward" if torch._C._current_graph_task_id() == -1
+                              else "recompute")
+            before = kernel.launches
+            if timed is not None and phase == "backward":
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(ctx, *args)
+                ev[1].record()
+                timed.append(ev)
+            else:
+                out = fn(ctx, *args)
+            key = f"{kernel.__name__} {where}"
+            store[key] = store.get(key, 0) + kernel.launches - before
+            return out
+        return staticmethod(spy)
+
+    em.forward = counted(moe_gmm, real["em_fwd"])
+    em.backward = counted(moe_gmm, real["em_bwd"], "backward")
+    att.forward = counted(flash_attention, real["att_fwd"])
+    try:
+        yield store
+    finally:
+        em.forward, em.backward = staticmethod(real["em_fwd"]), staticmethod(real["em_bwd"])
+        att.forward = staticmethod(real["att_fwd"])
+
+
+def expected_phases(cfg) -> dict:
+    """K5 and K4 launches of one train step under remat "full": per
+    attention layer one K5 forward and one in the recompute; per MoE layer
+    three K4 forward, three in the recompute and six in the backward."""
+    a, m = attention_layers(cfg), moe_layers(cfg)
+    want = {"flash_attention forward": a, "flash_attention recompute": a,
+            "moe_gmm forward": 3 * m, "moe_gmm recompute": 3 * m, "moe_gmm backward": 6 * m}
+    return {k: v for k, v in want.items() if v}
+
+
+def arch_train(arch: str, dev) -> tuple:
+    """(a) ``make_train_step`` with the launcher's AdamW at the depth and
+    tokens of ``TRAIN_RUNS``: ARCH_TRAIN_STEPS steps with finite metrics
+    that move every parameter, the launches of each step by phase, step
+    ms, tokens/s and peak memory; then one profiled step. Returns (the
+    steps' launches, results)."""
+    run = TRAIN_RUNS[arch]
+    cfg = train_config(arch, run["layers"])
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          f"{arch}'s training dtypes: {cfg.remat}, {cfg.dtype}, {cfg.param_dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tr.init_lm(SEED, cfg, device=dev, trainable=True)
+    opt = make_optimizer(cfg, ARCH_TRAIN_STEPS)
+    state = {"params": params, "opt": opt.init(params)}
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    before = torch.stack([p.detach().double().abs().sum() for p in leaves])
+    step = make_train_step(cfg, opt)
+    batches = [arch_train_batch(cfg, run, i, dev) for i in range(ARCH_TRAIN_STEPS)]
+    b, s = model_seq(cfg, batches[0])
+
+    def one_step(batch):
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batch)
+        return m
+
+    want = expected_phases(cfg)
+    step_ms, metrics, bwd_ms = [], [], []
+    reset_counts()
+    for i in range(ARCH_TRAIN_STEPS):
+        phases, timed = {}, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with launch_phases(phases, timed):
+            m = one_step(batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bwd_ms.append(sum(a.elapsed_time(z) for a, z in timed))
+        metrics.append({k: float(v) for k, v in m.items()})
+        phases = {k: v for k, v in phases.items() if v}
+        check(phases == want, f"{arch} step {i + 1}: launches by phase {phases}, expected {want}")
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launched["flash_attention"] == launched["flash_attention_bf16"]
+          == ARCH_TRAIN_STEPS * 2 * attention_layers(cfg)
+          and launched["moe_gmm"] == launched["moe_gmm_bf16"]
+          == ARCH_TRAIN_STEPS * 12 * moe_layers(cfg), f"{arch} train launches {launched}")
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()), f"{arch} train step {i + 1} metrics {m}")
+    after = torch.stack([p.detach().double().abs().sum() for p in tree_leaves(state["params"])])
+    moved = int((after != before).sum())
+    check(moved == len(leaves), f"{arch}: only {moved} of {len(leaves)} parameters moved")
+    med = float(np.median(step_ms))
+    losses = [m["loss"] for m in metrics]
+    log(f"  (a) {cfg.n_layers} of {get_config(arch).n_layers} layers, {n_params} float32 "
+        f"parameters and AdamW state ({state_gb:.1f} GB); {ARCH_TRAIN_STEPS} steps of {b} x {s}: "
+        f"loss {' -> '.join(f'{x:.4f}' for x in losses)}, launches per step {want or 'none'}; "
+        f"median {med:.1f} ms ({b * s / med * 1e3:.0f} tokens/s), peak {peak / 1e9:.2f} GB; all "
+        f"{moved} parameters moved" + (f"; expert backward (dx, dw, their copies) "
+                                       f"{np.median(bwd_ms):.2f} ms a step" if want.get(
+                                           "moe_gmm backward") else ""))
+    busy = device_busy(lambda: one_step(batches[0]), reps=1, match=DISPATCH_KERNEL, warmup=0,
+                       split=("moe_gmm",))
+    k4 = busy["split_ms"]["moe_gmm"]
+    log(f"  a third step, unprofiled: {busy['unprofiled_wall_ms']:.1f} ms; a fourth, profiled: "
+        f"device busy {busy['device_ms']:.1f} ms (idle {busy['idle_share']:.1%}"
+        f", ~{busy['idle_share_unprofiled']:.1%} unprofiled); {busy['kernels_per_call']:.0f} "
+        f"kernels; K4 {k4:.2f} ms ({k4 / busy['device_ms']:.1%}), dispatch index_put_ "
+        f"{busy['matched_ms']:.2f} ms ({busy['matched_ms'] / busy['device_ms']:.1%}); "
+        f"top {busy['top_ms'][:3]}")
+    del state, params, leaves, batches, step
+    torch.cuda.empty_cache()
+    return launched, {
+        "layers": cfg.n_layers, "batch": b, "seq": s, "params": n_params, "state_gb": state_gb,
+        "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": b * s / med * 1e3,
+        "peak_gb": peak / 1e9, "metrics": metrics, "launches_per_step": want,
+        "expert_backward_ms": bwd_ms, "profile_step": busy, "k4_ms": k4,
+        "third_step_ms": busy["unprofiled_wall_ms"],
+        "k4_share": k4 / busy["device_ms"],
+        "dispatch_share": busy["matched_ms"] / busy["device_ms"]}
+
+
+def grad_gap(params, grads, p_grads) -> tuple:
+    """The largest gradient difference relative to its leaf's plain-path
+    scale, and the leaf."""
+    worst, worst_path = 0.0, None
+    for (path, _), a, b in zip(flatten_with_paths(params), grads, p_grads):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_path = rel, path
+    return worst, worst_path
+
+
+def arch_train_gate(arch: str, dev) -> dict:
+    """(b) Float32 at full width, ``TRAIN_GATES``' depth and tokens:
+    ``lm_loss`` and every gradient through K5 and K4 (forward, remat
+    recompute, K4 backward) against the same under the plain versions."""
+    run = TRAIN_GATES[arch]
+    cfg = train_config(arch, run["layers"], dtype="float32")
+    params = tr.init_lm(SEED, cfg, device=dev, trainable=True)
+    batch = arch_train_batch(cfg, run, 0, dev)
+    routes, p_routes = [], []
+    reset_counts()
+    with recording_routes(routes):
+        total, _, grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["flash_attention"] == 2 * attention_layers(cfg)
+          and launched["moe_gmm"] == 12 * moe_layers(cfg),
+          f"{arch} float32 gate: launches {launched}")
+    with plain_kernels_in_place(), recording_routes(p_routes):
+        p_total, _, p_grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    diff = sum(choice_diff(r, p, cfg.n_experts) for r, p in zip(routes, p_routes))
+    loss_rel = abs(float(total) - float(p_total)) / abs(float(p_total))
+    worst, worst_path = grad_gap(params, grads, p_grads)
+    b, s = model_seq(cfg, batch)
+    log(f"  (b) float32 gate, {cfg.n_layers} layer(s), {b} x {s}: lm_loss {float(total):.6f} "
+        f"(plain {float(p_total):.6f}, rel {loss_rel:.3g}); K5 {launched['flash_attention']}, "
+        f"K4 {launched['moe_gmm']} launches; {len(grads)} gradients, largest difference "
+        f"{worst:.3g} of its leaf's scale ({worst_path}; bound {TRAIN_GRAD_TOL})"
+        + (f"; differing expert choices {diff}" if cfg.has_moe else ""))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{arch} lm_loss {float(total)} vs plain {float(p_total)}")
+    check(worst <= TRAIN_GRAD_TOL, f"{arch} gradient {worst_path}: {worst:.3g} of its scale "
+          f"(differing expert choices {diff})")
+    del params, grads, p_grads
+    torch.cuda.empty_cache()
+    return {"gate_layers": cfg.n_layers, "gate_tokens": [b, s], "gate_loss_rel": loss_rel,
+            "gate_grad_rel_max": worst, "gate_grad_rel_max_leaf": worst_path,
+            "gate_choice_diff": diff}
+
+
+def expert_backward_timing(arch: str, dev) -> list:
+    """(c) The two K4 launches of an expert backward alone at the arch's
+    train step (gate/up: x [E*C, D], w [E, D, F], dy [E*C, F]), bf16:
+    dx = dy . w^T and dw = x^T . dy in the layouts ``_ExpertMatmul`` gives
+    them, against their plain versions (GMM_TOL), ``torch.bmm`` over the
+    same [E, C, *] views (transposes read in place) and their bounds."""
+    cfg, run = get_config(arch), TRAIN_RUNS[arch]
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_ff
+    cap = moe._capacity(run["batch"] * run["seq"], cfg)
+    tm, c2 = moe._tile_rows(cap), cap + (-cap % 16)
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(cap // tm)
+    x, w, _ = gmm_inputs(dev, e * cap, d, f, e, tm, torch.bfloat16, SEED, te=te)
+    dy = torch.randn((e * cap, f), device=dev).to(torch.bfloat16)
+    wt = w.transpose(1, 2).contiguous()
+    tmw = moe._tile_rows(d)
+    tew = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(d // tmw)
+    xt = torch.nn.functional.pad(x.view(e, cap, d).transpose(1, 2), (0, c2 - cap)).reshape(e * d, c2)
+    dye = torch.nn.functional.pad(dy.view(e, cap, f), (0, 0, 0, c2 - cap))
+    rows = []
+    for name, (a, b, tiles, rows_tm), lib in (
+            ("dx", (dy, wt, te, tm), lambda: torch.bmm(dy.view(e, cap, f), w.transpose(1, 2))),
+            ("dw", (xt, dye, tew, tmw), lambda: torch.bmm(x.view(e, cap, d).transpose(1, 2),
+                                                          dy.view(e, cap, f)))):
+        what = f"{arch} expert backward {name} [{a.shape[0]}, {a.shape[1]}] x {list(b.shape)}"
+        got, err = gmm_check(a, b, tiles, rows_tm, what + " bfloat16")
+        lib_err = float((lib().float().reshape(got.shape) - got).abs().max())
+        check(lib_err <= LIB_TOL * max(1.0, float(got.abs().max())), f"bmm vs K4 {what}: {lib_err}")
+        k_ms = time_ms(lambda: moe_gmm(a, b, tiles, tm=rows_tm), reps=10)
+        p_ms = time_ms(lambda: ref.moe_gmm_ref(a, b, tiles, rows_tm), reps=3)
+        lib_ms = time_ms(lib, reps=10)
+        t, din = a.shape
+        (b_ms, b_by), flops = gmm_bound(t, din, b.shape[2], e, rows_tm, 2)
+        log(f"  K4 timing, {what} bf16: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+            f"{b_ms / k_ms:.2%} of the bound {b_ms:.4f} ms, {b_by}); plain {p_ms:.4f} ms; "
+            f"torch.bmm {lib_ms:.4f} ms (K4 / bmm {k_ms / lib_ms:.2f}x)")
+        rows.append({"arch": arch, "shape": what, "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "tflops": flops / k_ms / 1e9, "bmm_max_abs": lib_err})
+        del got
+    del x, w, dy, wt, xt, dye
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_train_archs(dev) -> dict:
+    """(d) ``launch_train`` at the reduced configs of ``LAUNCH_ARCHS`` on
+    the card: the loss falls over LAUNCH_STEPS steps."""
+    out = {}
+    for arch in LAUNCH_ARCHS:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = launch_train(arch, steps=LAUNCH_STEPS, batch=LAUNCH_BATCH, seq=LAUNCH_SEQ,
+                           ckpt_dir=str(TRAIN_CKPT), log_every=LAUNCH_CKPT_EVERY,
+                           ckpt_every=LAUNCH_STEPS, device=dev)
+        train_s = time.perf_counter() - t0
+        launched = counts()
+        losses = [h["loss"] for h in res["history"]]
+        cfg = get_reduced(arch)
+        check(res["final_step"] == LAUNCH_STEPS and losses[-1] < losses[0],
+              f"launch_train {arch}: {res['final_step']} steps, losses {losses}")
+        check(launched["moe_gmm"] == LAUNCH_STEPS * 12 * moe_layers(cfg)
+              and launched["flash_attention"] == LAUNCH_STEPS * 2 * attention_layers(cfg),
+              f"launch_train {arch}: launches {launched}")
+        log(f"  (d) launch_train({arch}, reduced, {LAUNCH_STEPS} steps of {LAUNCH_BATCH} x "
+            f"{LAUNCH_SEQ}) on the card in {train_s:.2f} s: loss "
+            f"{' -> '.join(f'{x:.4f}' for x in losses)}; K5 {launched['flash_attention']}, K4 "
+            f"{launched['moe_gmm']} launches")
+        out[arch] = {"losses": losses, "s": train_s, "k5": launched["flash_attention"],
+                     "k4": launched["moe_gmm"]}
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return out
+
+
+def phase_train_archs(dev) -> tuple:
+    """Phase 16: (a) train steps and (b) the float32 gate of each
+    architecture but granite, (c) the expert backward's K4 launches alone,
+    (d) ``launch_train``. Returns (K5 and K4 launches of the train steps by
+    arch, K4 backward timings, info)."""
+    # llama4's step peaks at ~77 GB of the card's 85; in fixed-size
+    # segments the caching allocator left 9.4 GiB of it reserved but
+    # unusable there. Segments that grow in place leave none.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    launches, info = {}, {}
+    for arch in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        log(f"  -- {arch}")
+        launched, row = arch_train(arch, dev)
+        if arch in TRAIN_GATES:
+            row.update(arch_train_gate(arch, dev))
+        launches[arch] = launched
+        info[arch] = row
+        log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    k4_bwd = [row for arch in ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")
+              for row in expert_backward_timing(arch, dev)]
+    info["launch_train"] = launch_train_archs(dev)
+    return launches, k4_bwd, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3623,6 +4003,13 @@ def main() -> int:
     extra["archs"] = arch_info
     extra["archs_phase_s"] = time.perf_counter() - t0
     log(f"  phase 15: {extra['archs_phase_s']:.1f} s")
+
+    log("[16] training the other nine architectures at full width: train steps, float32 "
+        "gradient gates, the expert backward's K4 launches alone, launch_train")
+    t0 = time.perf_counter()
+    train_arch_launches, k4_backward, extra["train_archs"] = phase_train_archs(dev)
+    extra["train_archs_phase_s"] = time.perf_counter() - t0
+    log(f"  phase 16: {extra['train_archs_phase_s']:.1f} s")
     k5_entry["launches_by_path"] = {"prefill": k5_entry["launches"],
                                     f"train_step x{TRAIN_STEPS}": train_launches}
     k5_entry["launches"] += train_launches
@@ -3631,13 +4018,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm.py:49", "launches": moe_launched["moe_gmm"],
         **k4_timing, "launches_by_path": {f"{MOE_ARCH} prefill": moe_launched["moe_gmm"]},
     }
-    for arch, launched in arch_launches.items():
-        for entry in (k5_entry, k4_entry):
-            n = launched[entry["name"]]
-            if n:
-                entry["launches_by_path"][f"{arch} prefill"] = n
-                entry["launches"] += n
+    for path, by_arch in (("prefill", arch_launches),
+                          (f"train step x{ARCH_TRAIN_STEPS}", train_arch_launches)):
+        for arch, launched in by_arch.items():
+            for entry in (k5_entry, k4_entry):
+                n = launched[entry["name"]]
+                if n:
+                    entry["launches_by_path"][f"{arch} {path}"] = n
+                    entry["launches"] += n
     k5_entry["shapes"], k4_entry["shapes"] = k5_shapes, k4_shapes
+    k4_entry["backward_shapes"] = k4_backward
     entries += [k3_entry, k4_entry, k5_entry]
     extra["total_s"] = time.perf_counter() - t_start
     log("timing " + json.dumps(extra))

@@ -19,8 +19,12 @@ through the plain version. The reference gives K3 and K4 no VJP (its MoE
 and SparseLinear train through ``jnp`` products), and their launches here
 write a fresh tensor outside autograd, so ``sparse_dense_matmul`` and
 ``grouped_matmul`` refuse CUDA inputs that require grad rather than drop
-the gradient without a word (ROADMAP queue 1, item 4: MoE training on the
-card). On CPU tensors their plain versions are differentiable.
+the gradient without a word. The MoE layer trains on the card all the
+same: ``repro_torch.models.moe`` calls ``grouped_matmul`` inside its own
+autograd Function, whose backward is two more ``grouped_matmul`` calls in
+the expert-blocked layout that only it knows (a tile order of a direct
+call has no such dw). K3's gradient on the card stays refused. On CPU
+tensors the plain versions are differentiable.
 """
 from __future__ import annotations
 
@@ -91,7 +95,8 @@ def _refuse_grad_on_card(what: str, *tensors: torch.Tensor) -> None:
     ):
         raise NotImplementedError(
             f"{what} has no backward on the card: its kernel's output would carry no "
-            "gradient to its operands (ROADMAP queue 1, item 4: MoE training on the card)"
+            "gradient to its operands (MoE training on the card goes through "
+            "repro_torch.models.moe, whose expert matmuls carry their own backward)"
         )
 
 

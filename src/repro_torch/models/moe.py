@@ -15,6 +15,14 @@ whose docstring has the TPU dispatch to the same kernel. K4's float32
 result is cast to the compute dtype, where the reference's einsum returns
 it. On CPU tensors the same routing runs with K4's plain version.
 
+Training: each expert matmul is an :class:`_ExpertMatmul`, whose backward
+is the reference's einsum VJP written as two more grouped matmuls in the
+same expert-blocked layout, dX[e] = dY[e] W[e]^T over the [E*C, F] rows
+and dW[e] = X[e]^T dY[e] over the [E*D, C] rows of X transposed per
+expert. So the MoE layer trains on the card through K4 alone (3 launches
+in its forward, 6 in its backward), and on the CPU through K4's plain
+version.
+
 Expert parallelism (the reference's ``shard_map`` over the ``expert`` mesh
 axis) is not ported: one card holds every expert.
 """
@@ -31,7 +39,8 @@ from repro_torch.models.nn import Param
 
 __all__ = ["moe_t", "moe_forward", "route", "router_logits"]
 
-# Row tiles the grouped matmul may take, largest first; C is a multiple of 8.
+# Row tiles the grouped matmul may take, largest first; C is a multiple of 8
+# (and so is every expert's D, for the backward's dw).
 _TILE_ROWS = (128, 64, 32, 16, 8)
 
 
@@ -84,11 +93,61 @@ def route(p, xf: torch.Tensor, cfg: ModelConfig
     return gates, experts, e * torch.sum(me * ce)
 
 
+class _ExpertMatmul(torch.autograd.Function):
+    """y = x @ w per expert through K4, cast to x's dtype, with the einsum
+    VJP as two more K4 calls.
+
+    x [E*C, D] is expert-blocked (expert e owns rows [e*C, (e+1)*C), in
+    tiles of ``tm`` rows listed by ``te``); w [E, D, F] is already in x's
+    dtype. The backward skips the product whose input needs no gradient:
+
+    * dx = dy @ w^T: dy [E*C, F] times w transposed [E, F, D], on the
+      forward's tiles. dy arrives in x's dtype (the forward's output is
+      cast to it), so rounding it there is exact.
+    * dw = x^T @ dy: x transposed per expert [E*D, C'] times dy [E, C', F],
+      tiles of the largest of ``_TILE_ROWS`` that divides D, one expert's
+      D rows per run of tiles. C' is C padded to a multiple of 16 (K4's
+      contraction; C is a multiple of 8) with zero columns of x^T and zero
+      rows of dy, which add nothing.
+
+    dx comes back in x's dtype and dw in w's, as the reference's einsum
+    VJP in the compute dtype; autograd's backward of ``w.to(x.dtype)``
+    then widens dw to the parameter's dtype. Each transposed copy is freed
+    before the next launch."""
+
+    @staticmethod
+    def forward(ctx, x, w, te, tm, backend):
+        ctx.save_for_backward(x, w, te)
+        ctx.tm, ctx.backend = tm, backend
+        return kops.grouped_matmul(x, w, te, tm=tm, backend=backend).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, te = ctx.saved_tensors
+        e, d, f = (int(s) for s in w.shape)
+        c = int(x.shape[0]) // e
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(1, 2).contiguous()
+            dx = kops.grouped_matmul(dy, wt, te, tm=ctx.tm, backend=ctx.backend).to(x.dtype)
+            del wt
+        if ctx.needs_input_grad[1]:
+            pad = -c % 16
+            xt = torch.nn.functional.pad(x.view(e, c, d).transpose(1, 2), (0, pad))
+            dye = torch.nn.functional.pad(dy.view(e, c, f), (0, 0, 0, pad))
+            tmw = _tile_rows(d)
+            tew = torch.arange(e, dtype=torch.int32, device=x.device).repeat_interleave(d // tmw)
+            dw = kops.grouped_matmul(xt.reshape(e * d, c + pad), dye, tew, tm=tmw,
+                                     backend=ctx.backend).view(e, d, f).to(w.dtype)
+        return dx, dw, None, None, None
+
+
 def _grouped(x: torch.Tensor, w: torch.Tensor, te: torch.Tensor, tm: int,
              cfg: ModelConfig) -> torch.Tensor:
-    """One expert matmul through K4, cast back to x's dtype."""
-    return kops.grouped_matmul(x, w.to(x.dtype), te, tm=tm,
-                               backend=cfg.kernel_backend).to(x.dtype)
+    """One expert matmul through K4, cast back to x's dtype; differentiable
+    through :class:`_ExpertMatmul`."""
+    return _ExpertMatmul.apply(x, w.to(x.dtype), te, tm, cfg.kernel_backend)
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -16,7 +16,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.tree import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamW
-from repro_torch.optim.clip import clip_by_global_norm
+from repro_torch.optim.clip import clip_leaves
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
 
@@ -74,12 +74,12 @@ def make_train_step(
                 loss = loss + li / u
                 metrics = {k: metrics[k] + mi[k] / u for k in metrics}
             grads = [g / u for g in grads]
+        grads = list(grads)
+        gnorm = clip_leaves(grads, clip_norm)  # replaces the leaves one by one
         it = iter(grads)
         grad_tree = tree_map(lambda _: next(it), params)
-        del it, grads  # the clipped tree replaces these, leaf by leaf
-        grads, gnorm = clip_by_global_norm(grad_tree, clip_norm)
-        del grad_tree
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        del it, grads
+        params, opt_state = optimizer.update(grad_tree, opt_state, params)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["total_loss"] = loss

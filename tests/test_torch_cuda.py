@@ -8,8 +8,10 @@ SpMM (K3) and the grouped expert matmul (K4), the LM forwards through
 K5 and K4 (the eight architectures beyond granite and qwen3 too: their
 head widths, MQA, their expert widths, their reduced forwards), and
 training: the attention VJP (K5 forward, plain recompute
-backward), K3 and K4 refusing CUDA operands that require grad, and train
-steps of the reduced granite through K5. Needs no JAX, so it runs on a
+backward), K3 and K4 refusing CUDA operands that require grad at their
+``ops`` entry points, the MoE layer's expert matmul whose backward is two
+more K4 launches (also under remat), and train steps of the reduced
+granite through K5 and of the reduced qwen3 through K5 and K4. Needs no JAX, so it runs on a
 machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1070,4 +1072,89 @@ def test_train_step_on_card_through_k5(cuda):
         assert all(bool(torch.isfinite(m)) for m in met.values())
         if i == 0:
             for key in ("loss", "grad_norm", "total_loss"):
+                torch.testing.assert_close(met[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+def _expert_case(e, cap, d, f, dtype, device, seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e * cap, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    g = rng.standard_normal((e * cap, f)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device, dtype) for a in (x, w, g))
+
+
+def _expert_plain_grads(x, w, g):
+    """y, dx, dw by autograd through the reference's einsum over [E, C, D]
+    in float32 (dx and dw come back in the inputs' dtype)."""
+    e, d, f = w.shape
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = torch.einsum("ecd,edf->ecf", xs.float().view(e, -1, d), ws.float()).reshape(-1, f)
+    return (y.detach(), *torch.autograd.grad(y, (xs, ws), g.float()))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("cap", [32, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_matmul_backward_on_card_equals_plain_autograd(cuda, dtype, cap, remat):
+    """``models.moe._ExpertMatmul`` on the card: one K4 launch forward (and
+    one more in the recompute under ``checkpoint(use_reentrant=False)``),
+    two backward (dx, dw; capacity 24 pads dw's contraction to 32); y, dx
+    and dw against autograd through the plain einsum within K4's 1e-4 of
+    each result's scale in float32, 2e-2 in bfloat16 (the outputs are
+    rounded to it)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import moe
+
+    e, d, f = 4, 128, 256
+    tm = moe._tile_rows(cap)
+    te = torch.arange(e, dtype=torch.int32, device=cuda).repeat_interleave(cap // tm)
+    x, w, g = _expert_case(e, cap, d, f, dtype, cuda)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def run(a, b):
+        return moe._ExpertMatmul.apply(a, b, te, tm, "auto")
+
+    before = moe_gmm.launches
+    y = checkpoint(run, xs, ws, use_reentrant=False) if remat else run(xs, ws)
+    assert moe_gmm.launches == before + 1
+    dx, dw = torch.autograd.grad(y, (xs, ws), g)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + (4 if remat else 3)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip((y, dx, dw), _expert_plain_grads(x, w, g)):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+
+
+def test_moe_train_step_on_card_through_k4(cuda):
+    """Two ``make_train_step`` steps of the reduced qwen3-moe-30b-a3b
+    (float32, remat "full") on 2 x 512 tokens on the card: per step, K4
+    launches 12 times per MoE layer (3 forward, 3 in the recompute, 6 in
+    the backward) and K5 twice per attention layer; the first step's
+    metrics equal the CPU step's on the same weights and batch within
+    1e-4 (the forward's tolerance on the card)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_reduced("qwen3-moe-30b-a3b").with_(dtype="float32")
+    assert cfg.remat == "full"
+    params = tr.init_lm(0, cfg, device="cpu", trainable=True)
+    on_card = copy.deepcopy(params).to(cuda)
+    opt = AdamW(lr=1e-3)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, 2, 512).batch_at(0).items()}
+    _, _, want = make_train_step(cfg, opt)(params, opt.init(params), batch)
+    step = make_train_step(cfg, opt)
+    state = opt.init(on_card)
+    for i in range(2):
+        k4, k5 = moe_gmm.launches, flash_attention.launches
+        on_card, state, met = step(on_card, state, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert moe_gmm.launches == k4 + 12 * cfg.n_layers
+        assert flash_attention.launches == k5 + 2 * cfg.n_layers
+        assert all(bool(torch.isfinite(m)) for m in met.values())
+        if i == 0:
+            for key in ("loss", "moe_aux", "grad_norm", "total_loss"):
                 torch.testing.assert_close(met[key].cpu(), want[key], rtol=1e-4, atol=1e-4)

@@ -107,6 +107,36 @@ def test_adamw_updates_in_place():
     assert all(not torch.equal(a, b) for a, b in zip(before, tree_leaves(params)))
 
 
+
+@pytest.mark.parametrize("master", [False, True])
+def test_adamw_update_in_chunks_is_bitwise(monkeypatch, master):
+    """Each leaf is updated a chunk of ``_CHUNK`` elements at a time; the
+    update is elementwise, so chunks of 7 give the bits of one chunk."""
+    from repro_torch.optim import adamw
+
+    results = []
+    for chunk in (1 << 26, 7):
+        monkeypatch.setattr(adamw, "_CHUNK", chunk)
+        opt = AdamW(lr=0.1, weight_decay=0.01, master=master)
+        params = _to_torch(_np_tree(1))
+        state = opt.init(params)
+        for i in (2, 3):
+            params, state = opt.update(_to_torch(_np_tree(i)), state, params)
+        results.append(tree_leaves({"p": params, "m": state["m"], "v": state["v"]}))
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+
+
+def test_clip_leaves_matches_clip_by_global_norm():
+    """``clip_leaves`` scales the list in place, entry by entry, to the
+    values ``clip_by_global_norm`` gives the same tree."""
+    t = _to_torch(_np_tree(3))
+    want, wnorm = clip.clip_by_global_norm(t, 0.5)
+    leaves = tree_leaves(t)
+    norm = clip.clip_leaves(leaves, 0.5)
+    assert torch.equal(norm, wnorm)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(want)))
+    assert all(a is not b for a, b in zip(leaves, tree_leaves(t)))
+
 # -- clipping, schedules ------------------------------------------------------
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e3])

@@ -7,8 +7,10 @@ plans), serving
 granite-3-2b at full width, the ``ops`` entry points of the block-sparse
 SpMM and the grouped matmul, serving qwen3-moe-30b-a3b at full width
 through the grouped matmul, training granite-3-2b, serving the other
-eight architectures of the registry at full width, and training the other
-nine (the MoE layers' backward through the grouped matmul).
+eight architectures of the registry at full width, training the other
+nine (the MoE layers' backward through the grouped matmul), the port's
+examples, and the dry-run's count of memory on the meta device against
+the peaks the card reached.
 
 Run from the repository root, with no arguments:
 
@@ -247,7 +249,19 @@ the run with a nonzero exit code and no result line:
     ``{"kernels": [...]}`` line with K1-K5 (K5's and K4's launches by
     path: the bf16 prefills and the train steps of phases 14 and 16; K4's
     backward timings under ``backward_shapes``);
-17. the last line: ``{"ok": true, "device": {...}}``.
+17. (a) the five examples of ``examples_torch/`` at their default sizes
+    on the card, each in a process of its own (``--run-example``): exit
+    0, the last line, the kernels each must launch, its seconds; their
+    K1, K2, K4 and K5 launches go under ``launches_by_path`` of the
+    kernels line. Beside them, off the card, two processes count on the
+    meta device (``repro_torch.launch.dryrun``): every run of phases
+    14-16 whose peak memory the card measured (``--dryrun-runs``), and
+    the 40 cells of the registry (5 processes). (b) Each run's counted
+    peak within DRYRUN_TOL (25 %) of ``torch.cuda.max_memory_allocated``
+    as those phases measured it; (c) every cell counted (or skipped as
+    the reference skips it), its correction equal to its full count, and
+    which cells fit this card;
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits nonzero without one. TF32 is switched off, so
 every float32 product here is full float32.
@@ -257,6 +271,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import runpy
 import shutil
 import subprocess
 import sys
@@ -303,6 +319,7 @@ from repro_torch.launch.train import launch_train, make_optimizer  # noqa: E402
 from repro_torch.models.tree import flatten_with_paths, tree_leaves  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse, random_coo, suite_matrix  # noqa: E402
 from repro_torch.launch.mesh import make_shard_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.spgemm import (  # noqa: E402
     Outcome,
@@ -2383,12 +2400,7 @@ def attention_bound(bh, s, d, itemsize, causal=True, window=None) -> tuple:
     (q, k) pair at the bf16 tensor-core peak, against q, k, v read once and
     o written once at the memory rate; the larger of the two. Row i sees
     i + 1 keys (causal, at most ``window`` of them) or all s."""
-    if not causal:
-        pairs = s * s
-    else:
-        w = min(window or s, s)
-        pairs = w * (w + 1) // 2 + (s - w) * w
-    flops = 4.0 * d * pairs * bh
+    flops = perfmodel.attention_flops(bh, s, s, d, causal=causal, window=window)
     nbytes = 4.0 * bh * s * d * itemsize
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -3327,14 +3339,16 @@ def arch_bfloat16(arch: str, dev) -> tuple:
     b, s = model_seq(cfg, batch)
     torch.cuda.reset_peak_memory_stats()
     launched = prefill_main_path(params, cfg, batch)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     log(f"  (b) bf16 weights, {cfg.n_layers} of {get_config(arch).n_layers} layers, "
         f"{n_params} parameters ({weights_gb:.1f} GB allocated): prefill {b} x {s} "
         f"(make_prefill_step): K5 {launched['flash_attention']}, K4 {launched['moe_gmm']} "
         f"launches (attention layers {attention_layers(cfg)}, MoE layers {moe_layers(cfg)}); "
         f"peak {peak_gb:.1f} GB")
     out = {"layers": cfg.n_layers, "params": n_params, "weights_gb": weights_gb,
-           "prefill_peak_gb": peak_gb, "k5_launches": launched["flash_attention"],
+           "prefill_peak_gb": peak_gb, "prefill_peak_bytes": peak_bytes,
+           "k5_launches": launched["flash_attention"],
            "k4_launches": launched["moe_gmm"]}
     prefill = make_prefill_step(cfg)
     out["prefill_ms"] = host_ms(lambda: prefill(params, batch), reps=2)
@@ -3668,7 +3682,8 @@ def arch_train(arch: str, dev) -> tuple:
     return launched, {
         "layers": cfg.n_layers, "batch": b, "seq": s, "params": n_params, "state_gb": state_gb,
         "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": b * s / med * 1e3,
-        "peak_gb": peak / 1e9, "metrics": metrics, "launches_per_step": want,
+        "peak_gb": peak / 1e9, "peak_bytes": peak, "metrics": metrics,
+        "launches_per_step": want,
         "expert_backward_ms": bwd_ms, "profile_step": busy, "k4_ms": k4,
         "third_step_ms": busy["unprofiled_wall_ms"],
         "k4_share": k4 / busy["device_ms"],
@@ -3823,6 +3838,208 @@ def phase_train_archs(dev) -> tuple:
               for row in expert_backward_timing(arch, dev)]
     info["launch_train"] = launch_train_archs(dev)
     return launches, k4_bwd, info
+
+# -- phase 17: the examples on the card; the dry-run against the card ------------
+
+# (a) The port's examples at their default sizes, each in a process of its
+# own (``--run-example``): script, arguments, the last line it prints, and
+# the kernels it must launch. serve_batched's decoder attends with the
+# dense score row, so its K5 launches are those of its prefill check.
+EXAMPLES = (
+    ("quickstart.py", (), "OK", ()),
+    ("spgemm_chain.py", (), "OK", ("spgemm_scheduled",)),
+    ("spgemm_pipeline.py", ("--pipeline",), "OK",
+     ("spgemm_scheduled", "spgemm_scheduled_batch")),
+    ("spgemm_gateway.py", (), "admitted results verified; overload shed typed, nothing hung",
+     ("spgemm_scheduled_batch",)),
+    ("serve_batched.py", (), "OK", ("flash_attention",)),
+    ("serve_batched.py", ("--arch", MOE_ARCH), "OK", ("moe_gmm", "flash_attention")),
+)
+EXAMPLE_KERNELS = ("spgemm_scheduled", "spgemm_scheduled_batch", "moe_gmm", "flash_attention")
+# (b) The dry-run's peak against the card's, every run of phases 14-16
+# whose peak the card measured: within this share of the measured peak.
+DRYRUN_TOL = 0.25
+# (c) The 40-cell sweep on the meta device: processes counting at once.
+DRYRUN_JOBS = 5
+DRYRUN_STORE = ROOT / "build" / "dryrun_torch"
+
+
+def run_example(counts_path: str, script: str, *args: str) -> int:
+    """``--run-example``: run one example of ``examples_torch/`` in this
+    process as its ``__main__``, then write the kernel launches it made and
+    its seconds (without the interpreter's start) to ``counts_path``."""
+    reset_counts()
+    sys.argv = [script, *args]
+    t0 = time.perf_counter()
+    runpy.run_path(str(ROOT / "examples_torch" / script), run_name="__main__")
+    if torch.cuda.is_available():  # the quickstart runs anywhere
+        torch.cuda.synchronize()
+    Path(counts_path).write_text(json.dumps({"launches": counts(),
+                                             "run_s": time.perf_counter() - t0}))
+    return 0
+
+
+def dryrun_runs() -> dict:
+    """The runs of phases 14-16 whose peak memory the card measured, as
+    ``count_step`` takes them: name -> (config, kind, batch, seq,
+    optimizer). The same architecture, depth, dtypes, tokens and
+    optimizer as on the card; prefills keep float32 routers."""
+    cfg = get_config(LM_ARCH)
+    runs = {f"{LM_ARCH} train": (cfg, "train", LM_BATCH, LM_SEQ,
+                                 make_optimizer(cfg, TRAIN_STEPS))}
+    for arch, run in ARCH_RUNS.items():
+        cfg = get_config(arch).with_(param_dtype="bfloat16", n_layers=run["layers"])
+        seq = run["seq"] + (cfg.num_patches if cfg.frontend == "vision" else 0)
+        runs[f"{arch} prefill"] = (cfg, "prefill", run["batch"], seq, None)
+    for arch, run in TRAIN_RUNS.items():
+        cfg = train_config(arch, run["layers"])
+        seq = run["seq"] + (cfg.num_patches if cfg.frontend == "vision" else 0)
+        runs[f"{arch} train"] = (cfg, "train", run["batch"], seq,
+                                 make_optimizer(cfg, ARCH_TRAIN_STEPS))
+    return runs
+
+
+def dryrun_estimates(out_path: str) -> int:
+    """``--dryrun-runs``: count every run of :func:`dryrun_runs` on the
+    meta device and write its peak, FLOPs, bytes and seconds to
+    ``out_path``."""
+    out = {}
+    for name, (cfg, kind, batch, seq, opt) in dryrun_runs().items():
+        c = dryrun.count_step(cfg, kind, batch, seq, optimizer=opt)
+        out[name] = {"peak_bytes": c["memory"]["peak_bytes"], "flops": c["flops"],
+                     "bytes": c["bytes"], "count_s": c["count_s"]}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def wait_background(proc, log_path: Path, what: str, timeout: float) -> None:
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    if rc != 0:
+        log(log_path.read_text()[-4000:])
+    check(rc == 0, f"{what} exited with {rc}")
+
+
+def example_on_card(script: str, args: tuple, last: str, kernels: tuple) -> dict:
+    """(a) One example in a process of its own on the card: exit 0, its last
+    line, the kernels it must launch."""
+    counts_path = DRYRUN_STORE / f"{script}.{len(args)}.json"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--run-example",
+                          str(counts_path), script, *args],
+                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-3000:] + out.stderr[-3000:])
+    check(out.returncode == 0, f"{script} {' '.join(args)} exited with {out.returncode}")
+    lines = out.stdout.splitlines()
+    check(bool(lines) and lines[-1] == last, f"{script}: last line {lines[-1:]}, expected {last!r}")
+    res = json.loads(counts_path.read_text())
+    launched = {k: res["launches"][k] for k in EXAMPLE_KERNELS}
+    check(all(launched[k] > 0 for k in kernels) and (kernels or not any(launched.values())),
+          f"{script} {' '.join(args)}: launches {launched}, expected {kernels or 'none'}")
+    log(f"  (a) {script} {' '.join(args)}: exit 0 in {wall:.1f} s ({res['run_s']:.1f} s after "
+        f"the interpreter's start), launches {launched}; last line {lines[-1]!r}")
+    return {"s": wall, "run_s": res["run_s"], "launches": launched,
+            "bf16_launches": {k: res["launches"][f"{k}_bf16"] for k in EXAMPLE_KERNELS}}
+
+
+def dryrun_check(measured: dict, estimates: dict) -> dict:
+    """(b) Each run's meta peak against the card's within DRYRUN_TOL."""
+    rows, misses = {}, []
+    for name, want in measured.items():
+        est = estimates[name]["peak_bytes"]
+        ratio = est / want
+        rows[name] = {"estimate_bytes": est, "measured_bytes": want, "ratio": ratio,
+                      "count_s": estimates[name]["count_s"]}
+        ok = abs(ratio - 1.0) <= DRYRUN_TOL
+        if not ok:
+            misses.append(name)
+        log(f"  (b) {name}: dry-run peak {est / 1e9:.2f} GB, measured {want / 1e9:.2f} GB "
+            f"(torch.cuda.max_memory_allocated), ratio {ratio:.3f}"
+            + ("" if ok else f"  MISSES the +-{DRYRUN_TOL:.0%} gate"))
+    check(not misses, f"dry-run peaks outside +-{DRYRUN_TOL:.0%} of the card's: {misses}")
+    return rows
+
+
+def dryrun_cells(card_bytes: int) -> dict:
+    """(c) The sweep's records: every cell counted or skipped as the
+    reference skips it, and which fit this card."""
+    cells = {}
+    for path in sorted((DRYRUN_STORE / "cells").glob(f"*__{dryrun.CARD}.json")):
+        rec = json.loads(path.read_text())
+        key = f"{rec['arch']} x {rec['shape']}"
+        if rec["status"] != "ok":
+            cells[key] = {"status": rec["status"], "reason": rec.get("reason")}
+            log(f"  (c) {key}: {rec['status']} ({rec.get('reason')})")
+            continue
+        mem = rec["memory"]
+        fits = mem["peak_bytes"] <= card_bytes
+        cells[key] = {"status": "ok", "peak_bytes": mem["peak_bytes"], "fits": fits,
+                      "microbatches": rec["microbatches"], "microbatch": rec["microbatch"],
+                      "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"],
+                      "correction_matches": rec["corrected"]["matches_full_count"]}
+        log(f"  (c) {key}: {'fits' if fits else 'does not fit'} one card, peak "
+            f"{mem['peak_bytes'] / 2**30:.2f} GiB (params {mem['params_bytes'] / 2**30:.2f}, "
+            f"optimizer {mem['optimizer_bytes'] / 2**30:.2f}, cache "
+            f"{mem['cache_bytes'] / 2**30:.2f} GiB) at {rec['microbatches']} x "
+            f"{rec['microbatch']}; {rec['cost']['flops']:.4e} FLOPs, "
+            f"{rec['cost']['bytes']:.4e} bytes; correction == full count: "
+            f"{rec['corrected']['matches_full_count']}")
+    check(len(cells) == len(dryrun.ARCHS) * len(dryrun.SHAPES), f"{len(cells)} cells recorded")
+    check(all(c["status"] in ("ok", "skipped") for c in cells.values()), "a cell failed")
+    check(all(c.get("correction_matches", True) for c in cells.values()),
+          "a cell's corrected FLOPs differ from its full-depth count")
+    fit = sorted(k for k, c in cells.items() if c.get("fits"))
+    log(f"  (c) {len(fit)} of {sum(c['status'] == 'ok' for c in cells.values())} counted cells "
+        f"fit one card of {card_bytes / 2**30:.2f} GiB: {', '.join(fit)}")
+    return cells
+
+
+def phase_examples_dryrun(measured: dict) -> tuple:
+    """Phase 17: (a) the examples on the card, while two processes count on
+    the meta device, off the card: the runs of phases 14-16 and the 40
+    cells; (b) the dry-run's peaks against ``measured`` (the card's, by
+    run); (c) the cells' table. Returns (launches by example, info)."""
+    shutil.rmtree(DRYRUN_STORE, ignore_errors=True)
+    DRYRUN_STORE.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    cmds = {
+        "runs": [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-runs",
+                 str(DRYRUN_STORE / "runs.json")],
+        "sweep": [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                  str(DRYRUN_STORE / "cells"), "--jobs", str(DRYRUN_JOBS)],
+    }
+    logs = {k: DRYRUN_STORE / f"{k}.log" for k in cmds}
+    procs, files = {}, []
+    t0 = time.perf_counter()
+    try:
+        for k, cmd in cmds.items():
+            files.append(open(logs[k], "w"))
+            procs[k] = subprocess.Popen(cmd, stdout=files[-1], stderr=subprocess.STDOUT,
+                                        env=env, cwd=ROOT)
+        examples = {f"{script} {' '.join(args)}".strip(): example_on_card(script, args, last, k)
+                    for script, args, last, k in EXAMPLES}
+        examples_s = time.perf_counter() - t0
+        wait_background(procs["runs"], logs["runs"], "the dry-run of phases 14-16's runs", 600)
+        runs = dryrun_check(measured, json.loads((DRYRUN_STORE / "runs.json").read_text()))
+        wait_background(procs["sweep"], logs["sweep"], "the 40-cell sweep", 900)
+        sweep_line = logs["sweep"].read_text().strip().splitlines()[-1]
+        log(f"  (c) the sweep on the meta device, {DRYRUN_JOBS} processes: {sweep_line}")
+        cells = dryrun_cells(torch.cuda.get_device_properties(0).total_memory)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for f in files:
+            f.close()
+    shutil.rmtree(DRYRUN_STORE, ignore_errors=True)
+    return examples, {"examples": examples, "examples_s": examples_s, "runs": runs,
+                      "cells": cells, "sweep": sweep_line}
 
 
 def main() -> int:
@@ -4010,6 +4227,18 @@ def main() -> int:
     train_arch_launches, k4_backward, extra["train_archs"] = phase_train_archs(dev)
     extra["train_archs_phase_s"] = time.perf_counter() - t0
     log(f"  phase 16: {extra['train_archs_phase_s']:.1f} s")
+
+    log("[17] the examples on the card; the dry-run on the meta device against the peaks of "
+        "phases 14-16; the 40-cell sweep")
+    t0 = time.perf_counter()
+    measured = {f"{LM_ARCH} train": train_info["train_peak_bytes"]}
+    measured.update({f"{arch} prefill": extra["archs"][arch]["prefill_peak_bytes"]
+                     for arch in ARCH_RUNS})
+    measured.update({f"{arch} train": extra["train_archs"][arch]["peak_bytes"]
+                     for arch in TRAIN_RUNS})
+    example_launches, extra["phase17"] = phase_examples_dryrun(measured)
+    extra["phase17_s"] = time.perf_counter() - t0
+    log(f"  phase 17: {extra['phase17_s']:.1f} s")
     k5_entry["launches_by_path"] = {"prefill": k5_entry["launches"],
                                     f"train_step x{TRAIN_STEPS}": train_launches}
     k5_entry["launches"] += train_launches
@@ -4026,6 +4255,15 @@ def main() -> int:
                 if n:
                     entry["launches_by_path"][f"{arch} {path}"] = n
                     entry["launches"] += n
+    for entry in entries + [k4_entry, k5_entry]:
+        if entry["name"] not in EXAMPLE_KERNELS:
+            continue
+        by_path = entry.setdefault("launches_by_path", {"main path": entry["launches"]})
+        for example, row in example_launches.items():
+            n = row["launches"][entry["name"]]
+            if n:
+                by_path[f"example {example}"] = n
+                entry["launches"] += n
     k5_entry["shapes"], k4_entry["shapes"] = k5_shapes, k4_shapes
     k4_entry["backward_shapes"] = k4_backward
     entries += [k3_entry, k4_entry, k5_entry]
@@ -4043,4 +4281,8 @@ if __name__ == "__main__":
         sys.exit(token_restart(sys.argv[2]))
     if sys.argv[1:2] == ["--autotune-restart"]:
         sys.exit(autotune_restart(sys.argv[2]))
+    if sys.argv[1:2] == ["--run-example"]:
+        sys.exit(run_example(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-runs"]:
+        sys.exit(dryrun_estimates(sys.argv[2]))
     sys.exit(main())

@@ -9,19 +9,24 @@ package unchanged (the later paper-table benchmarks read them):
   with P = FLOPs available per cycle (paper Sec. 5.3.2);
 * the roofline estimate of one scheduled block-Gustavson numeric phase
   (:func:`spgemm_schedule_traffic`, :func:`roofline_seconds`), the model
-  side of the plan autotuner's search.
+  side of the plan autotuner's search;
+* :func:`attention_flops`, K5's operation count, which the dry-run
+  (``repro_torch.launch.dryrun``) adds for each attention it counts.
 
 The port's own device is the card it runs on: :func:`cuda_device_model`
 returns its :class:`DeviceModel`, named by ``torch.cuda.get_device_name``,
 with the H100 SXM data-sheet peaks that ``chip_smoke.py`` bounds every
 kernel by (:data:`PEAK_F32_FLOPS`, :data:`PEAK_BF16_FLOPS`,
-:data:`PEAK_BYTES_PER_S`; one definition, imported there).
+:data:`PEAK_BYTES_PER_S`; one definition, imported there), and its 80 GB
+of HBM (:data:`H100_MEMORY_BYTES`), which the dry-run holds a cell's peak
+against where no card is present.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -29,9 +34,11 @@ __all__ = [
     "CPU_XEON_E5_2637",
     "GPU_TITAN_X",
     "FPGA_ARRIA10",
+    "H100_MEMORY_BYTES",
     "PEAK_BF16_FLOPS",
     "PEAK_BYTES_PER_S",
     "PEAK_F32_FLOPS",
+    "attention_flops",
     "cuda_device_model",
     "stuf",
     "runtime_from_stuf",
@@ -84,6 +91,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 _H100_CLOCK_HZ = 1.98e9
 _H100_POWER_W = 700.0
+# 80 GiB of HBM3 (the card reports ~79.6 GiB of it to PyTorch).
+H100_MEMORY_BYTES = 80 * 2 ** 30
 
 
 def cuda_device_model(device="cuda", dtype=torch.float32) -> DeviceModel:
@@ -101,6 +110,20 @@ def cuda_device_model(device="cuda", dtype=torch.float32) -> DeviceModel:
         torch.cuda.get_device_name(device), _H100_CLOCK_HZ, peak / _H100_CLOCK_HZ,
         _H100_POWER_W, mem_bandwidth=PEAK_BYTES_PER_S,
     )
+
+
+def attention_flops(bh: int, sq: int, skv: int, d: int, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0) -> int:
+    """Operations of attention over [bh, sq, d] queries and [bh, skv, d]
+    keys and values: 4·d (the QKᵀ and PV products) per visible (query,
+    key) pair. Query i sits at position i + ``q_offset`` and sees key j
+    iff j <= its position (causal) and j > its position - ``window``, as
+    K5 masks. The operations column of ``chip_smoke.py``'s K5 bounds."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    return 4 * d * pairs * bh
 
 
 def stuf(n_ops: float, device: DeviceModel, runtime_s: float) -> float:

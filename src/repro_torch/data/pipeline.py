@@ -7,10 +7,11 @@ fresh values for one fixed sparsity pattern, each as a pure function of
 package's classes of the same names; :func:`_prefetch_iter` runs the
 drawing in a background thread, so it overlaps the device's work.
 
-``batch_specs`` (``ShapeDtypeStruct`` stand-ins for the dry-run) waits
-for the dry-run tooling. ``shard_batch`` has no counterpart: it lays the
-global batch out on the mesh's data axes, and on one card the caller
-moves the batch with ``.to(device)``.
+:func:`batch_specs` gives the dry-run (:mod:`repro_torch.launch.dryrun`)
+the same batch as meta tensors, where the reference gives
+``ShapeDtypeStruct`` stand-ins. ``shard_batch`` has no counterpart: it
+lays the global batch out on the mesh's data axes, and on one card the
+caller moves the batch with ``.to(device)``.
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.sparse.formats import COO
 
-__all__ = ["SyntheticLM", "SpGEMMValueStream"]
+__all__ = ["SyntheticLM", "SpGEMMValueStream", "batch_specs"]
 
 
 def _prefetch_iter(batch_at, start_step: int, prefetch: int) -> Iterator[Dict]:
@@ -252,3 +254,27 @@ class SpGEMMValueStream:
                 n += 1
         finally:
             it.close()
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    """Meta tensors with the keys, shapes and dtypes of
+    :meth:`SyntheticLM.batch_at` (for the dry-run): int32 tokens and
+    labels, float32 frames (audio, with the loss mask) or patches (vision,
+    whose ``num_patches`` come out of ``seq``)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    f32, i32 = torch.float32, torch.int32
+    if cfg.frontend == "audio":
+        return {
+            "feats": spec((batch, seq, cfg.frontend_dim), f32),
+            "labels": spec((batch, seq), i32),
+            "mask": spec((batch, seq), f32),
+        }
+    if cfg.frontend == "vision":
+        return {
+            "tokens": spec((batch, seq - cfg.num_patches), i32),
+            "labels": spec((batch, seq - cfg.num_patches), i32),
+            "feats": spec((batch, cfg.num_patches, cfg.frontend_dim), f32),
+        }
+    return {"tokens": spec((batch, seq), i32), "labels": spec((batch, seq), i32)}

@@ -14,6 +14,12 @@
   tolerance oracle.
 * ``ops`` — the entry points: the ``spgemm`` shim over the plan/execute
   API, ``sparse_dense_matmul``, ``grouped_matmul`` and ``attention``.
+
+The JAX package's ``kernels/_compat.py`` has no counterpart: it picks
+Pallas's ``CompilerParams`` or ``TPUCompilerParams``, whichever the
+installed JAX names, for the TPU kernels' compiler options. The CUDA
+kernels take their options from ``nvcc``'s command line
+(``kernels/_build.py``), and nothing here depends on a JAX release.
 """
 from repro_torch.kernels import ref
 

@@ -4,7 +4,10 @@ Entry points run on the card unless the caller asks for the CPU:
 :func:`resolve_device` turns ``"cuda"`` (the default) into a concrete CUDA
 device and raises without one. :func:`resolve_backend` picks between a
 hand-written kernel (``"cuda"``) and its plain PyTorch version
-(``"torch"``); the plain version never runs on a CUDA device.
+(``"torch"``); the plain version never runs on a CUDA device. The meta
+device stands for the card (the dry-run): ``"auto"`` takes the kernel's
+route there, where ``repro_torch.kernels.ops`` gives each kernel a
+shape-only output.
 """
 from __future__ import annotations
 
@@ -32,11 +35,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 def resolve_backend(backend: str = "auto", device="cpu") -> str:
     """``"cuda"`` is the hand-written kernel, ``"torch"`` its plain
-    version; ``"auto"`` takes the kernel on a CUDA device and the plain
-    version on the CPU. The plain version never runs on a CUDA device."""
+    version; ``"auto"`` takes the kernel on a CUDA device (and on the meta
+    device, which stands for it) and the plain version on the CPU. The
+    plain version never runs on a CUDA device."""
     device = torch.device(device)
     if backend == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
+        return "cuda" if device.type in ("cuda", "meta") else "torch"
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "torch" and device.type == "cuda":

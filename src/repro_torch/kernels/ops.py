@@ -25,6 +25,16 @@ autograd Function, whose backward is two more ``grouped_matmul`` calls in
 the expert-blocked layout that only it knows (a tile order of a direct
 call has no such dw). K3's gradient on the card stays refused. On CPU
 tensors the plain versions are differentiable.
+
+The meta device (the dry-run, :mod:`repro_torch.launch.dryrun`) stands
+for the card: K3, K4 and K5 take there a shape-only output of the
+kernel's shape and dtype through an operator of their own
+(``repro_torch::*_count``), which launches nothing and carries the
+kernel's operation count (:mod:`repro_torch.core.perfmodel`, the count
+that bounds each kernel in ``chip_smoke.py``) for
+``torch.utils.flop_counter.FlopCounterMode``. The plain versions would
+not do: the attention's builds the [BH, Sq, Skv] scores that K5 never
+holds, and the grouped matmul's reads ``tile_expert`` on the host.
 """
 from __future__ import annotations
 
@@ -32,7 +42,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core import perfmodel
 from repro_torch.core.schedule import SpGEMMSchedule
 from repro_torch.kernels import ref
 from repro_torch.kernels.backend import resolve_backend
@@ -85,6 +97,64 @@ def spgemm(
         # direct spgemm_plan holder of this pattern, whose no-arg
         # execute() must keep working.
         plan.release_device_values()
+
+
+# -- the meta route --------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::attention_count", mutates_args=())
+def _attention_count(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                     window: Optional[int], q_offset: int) -> torch.Tensor:
+    raise NotImplementedError("attention_count has only a shape-only (meta) kernel")
+
+
+@_attention_count.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul_count", mutates_args=())
+def _grouped_matmul_count(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError("grouped_matmul_count has only a shape-only (meta) kernel")
+
+
+@_grouped_matmul_count.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], w.shape[2]), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::sparse_dense_matmul_count", mutates_args=())
+def _sparse_dense_matmul_count(x: torch.Tensor, blocks: torch.Tensor, n: int) -> torch.Tensor:
+    raise NotImplementedError("sparse_dense_matmul_count has only a shape-only (meta) kernel")
+
+
+@_sparse_dense_matmul_count.register_fake
+def _(x, blocks, n):
+    return x.new_empty((x.shape[0], n), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_count)
+def _(q_shape, k_shape, v_shape, causal, window, q_offset, *args, **kwargs) -> int:
+    return perfmodel.attention_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2],
+                                     causal=causal, window=window, q_offset=q_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.grouped_matmul_count)
+def _(x_shape, w_shape, *args, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[2]
+
+
+@register_flop_formula(torch.ops.repro_torch.sparse_dense_matmul_count)
+def _(x_shape, blocks_shape, n, *args, **kwargs) -> int:
+    nnzb, bk, bn = blocks_shape
+    return 2 * x_shape[0] * bk * bn * nnzb
+
+
+def _flash(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """K5 (:func:`flash_attention`), or its count on the meta device."""
+    if q.device.type == "meta":
+        return _attention_count(q, k, v, causal, window, q_offset)
+    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def _refuse_grad_on_card(what: str, *tensors: torch.Tensor) -> None:
@@ -150,6 +220,8 @@ def sparse_dense_matmul(
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be [M, {k}], got {tuple(x.shape)}")
     blocks, brow, bcol, flags = _bsr_operands(w)
+    if x.device.type == "meta":
+        return _sparse_dense_matmul_count(x, torch.from_numpy(blocks).to(x.device, x.dtype), n)
     m = int(x.shape[0])
     pad_m = (-m) % tm
     xp = torch.nn.functional.pad(x, (0, 0, 0, pad_m)) if pad_m else x
@@ -171,6 +243,11 @@ def grouped_matmul(
     grad are refused (see the module docstring)."""
     resolve_backend(backend, x.device)
     _refuse_grad_on_card("grouped_matmul (K4)", x, w)
+    if x.device.type == "meta":
+        if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1] or x.shape[0] % tm:
+            raise ValueError(f"x must be [T, D] with T % {tm} == 0 and w [E, D, F]; got "
+                             f"{tuple(x.shape)} and {tuple(w.shape)}")
+        return _grouped_matmul_count(x, w)
     return moe_gmm(x, w, tile_expert, tm=tm)
 
 
@@ -197,7 +274,7 @@ def attention(
     resolve_backend(backend, q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Attention.apply(q, k, v, causal, window, q_offset)
-    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _flash(q, k, v, causal, window, q_offset)
 
 
 class _Attention(torch.autograd.Function):
@@ -212,7 +289,7 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, q_offset)
-        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return _flash(q, k, v, causal, window, q_offset)
 
     @staticmethod
     def backward(ctx, g):

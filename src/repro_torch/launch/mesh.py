@@ -9,9 +9,15 @@ know: the axis name, the shard count and the devices, one per shard.
 A device may appear more than once. That is the counterpart of the JAX
 package's forced host devices, and how one card holds 2, 4 or 8 shards
 (``make_shard_mesh(4, devices=["cuda:0"] * 4)``). The JAX package's
-other helpers (``make_production_mesh``, ``make_host_mesh``) and its
-sharding rules (``launch/sharding.py``) have no counterpart: they place
-the LM's arrays on a TPU mesh, which one card does not have.
+other helpers have no counterpart: ``make_production_mesh`` (the
+16 x 16 v5e pod slice, 256 chips, and two of them with a ``pod`` axis:
+``src/repro/launch/mesh.py:1-12``), ``make_host_mesh`` (the LM launchers'
+host mesh), ``make_auto_mesh`` and ``AXIS_TYPES_SUPPORTED`` (a shim over
+JAX releases with and without mesh axis types), and the sharding rules
+(``launch/sharding.py``). They place the LM's arrays on a TPU mesh's
+data and model axes, which one card does not have: the port's
+``launch/serve.py``, ``launch/train.py`` and ``launch/dryrun.py`` keep
+no mesh.
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ rules:
   does. On CPU tensors the branch is chosen by the reference's rule: the
   kernel entry point (its plain version, there) when ``kernel_backend``
   resolves to ``"cuda"`` and the length is a multiple of 512, the TPU
-  kernel's tile;
+  kernel's tile. The meta device (the dry-run's count) takes the card's
+  branch;
 * ``blocked``: a loop over query blocks, each attending to the full KV;
 * ``dense``: the full [Sq, Skv] score matrix.
 
@@ -133,7 +134,7 @@ def attn_forward(
     qg = q.reshape(b, s, kv, rep, hd)
 
     backend = resolve_backend(cfg.kernel_backend, x.device)
-    if backend == "cuda" and (x.device.type == "cuda" or s % _FLASH_SEQ_MULTIPLE == 0):
+    if backend == "cuda" and (x.device.type in ("cuda", "meta") or s % _FLASH_SEQ_MULTIPLE == 0):
         # Flash kernel path: flatten (B, KV, R) into the BH axis. The kernel
         # takes contiguous operands; at B = 1 the reshape of q is a strided
         # view, not a copy.

@@ -181,8 +181,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device="cuda") -> 
     ring buffers of the attention layers (``"kv"``, compute dtype) and the
     SSM states and conv windows of the SSM layers (``"ssm"``), each only
     where the config has such layers."""
+    return _new_cache(cfg, batch, max_seq, resolve_device(device))
+
+
+def _new_cache(cfg: ModelConfig, batch: int, max_seq: int, device: torch.device) -> Dict:
+    """:func:`init_cache` on any device, the meta device (the dry-run's)
+    included."""
     dt = cfg.compute_dtype()
-    device = resolve_device(device)
     cache: Dict = {"pos": 0}
     n_attn = len(_attn_positions(cfg))
     if n_attn:

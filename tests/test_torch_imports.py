@@ -1,7 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch``,
-everything ``chip_smoke.py`` imports and the port's example
-(``examples_torch/train_tiny_lm.py``) loads neither JAX nor the JAX
-package.
+"""The port stands alone: importing every module of ``repro_torch``
+(the dry-run tooling included), everything ``chip_smoke.py`` imports and
+every example of the port (``examples_torch/``) loads neither JAX nor
+the JAX package.
 
 Runs in a fresh interpreter, so that nothing this test process imported
 (the parity tests import both packages) can hide an import.
@@ -16,7 +16,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 def test_port_and_chip_smoke_import_no_jax():
     code = textwrap.dedent(f"""
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys
         sys.path.insert(0, {os.path.join(ROOT, 'src')!r})
         sys.path.insert(0, {ROOT!r})
         import repro_torch
@@ -25,7 +25,11 @@ def test_port_and_chip_smoke_import_no_jax():
             importlib.import_module(name)
         import chip_smoke  # its imports only: main() runs under __main__
         sys.path.insert(0, {os.path.join(ROOT, 'examples_torch')!r})
-        import train_tiny_lm  # the port's example: main() runs under __main__
+        examples = sorted(f[:-3] for f in os.listdir({os.path.join(ROOT, 'examples_torch')!r})
+                          if f.endswith(".py"))
+        for example in examples:  # the port's examples: main() runs under __main__
+            importlib.import_module(example)
+        names += ["examples_torch." + e for e in examples]
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
         print(len(names), bad, " ".join(names))
@@ -60,7 +64,11 @@ def test_port_and_chip_smoke_import_no_jax():
                  "repro_torch.optim.schedules", "repro_torch.optim.compress",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
                  "repro_torch.runtime.trainer", "repro_torch.runtime.straggler",
-                 "repro_torch.models.tree", "repro_torch.launch.train"):
+                 "repro_torch.models.tree", "repro_torch.launch.train",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.refresh_corrections",
+                 "examples_torch.quickstart", "examples_torch.spgemm_chain",
+                 "examples_torch.spgemm_pipeline", "examples_torch.spgemm_gateway",
+                 "examples_torch.serve_batched", "examples_torch.train_tiny_lm"):
         assert name in out.stdout.split(), name
 
 

@@ -149,7 +149,8 @@ the run with a nonzero exit code and no result line:
    plain version and one PyTorch call for the same function (cuSPARSE
    CSR @ CSR, ``scaled_dot_product_attention``: yardsticks the port never
    calls), the least time the card could take, and end-to-end times:
-   SpGEMM ``execute``, prefill and decode, with the device's busy time,
+   SpGEMM ``execute`` (and its stages, from the program's own spans),
+   prefill and decode, with the device's busy time,
    idle share and kernel count per prefill and per decode step under
    torch.profiler; 2cubes_sphere's ``build_assembly_map`` on the host,
    sort-free beside the sort (first and last C blocks swapped), both
@@ -307,6 +308,7 @@ from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.models import moe, transformer as tr  # noqa: E402
 from repro_torch.models.mlp import sparse_block_mask  # noqa: E402
 from repro_torch.models.nn import cast_params  # noqa: E402
+from repro_torch.runtime.heartbeat import set_tracing, totals  # noqa: E402
 from repro_torch.runtime.steps import (  # noqa: E402
     make_decode_step,
     make_prefill_step,
@@ -1971,73 +1973,38 @@ def phase_timings(a, plan, launched, chunk, dev, rng):
         "K1_tflops": flops / k1_ms / 1e9, "K1_bound_share": b_ms / k1_ms,
         "K1_flops": flops, "K1_bytes": float(nbytes),
     })
-    extra["execute_stages_ms"] = breakdown(plan, dev, rng, reps=5)
-    log(f"  execute poisson3Da stages (ms): {extra['execute_stages_ms']}")
+    extra["execute_spans"] = execute_spans(plan, rng, reps=5)
+    log(f"  execute poisson3Da spans (per call): {extra['execute_spans']}")
     log(f"  execute poisson3Da end to end: {e2e_ms:.3f} ms "
         f"({extra['execute_values_per_s']:.4g} C values/s); execute_batch(4): "
         f"{e2e_b_ms:.3f} ms")
     return entries, extra
 
 
-def breakdown(plan, dev, rng, reps: int) -> dict:
-    """Median time (ms) of each stage of one element-plan ``execute``,
-    run stage by stage through the calls ``execute`` makes: host value
-    rebind, host-to-device copy of the values, value bind (gather), the
-    kernel, the assembly gather, device-to-host copy of C's values, CSR
-    wrap. Device stages are timed with CUDA events, the others with the
-    host clock around a synchronize. ``bind_batch`` and ``assemble_batch``
-    are the batched path's two gathers for one value set."""
-    from repro_torch.spgemm.executor import bind_batch_core, bind_core
-
-    ex, r = plan._executor, plan.report
-    names = ("host_rebind", "h2d", "bind", "kernel", "assemble", "d2h", "wrap",
-             "bind_batch", "assemble_batch")
-    runs = {k: [] for k in names}
-    for i in range(reps + 1):
-        av = rng.standard_normal(r.nnz_a, dtype=np.float32)
-        bv = rng.standard_normal(r.nnz_b, dtype=np.float32)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plan._rebind(av, plan._a_blocks, plan._a_scatter, r.nnz_a, "a_vals", plan._a_shape,
-                     plan._a_dtype)
-        plan._rebind(bv, plan._b_blocks, plan._b_scatter, r.nnz_b, "b_vals", plan._b_shape,
-                     plan._b_dtype)
-        t1 = time.perf_counter()
-        a_d, b_d = torch.from_numpy(av).to(dev), torch.from_numpy(bv).to(dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        ev[0].record()
-        a_blocks = bind_core(a_d, ex._a_inv, shape=ex.a_shape)
-        b_blocks = bind_core(b_d, ex._b_inv, shape=ex.b_shape)
-        ev[1].record()
-        panels = spgemm_scheduled(a_blocks, b_blocks, ex._runs)
-        ev[2].record()
-        packed = panels.reshape(-1).index_select(0, ex._gather)
-        ev[3].record()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        host = packed.cpu()
-        t4 = time.perf_counter()
-        plan._wrap_packed(host)
-        t5 = time.perf_counter()
-        evb = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        evb[0].record()
-        bind_batch_core(a_d[None], ex._a_inv, shape=ex.a_shape)
-        bind_batch_core(b_d[None], ex._b_inv, shape=ex.b_shape)
-        evb[1].record()
-        evb[2].record()
-        panels.reshape(1, -1).index_select(1, ex._gather)
-        evb[3].record()
-        torch.cuda.synchronize()
-        if i == 0:
-            continue  # warm-up
-        for k, v in zip(names, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, ev[0].elapsed_time(ev[1]),
-                                ev[1].elapsed_time(ev[2]), ev[2].elapsed_time(ev[3]),
-                                (t4 - t3) * 1e3, (t5 - t4) * 1e3,
-                                evb[0].elapsed_time(evb[1]), evb[2].elapsed_time(evb[3]))):
-            runs[k].append(v)
-    return {k: float(np.median(v)) for k, v in runs.items()}
+def execute_spans(plan, rng, reps: int) -> dict:
+    """The program's own spans of ``reps`` element-plan ``execute`` calls on
+    fresh values, run with tracing on after one untraced warm-up:
+    ``totals()`` of the span recorder over those calls, each span's
+    seconds, self seconds and bytes given per call (ms, MB). The device
+    stages (bind gather, K1, assembly gather) are the kernels' own times:
+    a profiler trace's device operations, or the K1 timings above."""
+    r = plan.report
+    vals = [(rng.standard_normal(r.nnz_a, dtype=np.float32),
+             rng.standard_normal(r.nnz_b, dtype=np.float32)) for _ in range(reps + 1)]
+    plan.execute(*vals[0])
+    t0 = time.perf_counter()
+    set_tracing(True)
+    try:
+        for av, bv in vals[1:]:
+            plan.execute(av, bv)
+    finally:
+        set_tracing(False)
+    got = totals(t0, time.perf_counter())
+    check(got["dropped"] == 0, "the span recorder dropped spans")
+    return {name: {"calls": t["count"] / reps, "ms": 1e3 * t["seconds"] / reps,
+                   "self_ms": 1e3 * t["self_seconds"] / reps,
+                   **({"mb": t["counts"]["bytes"] / 1e6 / reps} if "bytes" in t["counts"] else {})}
+            for name, t in got["spans"].items()}
 
 
 def assembly_timings(plan) -> dict:
@@ -2076,8 +2043,8 @@ def phase_second_timings(a, plan, dev, rng, extra):
     log(f"  build_assembly_map 2cubes_sphere (host): sort-free "
         f"{extra['2cubes_assembly_map_ms']['no_sort']:.1f} ms, with the sort "
         f"{extra['2cubes_assembly_map_ms']['sort']:.1f} ms; both bitwise equal to the plan's")
-    extra["2cubes_execute_stages_ms"] = breakdown(plan, dev, rng, reps=3)
-    log(f"  execute 2cubes_sphere stages (ms): {extra['2cubes_execute_stages_ms']}")
+    extra["2cubes_execute_spans"] = execute_spans(plan, rng, reps=3)
+    log(f"  execute 2cubes_sphere spans (per call): {extra['2cubes_execute_spans']}")
     extra.update({
         "2cubes_K1_ms": k_ms, "2cubes_plain_ms": p_ms, "2cubes_bound_ms": b_ms,
         "2cubes_bound_by": b_by, "2cubes_library_ms": lib_ms,

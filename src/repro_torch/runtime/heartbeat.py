@@ -1,6 +1,6 @@
-"""Liveness heartbeats + a reusable process-metrics exporter.
+"""Liveness heartbeats, a reusable process-metrics exporter, and spans.
 
-Two layers:
+Three layers:
 
 * **Metrics** (:class:`MetricsRegistry` and its :class:`Counter` /
   :class:`Gauge` / :class:`Summary` instruments) — a dependency-free,
@@ -17,24 +17,52 @@ Two layers:
   snapshot in every beat, which turns the heartbeat file into a cheap
   pull-based metrics export: whatever scrapes liveness scrapes the
   serving metrics too.
+* **Spans** (:func:`span`, :class:`SpanRecorder`) — named, nested host
+  intervals inside the program (the SpGEMM numeric front and symbolic
+  phase), recorded only while tracing is on: while a torch profiler
+  records on the calling thread, or after :func:`set_tracing` ``(True)``.
+  Off, a span costs one flag check. On, it also enters a torch profiler
+  record function, so it shows in the profiler's host timeline, and
+  appends a :class:`SpanRecord` stamped on
+  ``time.perf_counter_ns`` to a bounded in-memory buffer;
+  :func:`totals` sums a window of it per span name. The quantities the
+  spans count (bytes copied each way) also go to counters of the
+  process-level :func:`default_registry`, always, so a
+  :class:`Heartbeat` exports them.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+import itertools
 import json
 import math
 import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+from torch.autograd.profiler import record_function
 
 __all__ = [
     "Counter",
     "Gauge",
     "Heartbeat",
     "MetricsRegistry",
+    "SpanRecord",
+    "SpanRecorder",
     "Summary",
     "check_peers",
+    "default_recorder",
+    "default_registry",
+    "set_tracing",
+    "span",
+    "spans",
+    "totals",
+    "traced",
 ]
 
 
@@ -176,6 +204,204 @@ class MetricsRegistry:
         for name, m in items:
             out[name] = m.snapshot() if isinstance(m, Summary) else m.value
         return out
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-level registry: the program's own counters
+    (``spgemm.h2d_bytes``, ``spgemm.d2h_bytes``), for a :class:`Heartbeat`
+    to export."""
+    return _REGISTRY
+
+
+# -- spans ---------------------------------------------------------------------
+
+SPAN_CAPACITY = 1 << 20
+
+
+class SpanRecord(NamedTuple):
+    """One finished span. Times are ``time.perf_counter_ns()``; ``parent``
+    is 0 for a root, and ``root`` is the root's id, which every span of
+    one request (one ``execute``, one ``spgemm_plan``) shares."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int
+    root: int
+    counts: Optional[dict]
+
+
+class SpanRecorder:
+    """A bounded buffer of :class:`SpanRecord` s (``capacity`` records; a
+    span the full buffer cannot take is counted in ``dropped``, never
+    waited for), and the clock anchor that puts them on the profiler's
+    clock."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.capacity = capacity
+        self.forced = False  # set_tracing(True)
+        self.dropped = 0
+        # (perf_counter_ns, time_ns), taken when the first record enters
+        # an empty buffer: the profiler stamps host events on the Unix
+        # clock, the program's spans on perf_counter.
+        self.anchor: Optional[tuple] = None
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._records: List[SpanRecord] = []
+
+    def clear(self) -> None:
+        """Drop every record, the count of dropped spans and the anchor."""
+        with self._lock:
+            self._records = []
+            self.dropped = 0
+            self.anchor = None
+
+    def add(self, rec: SpanRecord) -> None:
+        with self._lock:
+            if len(self._records) >= self.capacity:
+                self.dropped += 1
+                return
+            if self.anchor is None:
+                self.anchor = (time.perf_counter_ns(), time.time_ns())
+            self._records.append(rec)
+
+    def profiler_ns(self, perf_ns: int) -> int:
+        """A ``perf_counter_ns`` time on the profiler's (Unix) clock,
+        through the anchor."""
+        pc, wall = self.anchor
+        return perf_ns - pc + wall
+
+    def spans(self, t0: Optional[float] = None, t1: Optional[float] = None) -> List[SpanRecord]:
+        """The records whose interval lies in ``[t0, t1]``, seconds on the
+        ``time.perf_counter`` clock (an open end where ``None``)."""
+        lo = -1 if t0 is None else round(t0 * 1e9)
+        hi = float("inf") if t1 is None else round(t1 * 1e9)
+        with self._lock:
+            recs = list(self._records)
+        return [r for r in recs if r.start_ns >= lo and r.end_ns <= hi]
+
+    def totals(self, t0: Optional[float] = None, t1: Optional[float] = None) -> dict:
+        """Per span name in the window: ``count``, ``seconds``,
+        ``self_seconds`` (each span's duration less the part its child
+        spans cover) and ``counts`` summed; and ``dropped``."""
+        recs = self.spans(t0, t1)
+        ids = {r.id for r in recs}
+        children: Dict[int, list] = {}
+        for r in recs:
+            if r.parent in ids:
+                children.setdefault(r.parent, []).append((r.start_ns, r.end_ns))
+        sums: Dict[str, dict] = {}
+        for r in recs:
+            t = sums.setdefault(r.name, {"count": 0, "ns": 0, "self_ns": 0, "counts": {}})
+            t["count"] += 1
+            t["ns"] += r.end_ns - r.start_ns
+            t["self_ns"] += r.end_ns - r.start_ns - _covered(children.get(r.id, ()))
+            for k, v in (r.counts or {}).items():
+                t["counts"][k] = t["counts"].get(k, 0) + v
+        out = {name: {"count": t["count"], "seconds": t["ns"] / 1e9,
+                      "self_seconds": t["self_ns"] / 1e9, "counts": t["counts"]}
+               for name, t in sums.items()}
+        return {"spans": out, "dropped": self.dropped}
+
+
+def _covered(intervals) -> int:
+    """Nanoseconds that the union of ``intervals`` covers."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total
+
+
+_RECORDER = SpanRecorder()
+# The innermost open span of this thread or task: (id, root id).
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_span", default=None)
+_OFF = contextlib.nullcontext()
+# The record function a span enters: torch's fast one where this torch has
+# it, else ``record_function``. Under a profiler ``record_function`` takes
+# tens of microseconds to enter and to leave, and the profiler's own stamps
+# fall at varying points inside that time, so a short span's duration in
+# the buffer and in the profiler would differ by it; the fast one takes
+# about a microsecond.
+_record_function = getattr(torch._C._profiler, "_RecordFunctionFast", record_function)
+# Whether a torch profiler records on this thread (per thread, as the
+# profiler's own host events are).
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "counts", "_id", "_parent", "_root", "_token", "_rf", "_start")
+
+    def __init__(self, name: str, counts: dict):
+        self.name = name
+        self.counts = counts or None
+
+    def __enter__(self):
+        parent = _CURRENT.get()
+        self._id = next(_RECORDER._ids)
+        self._parent, self._root = parent if parent is not None else (0, self._id)
+        self._token = _CURRENT.set((self._id, self._root))
+        # Stamped after the profiler's enter and after its exit, as the
+        # profiler stamps its own event late in each.
+        self._rf = _record_function(self.name)
+        self._rf.__enter__()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        end = time.perf_counter_ns()
+        _CURRENT.reset(self._token)
+        _RECORDER.add(SpanRecord(self.name, self._start, end, self._id, self._parent,
+                                 self._root, self.counts))
+        return False
+
+
+def span(name: str, **counts):
+    """A context manager timing a named stage of the program, with
+    ``counts`` (e.g. ``bytes``) attached. Off, it is a no-op after one flag
+    check; on, see the module docstring."""
+    if not (_RECORDER.forced or _profiler_enabled()):
+        return _OFF
+    return _Span(name, counts)
+
+
+def traced(name: str):
+    """Decorate a function so that each call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def set_tracing(on: bool) -> None:
+    """Turn tracing on or off for every thread, with or without a
+    profiler (a running profiler turns it on for its own thread)."""
+    _RECORDER.forced = bool(on)
+
+
+def default_recorder() -> SpanRecorder:
+    """The process-level buffer every :func:`span` records into."""
+    return _RECORDER
+
+
+def spans(t0: Optional[float] = None, t1: Optional[float] = None) -> List[SpanRecord]:
+    """:meth:`SpanRecorder.spans` of the process-level recorder."""
+    return _RECORDER.spans(t0, t1)
+
+
+def totals(t0: Optional[float] = None, t1: Optional[float] = None) -> dict:
+    """:meth:`SpanRecorder.totals` of the process-level recorder."""
+    return _RECORDER.totals(t0, t1)
 
 
 class Heartbeat:

@@ -81,6 +81,7 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.launch.mesh import Mesh
+from repro_torch.runtime.heartbeat import default_registry, span, traced
 from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo, to_coo
 from repro_torch.sparse.formats import BCSR, BCSV, COO, CSR
 from repro_torch.spgemm.cache import PlanCache, default_cache, pattern_digest
@@ -120,7 +121,8 @@ def schedule_build_count() -> int:
 def _build_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
     """The symbolic phase, counted."""
     global _SCHEDULE_BUILDS
-    schedule = build_spgemm_schedule(a, b)
+    with span("spgemm.plan.schedule"):
+        schedule = build_spgemm_schedule(a, b)
     _SCHEDULE_BUILDS += 1
     return schedule
 
@@ -268,6 +270,14 @@ def _device_values(vals, device: torch.device, dtype: torch.dtype) -> torch.Tens
     return _as_tensor(vals, dtype).to(device).contiguous()
 
 
+def _copy_span(name: str, counter: str, nbytes: int):
+    """``span(name, bytes=nbytes)`` around a copy of ``nbytes`` between
+    host and device, which the process-level counter ``counter`` also
+    counts (traced or not)."""
+    default_registry().counter(counter).inc(nbytes)
+    return span(name, bytes=nbytes)
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     """The JAX package's name of a packed value dtype."""
     return "bfloat16" if dtype == torch.bfloat16 else "float32"
@@ -346,33 +356,35 @@ class SpGEMMPlan:
         self._group = schedule.group
         self._bm = int(self._a_shape[1]) if len(self._a_shape) == 3 else 0
         self._bn = int(self._b_shape[2]) if len(self._b_shape) == 3 else 0
-        # Symbolic output structure: C's CSR pattern + the panels->CSR
-        # gather map, consumed on device by the executor.
-        self.assembly: AssemblyMap = (
-            assembly if assembly is not None
-            else build_assembly_map(schedule, (self._bm, self._bn), out_shape)
-        )
-        # Output mode and the element-exact compact map: a subset of the
-        # block map's positions, so gathering through it is the
-        # compaction (no nonzero scan).
         self.output = output
         self.compact: Optional[AssemblyMap] = compact
-        if output == "compact" and self.compact is None:
-            if a_pattern is not None and b_pattern is not None:
-                rows, cols = structural_product_pattern(
-                    a_pattern.row, a_pattern.col, b_pattern.row, b_pattern.col,
-                    a_pattern.shape, b_pattern.shape,
-                )
-                self.compact = build_compact_map(self.assembly, rows, cols)
-            else:
-                self.compact = self.assembly
+        with span("spgemm.plan.assembly"):
+            # Symbolic output structure: C's CSR pattern + the panels->CSR
+            # gather map, consumed on device by the executor.
+            self.assembly: AssemblyMap = (
+                assembly if assembly is not None
+                else build_assembly_map(schedule, (self._bm, self._bn), out_shape)
+            )
+            # Output mode and the element-exact compact map: a subset of
+            # the block map's positions, so gathering through it is the
+            # compaction (no nonzero scan).
+            if output == "compact" and self.compact is None:
+                if a_pattern is not None and b_pattern is not None:
+                    rows, cols = structural_product_pattern(
+                        a_pattern.row, a_pattern.col, b_pattern.row, b_pattern.col,
+                        a_pattern.shape, b_pattern.shape,
+                    )
+                    self.compact = build_compact_map(self.assembly, rows, cols)
+                else:
+                    self.compact = self.assembly
         # ``_make_executor`` is the subclass seam: ShardedSpGEMMPlan
         # replaces it with the sharded executor.
-        self._executor = (
-            self._make_executor()
-            if schedule.num_triples and self.assembly.nnz
-            else None
-        )
+        with span("spgemm.plan.stage"):
+            self._executor = (
+                self._make_executor()
+                if schedule.num_triples and self.assembly.nnz
+                else None
+            )
         # Device block values are staged lazily (first no-arg execute).
         self._a_dev = None
         self._b_dev = None
@@ -798,7 +810,11 @@ class SpGEMMPlan:
         """Packed C values (active-map order) -> CSR on the precomputed
         structure. indptr/indices are shared across this plan's results."""
         asm = self._active()
-        return CSR(asm.indptr, asm.indices, packed.cpu().numpy(), (self._m, self._n))
+        # The download is the host's wait for the device plus the copy.
+        with _copy_span("spgemm.execute.download", "spgemm.d2h_bytes", packed.nbytes):
+            host = packed.cpu()
+        with span("spgemm.execute.wrap"):
+            return CSR(asm.indptr, asm.indices, host.numpy(), (self._m, self._n))
 
     def output_pattern(self) -> "StructuralPattern":
         """C's value-independent output structure, the seed of the next
@@ -835,6 +851,7 @@ class SpGEMMPlan:
         kwargs.setdefault("dtype", self._a_dtype)
         return plan_from_structural_pattern(self.output_pattern(), b, **kwargs)
 
+    @traced("spgemm.execute")
     def execute(self, a_vals=None, b_vals=None) -> CSR:
         """Numeric phase only: C = A @ B for fresh values on the planned
         pattern. Zero schedule-construction work."""
@@ -851,20 +868,22 @@ class SpGEMMPlan:
         handoff ``execute_chain`` keeps on the device between stages."""
         with self._lock:
             self._check_released()
-            if a_vals is not None:
-                self._a_blocks = self._rebind(
-                    a_vals, self._a_blocks, self._a_scatter,
-                    self.report.nnz_a if self._a_scatter is not None else 0,
-                    "a_vals", self._a_shape, self._a_dtype,
-                )
-                self._a_dev = None
-            if b_vals is not None:
-                self._b_blocks = self._rebind(
-                    b_vals, self._b_blocks, self._b_scatter,
-                    self.report.nnz_b if self._b_scatter is not None else 0,
-                    "b_vals", self._b_shape, self._b_dtype,
-                )
-                self._b_dev = None
+            if a_vals is not None or b_vals is not None:
+                with span("spgemm.execute.rebind"):
+                    if a_vals is not None:
+                        self._a_blocks = self._rebind(
+                            a_vals, self._a_blocks, self._a_scatter,
+                            self.report.nnz_a if self._a_scatter is not None else 0,
+                            "a_vals", self._a_shape, self._a_dtype,
+                        )
+                        self._a_dev = None
+                    if b_vals is not None:
+                        self._b_blocks = self._rebind(
+                            b_vals, self._b_blocks, self._b_scatter,
+                            self.report.nnz_b if self._b_scatter is not None else 0,
+                            "b_vals", self._b_shape, self._b_dtype,
+                        )
+                        self._b_dev = None
             if self._a_blocks is None or self._b_blocks is None:
                 raise ValueError(
                     "plan values were released (release_values); pass "
@@ -881,10 +900,13 @@ class SpGEMMPlan:
                 and self._b_scatter is not None
             )
             if not fused_values:
-                if self._a_dev is None:
-                    self._a_dev = self._stage_a(self._a_blocks)
-                if self._b_dev is None:
-                    self._b_dev = self._stage_b(self._b_blocks)
+                nbytes = sum(blocks.nbytes for blocks, dev in (
+                    (self._a_blocks, self._a_dev), (self._b_blocks, self._b_dev)) if dev is None)
+                with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
+                    if self._a_dev is None:
+                        self._a_dev = self._stage_a(self._a_blocks)
+                    if self._b_dev is None:
+                        self._b_dev = self._stage_b(self._b_blocks)
                 # Snapshot under the lock so a concurrent rebind cannot mix
                 # one caller's A with another's B.
                 a_dev, b_dev = self._a_dev, self._b_dev
@@ -897,11 +919,15 @@ class SpGEMMPlan:
         if ex is None:
             return None
         if fused_values:
-            return ex.run_values(
-                _device_values(a_vals, self.device, self._a_dtype),
-                _device_values(b_vals, self.device, self._b_dtype),
-            )
-        return ex.run(a_dev, b_dev)
+            # The rebind validated both shapes: [nnz] vectors of the plan's
+            # packed dtypes.
+            with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", self.value_nbytes()):
+                a_dev = _device_values(a_vals, self.device, self._a_dtype)
+                b_dev = _device_values(b_vals, self.device, self._b_dtype)
+            with span("spgemm.execute.launch"):
+                return ex.run_values(a_dev, b_dev)
+        with span("spgemm.execute.launch"):
+            return ex.run(a_dev, b_dev)
 
     def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A later stage of :func:`execute_chain`: the previous stage's
@@ -1694,6 +1720,7 @@ def _dtype_mismatch(plan: SpGEMMPlan, a, b) -> bool:
                for got, w in zip((_input_dtype_name(a), _input_dtype_name(b)), want))
 
 
+@traced("spgemm.plan")
 def spgemm_plan(
     a,
     b,
@@ -1881,23 +1908,24 @@ def spgemm_plan(
         return _deep_verify(plan, validate, verified)
 
     bm, bk, bn = _normalize_tile(tile)
-    # sum_duplicates already emits canonical row-major order.
-    a_coo = to_coo(a).sum_duplicates()
-    b_coo = to_coo(b).sum_duplicates()
-    if a_coo.shape[1] != b_coo.shape[0]:
-        raise ValueError(f"inner dims mismatch: {a_coo.shape} x {b_coo.shape}")
-    # The value dtypes, from the inputs themselves: to_coo widens a
-    # bfloat16 tensor's values to float32 (exactly).
-    dtypes = tuple(_packed_dtype(x if isinstance(x, torch.Tensor) else coo.val)
-                   for x, coo in ((a, a_coo), (b, b_coo)))
-    # The value dtype is part of the key: a float64 request is not served
-    # (and rounded) by a float32-built plan.
-    pattern = pattern_digest(
-        a_coo.row, a_coo.col, b_coo.row, b_coo.col,
-        meta=("coo", a_coo.shape, b_coo.shape) + tuple(
-            "bfloat16" if dt == torch.bfloat16 else str(coo.val.dtype)
-            for dt, coo in zip(dtypes, (a_coo, b_coo))),
-    )
+    with span("spgemm.plan.inputs"):
+        # sum_duplicates already emits canonical row-major order.
+        a_coo = to_coo(a).sum_duplicates()
+        b_coo = to_coo(b).sum_duplicates()
+        if a_coo.shape[1] != b_coo.shape[0]:
+            raise ValueError(f"inner dims mismatch: {a_coo.shape} x {b_coo.shape}")
+        # The value dtypes, from the inputs themselves: to_coo widens a
+        # bfloat16 tensor's values to float32 (exactly).
+        dtypes = tuple(_packed_dtype(x if isinstance(x, torch.Tensor) else coo.val)
+                       for x, coo in ((a, a_coo), (b, b_coo)))
+        # The value dtype is part of the key: a float64 request is not
+        # served (and rounded) by a float32-built plan.
+        pattern = pattern_digest(
+            a_coo.row, a_coo.col, b_coo.row, b_coo.col,
+            meta=("coo", a_coo.shape, b_coo.shape) + tuple(
+                "bfloat16" if dt == torch.bfloat16 else str(coo.val.dtype)
+                for dt, coo in zip(dtypes, (a_coo, b_coo))),
+        )
     key = (pattern, (bm, bk, bn), group, backend, dev_key, shard_key) + out_key
 
     def load(arrays: dict, meta: dict) -> SpGEMMPlan:
@@ -1938,8 +1966,9 @@ def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend,
                   output, mesh=None, mesh_axis=None) -> SpGEMMPlan:
     """The symbolic phase of an element plan from canonical COO operands."""
     bm, bk, bn = tile
-    a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
-    b_bcsr, b_scatter = bcsr_from_coo(b_coo, (bk, bn))
+    with span("spgemm.plan.convert"):
+        a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
+        b_bcsr, b_scatter = bcsr_from_coo(b_coo, (bk, bn))
     schedule = _build_schedule(a_bcsv, b_bcsr)
     report = _make_report(
         pattern, (bm, bk, bn), group, backend,

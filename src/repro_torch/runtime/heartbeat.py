@@ -211,8 +211,9 @@ _REGISTRY = MetricsRegistry()
 
 def default_registry() -> MetricsRegistry:
     """The process-level registry: the program's own counters
-    (``spgemm.h2d_bytes``, ``spgemm.d2h_bytes``), for a :class:`Heartbeat`
-    to export."""
+    (``spgemm.h2d_bytes``, ``spgemm.d2h_bytes``, and
+    ``spgemm.d2h_pinned_bytes``, the part of the downloads copied into
+    page-locked memory), for a :class:`Heartbeat` to export."""
     return _REGISTRY
 
 

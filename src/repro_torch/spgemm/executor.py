@@ -75,6 +75,7 @@ from repro_torch.kernels.gustavson_spgemm import (
     spgemm_scheduled_batch,
     stage_runs,
 )
+from repro_torch.runtime.heartbeat import default_registry
 
 __all__ = [
     "CHUNK_BYTES_ENV",
@@ -297,13 +298,18 @@ class _Download:
 def _download(packed: torch.Tensor):
     """Start the device-to-host copy of ``packed`` into a fresh pinned
     tensor and record an event after it on the current stream (CUDA), or
-    hand back the values themselves (CPU)."""
+    hand back the values themselves (CPU). The counter
+    ``spgemm.d2h_pinned_bytes`` counts the bytes copied so."""
     if packed.device.type != "cuda":
         return packed
+    default_registry().counter("spgemm.d2h_pinned_bytes").inc(packed.nbytes)
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+    # The copy runs on the current stream of packed's device, which need
+    # not be the current device: the event goes on that same stream.
+    with torch.cuda.device(packed.device):
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
     return _Download(host, event)
 
 

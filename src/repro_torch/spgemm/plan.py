@@ -89,6 +89,8 @@ from repro_torch.spgemm.executor import (
     CHUNK_BYTES_ENV,
     ShardedSpGEMMExecutor,
     SpGEMMExecutor,
+    _collect,
+    _download,
     _pinned_copy,
 )
 from repro_torch.spgemm.pipeline import SpGEMMPipeline, SpGEMMTicket, _Prepared
@@ -808,11 +810,14 @@ class SpGEMMPlan:
 
     def _wrap_packed(self, packed: torch.Tensor) -> CSR:
         """Packed C values (active-map order) -> CSR on the precomputed
-        structure. indptr/indices are shared across this plan's results."""
+        structure. indptr/indices are shared across this plan's results;
+        the values are each result's own: a fresh page-locked tensor from
+        the caching host allocator on the card, ``packed`` itself on the
+        host."""
         asm = self._active()
         # The download is the host's wait for the device plus the copy.
         with _copy_span("spgemm.execute.download", "spgemm.d2h_bytes", packed.nbytes):
-            host = packed.cpu()
+            host = _collect(_download(packed))
         with span("spgemm.execute.wrap"):
             return CSR(asm.indptr, asm.indices, host.numpy(), (self._m, self._n))
 
@@ -1012,11 +1017,11 @@ class SpGEMMPlan:
         out = []
         for lo in range(0, batch, chunk):
             hi = min(lo + chunk, batch)
-            packed = ex.run_batch(
+            packed = _collect(_download(ex.run_batch(
                 _device_values(a_vals[lo:hi], self.device, self._a_dtype),
                 _device_values(b_vals[lo:hi], self.device, self._b_dtype),
                 rebind=rebind,
-            ).cpu()
+            )))
             out.extend(self._wrap_packed(packed[i]) for i in range(hi - lo))
         return out
 

@@ -225,6 +225,43 @@ def test_plan_on_card_matches_cpu_plan_and_oracle(cuda):
                        torch.from_numpy(got.indptr.astype(np.int32)))
 
 
+def test_execute_downloads_into_page_locked_memory(cuda):
+    """The synchronous surfaces copy C into a fresh page-locked tensor:
+    ``spgemm.d2h_pinned_bytes`` moves by C's bytes, as ``spgemm.d2h_bytes``
+    does; the values are bitwise those of a plain ``.cpu()`` of the same
+    packed tensor; a result keeps its values after later requests and
+    shares no memory with them."""
+    from repro_torch.runtime.heartbeat import default_registry
+    from repro_torch.spgemm import execute_chain
+
+    reg = default_registry()
+    a = suite_matrix("poisson3Da", scale=0.05, seed=0)
+    plan = spgemm_plan(a, a, tile=64, group=4, device=cuda)
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal((3, 2, a.nnz)).astype(np.float32)
+    pinned, d2h = reg.counter("spgemm.d2h_pinned_bytes").value, reg.counter("spgemm.d2h_bytes").value
+    packed = plan._run_packed(vals[0, 0], vals[0, 1])
+    c = plan._wrap_packed(packed)
+    assert reg.counter("spgemm.d2h_pinned_bytes").value - pinned == c.data.nbytes > 0
+    assert reg.counter("spgemm.d2h_bytes").value - d2h == c.data.nbytes
+    assert torch.from_numpy(c.data).is_pinned()
+    assert np.array_equal(c.data.view(np.uint32), packed.cpu().numpy().view(np.uint32))
+    chain = plan.then(a)
+    surfaces = [lambda v: plan.execute(v[0], v[1]),
+                lambda v: plan.execute_batch(v[None, 0], v[None, 1])[0],
+                lambda v: execute_chain(chain, v[0], v[1])]
+    for run in surfaces:
+        pinned, d2h = reg.counter("spgemm.d2h_pinned_bytes").value, reg.counter("spgemm.d2h_bytes").value
+        first = run(vals[1])
+        kept = first.data.copy()
+        second = run(vals[2])
+        assert torch.from_numpy(second.data).is_pinned()
+        assert np.array_equal(first.data, kept)
+        assert not np.shares_memory(first.data, second.data)
+        moved = reg.counter("spgemm.d2h_pinned_bytes").value - pinned
+        assert moved == reg.counter("spgemm.d2h_bytes").value - d2h == 2 * first.data.nbytes
+
+
 def _submit_without_sync(pipe, *vals):
     """``submit`` with PyTorch's sync debug mode set to raise: any hidden
     synchronization (a pageable copy, ``.item()``) fails the call."""

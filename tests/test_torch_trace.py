@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.runtime import heartbeat as hb
 from repro_torch.sparse.random import random_coo
-from repro_torch.spgemm import PlanCache, spgemm_plan
+from repro_torch.spgemm import PlanCache, execute_chain, spgemm_plan
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -216,6 +216,51 @@ def test_batch_results_are_downloaded_and_wrapped_one_by_one():
     assert all(r.parent == 0 and r.root == r.id for r in recs)
     got = hb.totals()["spans"]["spgemm.execute.download"]["counts"]["bytes"]
     assert got == sum(c.data.nbytes for c in out)
+
+
+def _result(surface, plan, vals):
+    """One result of ``surface`` on the value pair ``vals``."""
+    a_vals, b_vals = vals
+    if surface == "execute":
+        return plan.execute(a_vals, b_vals)
+    if surface == "execute_batch":
+        return plan.execute_batch(a_vals[None], b_vals[None])[0]
+    chain = plan.then(random_coo(72, 64, 0.06, seed=5), cache=PlanCache())
+    return execute_chain(chain, a_vals, b_vals)
+
+
+@pytest.mark.parametrize("surface", ["execute", "execute_batch", "execute_chain"])
+def test_each_result_owns_its_values(surface):
+    """A result's values stay as they were after the next request on new
+    values, and no two results share memory: no buffer outlives its
+    request."""
+    plan, a, b = _plan()
+    rng = np.random.default_rng(7)
+    first_vals, second_vals = [(rng.standard_normal(a.nnz).astype(np.float32),
+                                rng.standard_normal(b.nnz).astype(np.float32))
+                               for _ in range(2)]
+    first = _result(surface, plan, first_vals)
+    kept = first.data.copy()
+    second = _result(surface, plan, second_vals)
+    assert np.array_equal(first.data, kept)
+    assert not np.array_equal(second.data, kept)
+    assert not np.shares_memory(first.data, second.data)
+
+
+def test_pinned_download_counter_stays_zero_on_a_cpu_plan():
+    """On a CPU plan no download goes through page-locked memory:
+    ``spgemm.d2h_pinned_bytes`` does not move, while ``spgemm.d2h_bytes``
+    and the download span still count C's values."""
+    plan, a, b = _plan()
+    pinned, d2h = _counter("spgemm.d2h_pinned_bytes"), _counter("spgemm.d2h_bytes")
+    hb.set_tracing(True)
+    c = plan.execute(a.val, b.val)
+    batch = plan.execute_batch(np.stack([a.val] * 2), np.stack([b.val] * 2))
+    hb.set_tracing(False)
+    nbytes = c.data.nbytes + sum(r.data.nbytes for r in batch)
+    assert _counter("spgemm.d2h_pinned_bytes") == pinned
+    assert _counter("spgemm.d2h_bytes") - d2h == nbytes > 0
+    assert hb.totals()["spans"]["spgemm.execute.download"]["counts"] == {"bytes": nbytes}
 
 
 def test_totals_sum_self_time_counts_and_the_window():

@@ -126,6 +126,14 @@ the run with a nonzero exit code and no result line:
    bitwise equal to a cold build; the gateway/pipeline lock-order lint on
    the card (acyclic); OMAR (Eq. 1) of the eight paper matrices at their
    published sizes;
+5k. exact output: cage12 at Table 4's size (130,000^2 at 1.2e-4, class
+   graph) through ``spgemm_plan(..., tile=1, group=1, output="exact")``:
+   3 ``execute`` and ``execute_batch(2)`` launch K1's 1 x 1 x 1
+   specialization 3 and 1 times, C against the Gustavson oracle, the batch
+   bitwise equal to ``execute``; the element kernel alone within one
+   float32 ulp of its plain version, its ms, bound, plain ms and
+   cuSPARSE's ms, as its own entry of the kernels line
+   (``spgemm_scheduled.elements``);
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -1843,6 +1851,120 @@ def phase_analysis(dev, rng) -> dict:
     return info
 
 
+# -- phase 5k: exact output (element granularity) --------------------------------
+
+def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    up = torch.nextafter(want, torch.full_like(want, float("inf")))
+    down = torch.nextafter(want, torch.full_like(want, float("-inf")))
+    return bool(((got == want) | (got == up) | (got == down)).all())
+
+
+def library_exact(a: CSR, vals, want: CSR, dev):
+    """cuSPARSE CSR @ CSR through torch.sparse for C = A·A on ``vals``,
+    checked on the card against ``want``, the exact plan's C on the same
+    values (held against the oracle already): the same entries, values
+    within ``ORACLE_TOL``. Returns the call for timing."""
+    t = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int32)).to(dev),
+                                torch.from_numpy(a.indices.astype(np.int32)).to(dev),
+                                torch.from_numpy(vals).to(dev), a.shape,
+                                check_invariants=False)
+    res = t @ t
+    m, n = a.shape
+    rows = torch.repeat_interleave(torch.arange(m, device=dev),
+                                   torch.diff(res.crow_indices().long()))
+    key, order = torch.sort(rows * n + res.col_indices().long())
+    want_rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(want.indptr))
+    want_key = torch.from_numpy(want_rows * n + want.indices).to(dev)
+    check(key.shape == want_key.shape and torch.equal(key, want_key),
+          "cuSPARSE CSR @ CSR: entries differ from the exact plan's")
+    np.testing.assert_allclose(res.values()[order].cpu().numpy(), want.data, rtol=ORACLE_TOL,
+                               atol=ORACLE_TOL, err_msg="cuSPARSE CSR @ CSR")
+    del res, rows, key, order, want_key
+    return lambda: t @ t
+
+
+def phase_exact(dev, rng) -> tuple:
+    """cage12's Table 4 row (130,000^2 at 1.2e-4, class graph) through an
+    ``output="exact"`` plan (tile 1, group 1): 3 ``execute`` and one
+    ``execute_batch(2)`` from launch counts reset just before, C against
+    the Gustavson oracle, the batch bitwise equal to single executes; then
+    K1's 1 x 1 x 1 specialization alone against its plain version within
+    one float32 ulp, its time, its bound, the plain version's time and
+    cuSPARSE's (CSR @ CSR, its C held against the plan's) on the same
+    product. Returns the kernels-line entry of the element kernel and the
+    phase's numbers."""
+    a = suite_matrix("cage12", scale=1.0, seed=SEED)
+    t0 = time.perf_counter()
+    plan = spgemm_plan(a, a, tile=1, group=1, output="exact", device=dev, cache=PlanCache())
+    plan_s = time.perf_counter() - t0
+    r = plan.report
+    log(f"  cage12 {a.shape} nnz {a.nnz}: exact plan {plan_s:.2f} s, pairs {r.num_triples}, "
+        f"nnz(C) {plan.assembly.nnz}")
+    singles = [rng.standard_normal(a.nnz, dtype=np.float32) for _ in range(3)]
+    batch = rng.standard_normal((2, a.nnz), dtype=np.float32)
+    reset_counts()
+    outs = [plan.execute(v, v) for v in singles]
+    batch_outs = plan.execute_batch(batch, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["spgemm_scheduled"] == 3, f"element launches {launched}")
+    check(launched["spgemm_scheduled_batch"] == -(-2 // min(2, plan._executor.batch_chunk())),
+          f"element batch launches {launched}")
+    err = check_against_oracle(outs[0], a, singles[0], singles[0], "exact execute 0")
+    for i in range(2):
+        single = plan.execute(batch[i], batch[i])
+        check(np.array_equal(single.data, batch_outs[i].data),
+              f"exact execute_batch[{i}] differs from execute")
+    c0 = outs[0]
+    del outs, batch_outs
+
+    ex = plan._executor
+    runs = ex._runs
+    av = torch.from_numpy(singles[1]).to(dev).reshape(-1, 1, 1)
+    bv = torch.from_numpy(singles[2]).to(dev).reshape(-1, 1, 1)
+
+    def kernel():
+        return spgemm_scheduled(av, bv, runs)
+
+    def plain():
+        return ref.spgemm_scheduled_ref(av, bv, runs.a_slot, runs.b_slot, runs.panel,
+                                        runs.sub_row, runs.n_panels, runs.group)
+
+    got, want = kernel(), plain()
+    check(got.shape == want.shape == (r.n_panels, 1, 1), f"element kernel shape {got.shape}")
+    check(within_one_ulp(got, want), "element kernel beyond one ulp of its plain version")
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    del got, want
+    (b_ms, b_by), flops, nbytes = bound(plan, 1)
+    k_ms = time_ms(kernel, reps=20)
+    p_ms = time_ms(plain, reps=3, warmup=1)
+    lib = library_exact(a, singles[0], c0, dev)
+    lib_ms = time_ms(lib, reps=5, warmup=1)
+    e2e_ms = host_ms(lambda: plan.execute(singles[0], singles[0]), reps=10)
+    spans = execute_spans(plan, rng, reps=5)
+    log(f"  element kernel cage12: {k_ms:.4f} ms ({b_ms / k_ms:.1%} of the bound, "
+        f"{b_ms:.4f} ms by {b_by}), plain {p_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms; "
+        f"largest relative difference to plain {rel:.3g}; vs oracle {err:.3g}")
+    log(f"  execute cage12 end to end: {e2e_ms:.3f} ms; spans (per call): {spans}")
+    entry = {
+        "name": "spgemm_scheduled.elements", "kernel": "gustavson_element_kernel",
+        "route": "cuda", "source": SOURCE,
+        "replaces": "src/repro/kernels/gustavson_spgemm.py:128",
+        "launches": launched["spgemm_scheduled"] + launched["spgemm_scheduled_batch"],
+        "launches_by_path": {"cage12 exact execute": launched["spgemm_scheduled"],
+                             "cage12 exact execute_batch": launched["spgemm_scheduled_batch"]},
+        "max_rel_err": rel, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    }
+    info = {"plan_s": plan_s, "pairs": r.num_triples, "nnz_c": int(plan.assembly.nnz),
+            "flops": flops, "bytes": float(nbytes), "oracle_max_abs_err": err,
+            "execute_ms": e2e_ms, "execute_spans": spans,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del plan, av, bv
+    torch.cuda.empty_cache()
+    return entry, info
+
+
 # -- phase 9: timings (SpGEMM) ---------------------------------------------------
 
 def kernel_inputs(plan, dev, rng, bsz):
@@ -1873,7 +1995,7 @@ def bound(plan, bsz) -> tuple:
     runs = ex._runs
     item_a, item_b = (dt.itemsize for dt in plan.value_dtypes)
     nbytes = bsz * (item_a * np.prod(ex.a_shape) + item_b * np.prod(ex.b_shape)
-                    + 4 * plan.report.n_panels * GROUP * bm * bn) \
+                    + 4 * plan.report.n_panels * plan.report.group * bm * bn) \
         + 4 * (runs.ptr.numel() + runs.a_slot.numel() + runs.b_slot.numel())
     bf16 = plan.value_dtypes == (torch.bfloat16, torch.bfloat16)
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
@@ -4124,6 +4246,12 @@ def main() -> int:
     analysis_info["phase_s"] = time.perf_counter() - t0
     log(f"  phase 5j: {analysis_info['phase_s']:.1f} s")
 
+    log("[5k] exact output: cage12 at Table 4's size, K1's 1 x 1 x 1 specialization")
+    t0 = time.perf_counter()
+    exact_entry, exact_info = phase_exact(dev, rng)
+    exact_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5k: {exact_info['phase_s']:.1f} s")
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -4138,7 +4266,8 @@ def main() -> int:
     extra.update(bf16_plan)
     extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info,
                   "cache": cache_info, "sharded": shard_info, "autotune": tune_info,
-                  "gateway": gw_info, "analysis": analysis_info})
+                  "gateway": gw_info, "analysis": analysis_info, "exact": exact_info})
+    entries.append(exact_entry)
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2

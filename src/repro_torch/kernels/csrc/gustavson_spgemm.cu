@@ -357,7 +357,68 @@ struct Occupancy {
   static int run(int bm, int bn) { return occupancy<T, TM, TN, KC>(bm, bn); }
 };
 
+// The 1 x 1 x 1 specialization (output="exact" plans). At that tile a
+// block is one value, a tile one entry of C and a triple one pair
+// A[i,k] * B[k,j]; on the sparse graphs such plans serve, an entry holds
+// one or two pairs, so a thread block per tile would leave all but one
+// thread idle. Here one thread owns one entry: it reads its run's bounds
+// (the threads of a warp read neighbouring words of run_ptr, and their
+// runs are neighbouring words of run_a and run_b, so those reads
+// coalesce), gathers each pair's two values and writes its entry once.
+// The sum is the ring kernel's: one float32 FMA chain from zero over the
+// run in order, k ascending, so an entry equals its value at any larger
+// tile bit for bit. blockIdx.y is the batch element.
+constexpr int kElemThreads = 256;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(kElemThreads)
+gustavson_element_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                         const int* __restrict__ run_ptr, const int* __restrict__ run_a,
+                         const int* __restrict__ run_b, float* __restrict__ out, int n_tiles,
+                         int nnz_a, int nnz_b) {
+  const long long e = blockIdx.y;
+  const int i = blockIdx.x * kElemThreads + threadIdx.x;
+  if (i >= n_tiles) return;
+  const T* const ae = a + e * nnz_a;
+  const T* const be = b + e * nnz_b;
+  const int hi = run_ptr[i + 1];
+  float sum = 0.0f;
+  for (int t = run_ptr[i]; t < hi; ++t) sum = fmaf(widen(ae[run_a[t]]), widen(be[run_b[t]]), sum);
+  out[e * n_tiles + i] = sum;
+}
+
+template <typename T>
+cudaError_t launch_elements(const Args& g) {
+  const dim3 grid((unsigned)(((long long)g.n_tiles + kElemThreads - 1) / kElemThreads), g.bsz);
+  gustavson_element_kernel<T><<<grid, kElemThreads, 0, g.stream>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b),
+      static_cast<const int*>(g.run_ptr), static_cast<const int*>(g.run_a),
+      static_cast<const int*>(g.run_b), static_cast<float*>(g.out), g.n_tiles, g.nnzb_a,
+      g.nnzb_b);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Launches the 1 x 1 x 1 specialization on `stream`; returns a cudaError_t
+// (0 on success). Arguments as gustavson_spgemm_launch's, without the tile:
+// a and b are [bsz][nnz_a] and [bsz][nnz_b] values, out is float32
+// [bsz][n_tiles], one entry per tile.
+extern "C" int gustavson_elements_launch(const void* a, const void* b, const void* run_ptr,
+                                         const void* run_a, const void* run_b, void* out,
+                                         int dtype, int bsz, int n_tiles, int nnz_a, int nnz_b,
+                                         void* stream) {
+  if (bsz < 1 || bsz > 65535 || n_tiles < 1 || nnz_a < 0 || nnz_b < 0)
+    return (int)cudaErrorInvalidValue;
+  const Args g{a, b, run_ptr, run_a, run_b, out, bsz, n_tiles, nnz_a, nnz_b, 1, 1, 1,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_elements<float>(g);
+  if (dtype == 1) return (int)launch_elements<__nv_bfloat16>(g);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 on success).
 // dtype: 0 = float32, 1 = bfloat16 (A and B alike); out is float32

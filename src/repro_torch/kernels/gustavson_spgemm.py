@@ -14,6 +14,11 @@ bit. Blocks are float32 or bfloat16 (a plan built on bfloat16 values
 stages bfloat16 blocks); the result is float32 either way, each element a
 float32 FMA chain over the tile's triples in order, k ascending.
 
+At tile (1, 1, 1) (``output="exact"`` plans) every block is one value and
+every tile one entry of C, and the wrappers launch the kernel's element
+specialization instead: one thread per entry, which sums its run of pairs
+in the same FMA chain, so an entry equals its value at any larger tile.
+
 Each wrapper launches the CUDA kernel for CUDA tensors, on the current
 stream, and raises on anything it does not accept. For CPU tensors it
 computes the same result with the plain PyTorch version
@@ -209,6 +214,8 @@ def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
     """Launch the kernel on the current stream; the schedule has tiles."""
     bm, bk = int(a_blocks.shape[1]), int(a_blocks.shape[2])
     bn = int(b_blocks.shape[2])
+    if (bm, bk, bn) == (1, 1, 1):
+        return _launch_elements(a_blocks, b_blocks, runs, bsz)
     for name, d in (("bm", bm), ("bk", bk), ("bn", bn)):
         if d % 16 or not 16 <= d <= 128:
             raise ValueError(f"the CUDA kernel takes tile dims that are multiples "
@@ -236,6 +243,31 @@ def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"gustavson_spgemm kernel launch failed: cudaError_t {err}")
+    return out
+
+
+def _launch_elements(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
+    """Launch the kernel's 1 x 1 x 1 specialization on the current stream:
+    one thread per output entry (tile), which sums its run of pairs."""
+    if bsz > 65535:
+        raise ValueError(f"bsz={bsz} exceeds the grid's 65535 batch elements")
+    for t in (runs.ptr, runs.a_slot, runs.b_slot):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("schedule runs must be contiguous int32")
+    n_tiles = runs.n_panels * runs.group
+    out = torch.empty((bsz, runs.n_panels, runs.group, 1), dtype=torch.float32,
+                      device=a_blocks.device)
+    lib = load_gustavson()
+    with torch.cuda.device(a_blocks.device):
+        err = lib.gustavson_elements_launch(
+            a_blocks.data_ptr(), b_blocks.data_ptr(), runs.ptr.data_ptr(),
+            runs.a_slot.data_ptr(), runs.b_slot.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[a_blocks.dtype], bsz, n_tiles,
+            int(a_blocks.shape[0]) // bsz, int(b_blocks.shape[0]) // bsz,
+            _stream_handle(a_blocks),
+        )
+    if err != 0:
+        raise RuntimeError(f"gustavson_spgemm element launch failed: cudaError_t {err}")
     return out
 
 

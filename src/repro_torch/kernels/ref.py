@@ -46,11 +46,18 @@ def spgemm_scheduled_ref(
 
     One batched product of every triple's blocks, then one ``index_add_``
     at each product's flat panel-row offset. Returns panels
-    ``[n_panels, group*bm, bn]`` in float32.
+    ``[n_panels, group*bm, bn]`` in float32. At tile (1, 1, 1) each tile
+    is one output entry and its sum runs as the kernel's does
+    (:func:`_element_chain`).
     """
     dev = a_blocks.device
     bm = a_blocks.shape[1]
     bn = b_blocks.shape[2]
+    if (bm, a_blocks.shape[2], bn) == (1, 1, 1):
+        tile = _as_index(panel, dev) * group + _as_index(sub_row, dev)
+        out = _element_chain(a_blocks.reshape(-1), b_blocks.reshape(-1), _as_index(a_slot, dev),
+                             _as_index(b_slot, dev), tile, n_panels * group)
+        return out.reshape(n_panels, group, 1)
     prod = torch.einsum(
         "tij,tjk->tik",
         a_blocks[_as_index(a_slot, dev)].float(),
@@ -63,6 +70,30 @@ def spgemm_scheduled_ref(
     flat = torch.zeros((n_panels * group * bm, bn), dtype=torch.float32, device=dev)
     flat.index_add_(0, rows, prod.reshape(-1, bn))
     return flat.reshape(n_panels, group * bm, bn)
+
+
+def _element_chain(a, b, a_slot, b_slot, tile, n_tiles: int) -> torch.Tensor:
+    """Each tile's sum of ``a[a_slot[t]] * b[b_slot[t]]`` over its pairs in
+    their order, as one float32 chain from zero: step ``s`` adds every
+    tile's ``s``-th product at once. A product of two float32 (or bfloat16)
+    values is exact in float64, so each step rounds once, as the kernel's
+    FMA does, up to the rare double rounding of the float64 sum. Returns
+    ``[n_tiles]`` float32."""
+    order = torch.argsort(tile, stable=True)
+    tile = tile[order]
+    prod = a[a_slot[order]].double() * b[b_slot[order]].double()
+    counts = torch.bincount(tile, minlength=n_tiles)
+    pos = torch.arange(tile.shape[0], device=tile.device) - (torch.cumsum(counts, 0) - counts)[tile]
+    by_step = torch.argsort(pos, stable=True)
+    steps = torch.bincount(pos).tolist() if pos.numel() else []
+    acc = torch.zeros(n_tiles, dtype=torch.float32, device=a.device)
+    lo = 0
+    for size in steps:
+        sel = by_step[lo:lo + size]
+        lo += size
+        t = tile[sel]
+        acc[t] = (acc[t].double() + prod[sel]).float()
+    return acc
 
 
 def spgemm_scheduled_batch_ref(

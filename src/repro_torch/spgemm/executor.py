@@ -27,7 +27,9 @@ dimension of one kernel launch
 element's accumulation order, so a batch equals a loop of single executes
 bit for bit. :class:`SpGEMMExecutor` holds a plan's device-resident
 constants (schedule runs, scatter inverses, gather map — copied to the
-device once).
+device once). A scatter inverse or gather map that is the identity (at
+tile 1, where the packed blocks are the values and the panels are C's
+entries) is not staged, and its gather is skipped.
 
 **Stage-split pipeline surface.** Each stage is also a function of its
 own (``bind_core`` / ``kernel_core`` / ``assemble_core`` and their batched
@@ -178,6 +180,19 @@ def _run_schedule_batch(a_blocks, b_blocks, runs: ScheduleRuns, bsz, *, backend)
     )
 
 
+def _is_identity(index: Optional[np.ndarray], size: int) -> bool:
+    """Whether ``index`` maps position ``i`` to ``i`` over all ``size``
+    positions (at tile 1 the rebind and the assembly do nothing else):
+    such a gather is skipped, as it would copy its input unchanged."""
+    if index is None or index.shape[0] != size:
+        return False
+    # A sample first: a block map of this size fails it without a full pass.
+    step = max(1, size // 1024)
+    if not np.array_equal(index[::step], np.arange(0, size, step)):
+        return False
+    return bool((np.diff(index) == 1).all())
+
+
 def _invert_scatter(scatter: np.ndarray, size: int) -> np.ndarray:
     """Turn flat scatter indices (``blocks.flat[scatter] = vals``) into a
     gather map (``blocks.flat = vals_padded[inv]``), with index ``nnz``
@@ -197,7 +212,10 @@ def _invert_scatter(scatter: np.ndarray, size: int) -> np.ndarray:
 def bind_core(vals, inv, *, shape):
     """Stage 1 (element plans): [nnz] values -> packed blocks, as one
     gather through the precomputed scatter inverse. Positions outside the
-    pattern read the zero pad."""
+    pattern read the zero pad. ``inv=None`` is the identity (the values
+    are the blocks)."""
+    if inv is None:
+        return vals.reshape(shape)
     pad = torch.cat([vals, vals.new_zeros(1)])
     return pad.index_select(0, inv).reshape(shape)
 
@@ -206,6 +224,8 @@ def bind_batch_core(vals, inv, *, shape):
     """Stage 1, batched: [batch, nnz] values -> stacked packed blocks, one
     gather per batch row through the shared scatter inverse."""
     bsz = vals.shape[0]
+    if inv is None:
+        return vals.reshape((bsz * shape[0],) + tuple(shape[1:]))
     pad = torch.cat([vals, vals.new_zeros((bsz, 1))], dim=1)
     return pad.index_select(1, inv).reshape((bsz * shape[0],) + tuple(shape[1:]))
 
@@ -224,13 +244,18 @@ def kernel_batch_core(a_blocks, b_blocks, runs, *, a_slots, backend):
 
 
 def assemble_core(panels, gather):
-    """Stage 3: output panels -> packed C values (one static gather)."""
+    """Stage 3: output panels -> packed C values (one static gather;
+    ``gather=None`` is the identity)."""
+    if gather is None:
+        return panels.reshape(-1)
     return panels.reshape(-1).index_select(0, gather)
 
 
 def assemble_batch_core(panels, gather):
     """Stage 3, batched: one gather per batch element through the shared
     map: ``[batch, nnz_c]``."""
+    if gather is None:
+        return panels.reshape(panels.shape[0], -1)
     return panels.reshape(panels.shape[0], -1).index_select(1, gather)
 
 
@@ -278,9 +303,12 @@ def numeric_core_batch(
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     """A fresh page-locked copy of the CPU tensor ``t`` (from PyTorch's
     caching host allocator, which reuses a block only after the copies
-    recorded on it have completed)."""
+    recorded on it have completed), filled by one plain memcpy: torch's
+    parallel copy is slow and uneven on a busy host."""
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    out.copy_(t)
+    if t.numel():
+        np.copyto(out.reshape(-1).view(torch.uint8).numpy(),
+                  t.contiguous().reshape(-1).view(torch.uint8).numpy())
     return out
 
 
@@ -325,8 +353,11 @@ class SpGEMMExecutor:
     """A plan's numeric phase with device-resident constants.
 
     Copies the schedule runs, the scatter inverses and the assembly gather
-    map to ``device`` once; ``run``/``run_values``/``run_batch`` then call
-    the numeric cores with no per-call host work beyond operand transfer.
+    map to ``device`` once (an identity map as ``None``: its gather is
+    skipped); ``run``/``run_values``/``run_batch`` then call the numeric
+    cores with no per-call host work beyond operand transfer. ``pairs`` is
+    the scalar products one launch computes: the element pairs at tile 1,
+    the block fill included at larger tiles.
     ``backend="cuda"`` runs the hand-written kernel on every path,
     ``backend="torch"`` its plain version.
     """
@@ -359,19 +390,24 @@ class SpGEMMExecutor:
         self._per_set_rows = (
             schedule.n_panels * schedule.group + schedule.num_triples
         ) * bm
+        bk = a_shape[2] if len(a_shape) == 3 else 0
+        self.pairs = schedule.num_triples * bm * bk * self._bn
         self._runs = stage_runs(schedule, self.device)
         # The assembly map is the plan's *active* output map: the block-
         # structural map for output="block", the element-exact compact map
         # for output="compact"; every path gathers through it.
-        self._gather = torch.from_numpy(assembly.gather).to(self.device)
+        flat = schedule.n_panels * schedule.group * bm * self._bn
+        self._gather = None if _is_identity(assembly.gather, flat) else (
+            torch.from_numpy(assembly.gather).to(self.device))
         self._out_rows = int(assembly.shape[0])
         self._indptr_host = np.asarray(assembly.indptr)
         self._row_ids: Optional[torch.Tensor] = None
+        self._element = a_scatter is not None and b_scatter is not None
         self._a_inv = self._stage_inverse(a_scatter, a_shape)
         self._b_inv = self._stage_inverse(b_scatter, b_shape)
 
     def _stage_inverse(self, scatter, shape):
-        if scatter is None:
+        if scatter is None or _is_identity(np.asarray(scatter), int(np.prod(shape))):
             return None
         inv = _invert_scatter(np.asarray(scatter), int(np.prod(shape)))
         return torch.from_numpy(inv).to(self.device)
@@ -380,7 +416,7 @@ class SpGEMMExecutor:
     def can_rebind(self) -> bool:
         """True for element plans: both operands rebind from value
         vectors on the device."""
-        return self._a_inv is not None and self._b_inv is not None
+        return self._element
 
     def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
         """Re-resolve the chunk policy with a new per-set budget;
@@ -397,8 +433,8 @@ class SpGEMMExecutor:
         """The device tensors every numeric call reads: schedule runs,
         scatter inverses, gather map."""
         runs = self._runs
-        out = [runs.ptr, runs.a_slot, runs.b_slot, runs.panel, runs.sub_row, self._gather]
-        return out + [t for t in (self._a_inv, self._b_inv) if t is not None]
+        out = [runs.ptr, runs.a_slot, runs.b_slot, runs.panel, runs.sub_row]
+        return out + [t for t in (self._gather, self._a_inv, self._b_inv) if t is not None]
 
     def batch_chunk(
         self,
@@ -587,6 +623,8 @@ class ShardedSpGEMMExecutor:
         bm = a_shape[1] if len(a_shape) == 3 else 0
         block = tuple(a_shape[1:])
         self._bn = b_shape[2] if len(b_shape) == 3 else 0
+        # Scalar products of one run over every shard (as SpGEMMExecutor's).
+        self.pairs = sum(sh.num_triples for sh in shards) * int(np.prod(block)) * self._bn
         self._assemblies = list(assemblies)
         element = self._element = a_scatter is not None and b_scatter is not None
         if element and a_val_bounds is None:

@@ -23,6 +23,16 @@ to be performed once". This module is that claim as an API:
   (no block fill); plans compose into chains (:meth:`SpGEMMPlan.then`,
   :func:`plan_from_structural_pattern`, :func:`execute_chain`) whose
   intermediates never leave the device.
+* ``output="exact"`` (tile 1, group 1) computes C at element granularity,
+  the paper's row-wise Gustavson with no blocks at all: the symbolic phase
+  is a vectorized pair expansion
+  (:func:`~repro_torch.core.schedule.build_exact_schedule`), whose panels
+  are C's entries in CSR order, and the kernel runs its 1 x 1 x 1
+  specialization, one thread per entry. Block fill costs nothing here,
+  which is what an unstructured pattern needs: at any tile K1 takes, its
+  blocks would hold almost nothing but fill. Exact plans serve
+  ``execute``, ``execute_batch`` and the pipeline; they are not chained,
+  sharded, persisted or autotuned yet (those raise ``ValueError``).
 * Plans are cached (:mod:`repro_torch.spgemm.cache`) keyed on
   ``(pattern hash, tile, group, backend, device, mesh key)``: a memory LRU
   and, opt-in, a disk tier from which a restarted worker rehydrates its
@@ -49,7 +59,8 @@ host as CPU tensors of its dtype.
 
 Output convention: C's CSR pattern is *structural* (every element of every
 structurally nonzero C block, trimmed to the true shape, or under
-``output="compact"`` every element some product reaches), so values that
+``output="compact"`` and ``output="exact"`` every element some product
+reaches), so values that
 compute to exact zero are stored explicitly — the pattern is
 value-independent, which is what makes assembly a static gather.
 """
@@ -71,7 +82,9 @@ from repro_torch.core.schedule import (
     assembly_to_arrays,
     build_assembly_map,
     build_compact_map,
+    build_exact_schedule,
     build_spgemm_schedule,
+    exact_assembly_map,
     partition_spgemm_schedule,
     schedule_from_arrays,
     schedule_to_arrays,
@@ -127,6 +140,22 @@ def _build_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
         schedule = build_spgemm_schedule(a, b)
     _SCHEDULE_BUILDS += 1
     return schedule
+
+
+def _build_exact_schedule(a: COO, b: COO) -> SpGEMMSchedule:
+    """The element symbolic phase of an ``output="exact"`` plan, counted
+    as :func:`_build_schedule` counts the block one."""
+    global _SCHEDULE_BUILDS
+    with span("spgemm.plan.schedule"):
+        schedule = build_exact_schedule(a.row, a.col, b.row, b.col, a.shape, b.shape)
+    _SCHEDULE_BUILDS += 1
+    return schedule
+
+
+def _not_served(what: str) -> ValueError:
+    """The error of an entry that ``output="exact"`` plans do not serve."""
+    return ValueError(f"output='exact' plans do not serve {what} yet: use output='block' "
+                      f"or 'compact' for it")
 
 _REPORT_FIELDS = (
     "pattern_key", "pattern_token", "tile", "group", "backend", "shape",
@@ -312,7 +341,9 @@ class SpGEMMPlan:
     ``output="compact"`` wraps results in the element-exact map
     (``plan.compact``) instead of the block-structural one
     (``plan.assembly``); block plans have no element pattern, so there the
-    compact map is the block map itself.
+    compact map is the block map itself. ``output="exact"`` plans are
+    built at tile 1 and group 1, where the block map is element-exact: its
+    gather is the identity, as are both operands' scatters.
 
     Results returned by one plan share the precomputed CSR ``indptr`` /
     ``indices`` arrays (treat them as read-only).
@@ -363,6 +394,8 @@ class SpGEMMPlan:
         with span("spgemm.plan.assembly"):
             # Symbolic output structure: C's CSR pattern + the panels->CSR
             # gather map, consumed on device by the executor.
+            if assembly is None and output == "exact":
+                assembly = exact_assembly_map(schedule, out_shape)
             self.assembly: AssemblyMap = (
                 assembly if assembly is not None
                 else build_assembly_map(schedule, (self._bm, self._bn), out_shape)
@@ -394,6 +427,9 @@ class SpGEMMPlan:
         # execute (a later chain stage multiplies the previous stage's
         # device values by its own B).
         self._b_vals_dev = None
+        # Host copies of the values of the latest fused execute, newer than
+        # the host blocks until _bind_host scatters them there.
+        self._unbound: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # Guards value rebinds + report counters, so concurrent executes
         # each see a consistent (values, device array) pair.
         self._lock = threading.Lock()
@@ -530,6 +566,8 @@ class SpGEMMPlan:
         nnz counts in the report are computed only if read. ``mesh``
         gives a :class:`ShardedSpGEMMPlan`.
         """
+        if output == "exact":
+            raise _not_served("pre-converted block inputs (pass element inputs)")
         device = resolve_device(device)
         backend = resolve_backend(backend, device)
         built = 0
@@ -581,7 +619,10 @@ class SpGEMMPlan:
         group, backend). Values are excluded: a warm restart brings its
         own (:meth:`from_artifacts`). This is the payload the disk tier
         (:class:`repro_torch.spgemm.persist.PlanStore`) writes once per
-        cache key."""
+        cache key. ``output="exact"`` plans are not persisted yet
+        (``ValueError``)."""
+        if self.output == "exact":
+            raise _not_served("persistence")
         arrays = {}
         arrays.update(schedule_to_arrays(self.schedule))
         arrays.update(assembly_to_arrays(self.assembly))
@@ -650,6 +691,8 @@ class SpGEMMPlan:
         device = resolve_device(device)
         backend = resolve_backend(backend, device)
         _check_output(output)
+        if output == "exact":
+            raise _not_served("persistence")
         kind = meta.get("kind")
         if kind not in ("element", "block"):
             raise ValueError(f"unknown persisted plan kind {kind!r}")
@@ -759,19 +802,15 @@ class SpGEMMPlan:
         """``vals`` rounded to the packed ``dtype`` and, for element plans,
         scattered into ``blocks`` (reallocated if released); returns the
         host packed blocks."""
-        vals = _host_values(vals, dtype)
         if scatter is not None:
-            if vals.shape != (nnz,):
-                raise ValueError(
-                    f"{name}: expected [{nnz}] values in canonical pattern "
-                    f"order, got shape {tuple(vals.shape)}"
-                )
+            vals = self._checked_values(vals, nnz, name, dtype).cpu().contiguous()
             if blocks is None:  # scratch was released; reallocate
                 blocks = torch.zeros(shape, dtype=dtype)
             # Positions outside `scatter` are structurally zero and never
             # written, so in-place rebinding is sound.
             blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
             return blocks
+        vals = _host_values(vals, dtype)
         if vals.shape != shape:
             raise ValueError(
                 f"{name}: expected packed blocks of shape {shape}, "
@@ -848,6 +887,8 @@ class SpGEMMPlan:
         return SpGEMMChain([self, self._plan_next(b, **kwargs)])
 
     def _plan_next(self, b, **kwargs) -> "SpGEMMPlan":
+        if self.output == "exact":
+            raise _not_served("chains")
         kwargs.setdefault("tile", self.report.tile)
         kwargs.setdefault("group", self.report.group)
         kwargs.setdefault("backend", self.backend)
@@ -871,40 +912,58 @@ class SpGEMMPlan:
         """``execute``'s device core: run the numeric phase and return the
         packed C values on the device (``None`` for an empty plan): the
         handoff ``execute_chain`` keeps on the device between stages."""
+        # Element plans called with both value vectors take the fused
+        # device path (rebind + kernel + assembly on the device): only
+        # [nnz] vectors cross to the device, not full packed blocks, and
+        # one array passed as both operands crosses once. The plan keeps
+        # host copies of them, scattered into its host blocks only when
+        # something reads those (_bind_host), so no-arg execute() stays
+        # current.
+        fused_values = (
+            a_vals is not None and b_vals is not None
+            and self._a_scatter is not None
+            and self._b_scatter is not None
+        )
         with self._lock:
             self._check_released()
-            if a_vals is not None or b_vals is not None:
+            if fused_values:
                 with span("spgemm.execute.rebind"):
-                    if a_vals is not None:
-                        self._a_blocks = self._rebind(
-                            a_vals, self._a_blocks, self._a_scatter,
-                            self.report.nnz_a if self._a_scatter is not None else 0,
-                            "a_vals", self._a_shape, self._a_dtype,
-                        )
-                        self._a_dev = None
-                    if b_vals is not None:
-                        self._b_blocks = self._rebind(
-                            b_vals, self._b_blocks, self._b_scatter,
-                            self.report.nnz_b if self._b_scatter is not None else 0,
-                            "b_vals", self._b_shape, self._b_dtype,
-                        )
-                        self._b_dev = None
-            if self._a_blocks is None or self._b_blocks is None:
-                raise ValueError(
-                    "plan values were released (release_values); pass "
-                    "a_vals/b_vals to execute"
-                )
-            # Element plans called with both value vectors take the fused
-            # device path (rebind + kernel + assembly on the device): only
-            # [nnz] vectors cross to the device, not full packed blocks.
-            # The host rebind above still ran, so no-arg execute() stays
-            # current.
-            fused_values = (
-                a_vals is not None and b_vals is not None
-                and self._a_scatter is not None
-                and self._b_scatter is not None
-            )
-            if not fused_values:
+                    a_host = self._checked_values(a_vals, self.report.nnz_a, "a_vals",
+                                                  self._a_dtype)
+                    same = (b_vals is a_vals and self._b_dtype == self._a_dtype
+                            and self.report.nnz_b == self.report.nnz_a)
+                    b_host = a_host if same else self._checked_values(
+                        b_vals, self.report.nnz_b, "b_vals", self._b_dtype)
+                nbytes = a_host.nbytes + (0 if same else b_host.nbytes)
+                with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
+                    a_own, a_dev = self._own_values(a_host)
+                    b_own, b_dev = (a_own, a_dev) if same else self._own_values(b_host)
+                self._unbound = (a_own, b_own)
+                self._a_dev = None
+                self._b_dev = None
+            else:
+                self._bind_host()
+                if a_vals is not None or b_vals is not None:
+                    with span("spgemm.execute.rebind"):
+                        if a_vals is not None:
+                            self._a_blocks = self._rebind(
+                                a_vals, self._a_blocks, self._a_scatter,
+                                self.report.nnz_a if self._a_scatter is not None else 0,
+                                "a_vals", self._a_shape, self._a_dtype,
+                            )
+                            self._a_dev = None
+                        if b_vals is not None:
+                            self._b_blocks = self._rebind(
+                                b_vals, self._b_blocks, self._b_scatter,
+                                self.report.nnz_b if self._b_scatter is not None else 0,
+                                "b_vals", self._b_shape, self._b_dtype,
+                            )
+                            self._b_dev = None
+                if self._a_blocks is None or self._b_blocks is None:
+                    raise ValueError(
+                        "plan values were released (release_values); pass "
+                        "a_vals/b_vals to execute"
+                    )
                 nbytes = sum(blocks.nbytes for blocks, dev in (
                     (self._a_blocks, self._a_dev), (self._b_blocks, self._b_dev)) if dev is None)
                 with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
@@ -923,16 +982,46 @@ class SpGEMMPlan:
 
         if ex is None:
             return None
-        if fused_values:
-            # The rebind validated both shapes: [nnz] vectors of the plan's
-            # packed dtypes.
-            with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", self.value_nbytes()):
-                a_dev = _device_values(a_vals, self.device, self._a_dtype)
-                b_dev = _device_values(b_vals, self.device, self._b_dtype)
-            with span("spgemm.execute.launch"):
+        with span("spgemm.execute.launch", pairs=ex.pairs):
+            if fused_values:
                 return ex.run_values(a_dev, b_dev)
-        with span("spgemm.execute.launch"):
             return ex.run(a_dev, b_dev)
+
+    @staticmethod
+    def _checked_values(vals, nnz: int, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """``vals`` as ``[nnz]`` values of the packed ``dtype`` (a tensor on
+        a device stays there)."""
+        vals = _as_tensor(vals, dtype)
+        if tuple(vals.shape) != (nnz,):
+            raise ValueError(
+                f"{name}: expected [{nnz}] values in canonical pattern "
+                f"order, got shape {tuple(vals.shape)}"
+            )
+        return vals
+
+    def _own_values(self, vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plan's own host copy of ``vals`` (never an alias: the caller
+        may reuse its buffer) and ``vals`` on the plan's device. On the
+        card the host copy is page-locked and the device copy is made from
+        it without blocking the host."""
+        if self.device.type == "cuda":
+            if vals.device.type == "cpu":
+                host = _pinned_copy(vals)
+                return host, host.to(self.device, non_blocking=True)
+            return vals.cpu(), vals.to(self.device).contiguous()
+        host = vals.cpu().contiguous().clone()
+        return host, host.to(self.device)
+
+    def _bind_host(self) -> None:
+        """Scatter the values of the latest fused execute into the host
+        blocks (call under ``self._lock``, before reading them)."""
+        if self._unbound is not None:
+            a, b = self._unbound
+            self._unbound = None
+            self._a_blocks = self._rebind(a, self._a_blocks, self._a_scatter, self.report.nnz_a,
+                                          "a_vals", self._a_shape, self._a_dtype)
+            self._b_blocks = self._rebind(b, self._b_blocks, self._b_scatter, self.report.nnz_b,
+                                          "b_vals", self._b_shape, self._b_dtype)
 
     def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A later stage of :func:`execute_chain`: the previous stage's
@@ -1111,6 +1200,7 @@ class SpGEMMPlan:
         if a_vals is None:
             with self._lock:
                 self._check_released()
+                self._bind_host()
                 if self._a_blocks is None or self._b_blocks is None:
                     raise ValueError(
                         "plan values were released (release_values); pass "
@@ -1241,6 +1331,7 @@ class SpGEMMPlan:
             self._a_dev = None
             self._b_dev = None
             self._b_vals_dev = None
+            self._unbound = None
             self._a_blocks = None
             self._b_blocks = None
 
@@ -1258,6 +1349,7 @@ class SpGEMMPlan:
             self._a_dev = None
             self._b_dev = None
             self._b_vals_dev = None
+            self._unbound = None
             self._a_blocks = None
             self._b_blocks = None
             self._executor = None
@@ -1326,6 +1418,8 @@ class ShardedSpGEMMPlan(SpGEMMPlan):
             mesh_axis = mesh.axis_names[0]
         if mesh_axis not in mesh.axis_names:
             raise ValueError(f"mesh has no axis {mesh_axis!r}: {mesh.axis_names}")
+        if kw.get("output") == "exact":
+            raise _not_served("sharded plans (mesh=)")
         asked = torch.device(kw.get("device", "cuda"))
         if asked.type != mesh.devices[0].type:
             raise ValueError(
@@ -1518,8 +1612,8 @@ def _cache_check(cache) -> PlanCache:
 
 
 def _check_output(output: str) -> None:
-    if output not in ("block", "compact"):
-        raise ValueError(f"output must be 'block' or 'compact', got {output!r}")
+    if output not in ("block", "compact", "exact"):
+        raise ValueError(f"output must be 'block', 'compact' or 'exact', got {output!r}")
 
 
 def _staged_nnz(plan: SpGEMMPlan, attr: str, field: str):
@@ -1687,6 +1781,7 @@ def _token_hit(plan: SpGEMMPlan, a, b, pattern_token) -> None:
                     f"does not match the token's plan ({plan.report.nnz_a}, "
                     f"{plan.report.nnz_b}); the token must name this exact sparsity pattern"
                 )
+            plan._unbound = None  # this call's values replace them
             plan._a_blocks = plan._rebind(a_c.val, plan._a_blocks, plan._a_scatter,
                                           plan.report.nnz_a, "a_vals", plan._a_shape,
                                           plan._a_dtype)
@@ -1793,6 +1888,23 @@ def spgemm_plan(
     Compact plans live under their own cache keys (the base key suffixed
     ``"compact"``).
 
+    ``output="exact"`` computes C at element granularity, with no blocks:
+    it takes ``tile=1, group=1`` (anything else raises ``ValueError``) and
+    element inputs. At tile 1 every block is one element, so the block,
+    compact and exact patterns coincide, and the panels are C's entries in
+    CSR order. The symbolic phase expands each A entry ``(i, k)`` against
+    B's row ``k`` and orders the pairs by ``(i, j)``, ``k`` ascending
+    (:func:`~repro_torch.core.schedule.build_exact_schedule`, in seconds
+    where the block builder would run for minutes at that tile), under the
+    same spans as the block phase; the kernel sums each entry's pairs in
+    K1's order, one thread per entry, so its float32 results equal the
+    block path's. ``execute``, ``execute_batch`` and the pipeline serve it
+    as any element plan; ``mesh``, ``autotune``, chains
+    (:meth:`SpGEMMPlan.then`, :func:`plan_from_structural_pattern`) and
+    persistence (``persist_artifacts``; the disk tier stores nothing for
+    it) raise ``ValueError``. Exact plans live under their own cache keys
+    (suffixed ``"exact"``).
+
     ``autotune=True`` (or a dict of
     :func:`repro_torch.spgemm.autotune.autotune_plan` keyword overrides,
     e.g. ``{"repeats": 5}``) runs the per-pattern config search — or
@@ -1815,6 +1927,16 @@ def spgemm_plan(
     """
     _check_validate(validate)
     _check_output(output)
+    if output == "exact":
+        if _normalize_tile(tile) != (1, 1, 1) or int(group) != 1:
+            raise ValueError(f"output='exact' takes tile=1, group=1; got tile={tile!r}, "
+                             f"group={group!r}")
+        if mesh is not None or mesh_axis is not None:
+            raise _not_served("sharded plans (mesh=)")
+        if autotune:
+            raise _not_served("autotune (its search is over block tiles)")
+        if isinstance(a, BCSV) or isinstance(b, BCSR):
+            raise _not_served("pre-converted block inputs (pass element inputs)")
     verified: list = []  # plans a loader of this call verified
     if autotune and output != "block":
         raise ValueError(
@@ -1838,7 +1960,7 @@ def spgemm_plan(
     cache = _cache_check(cache)
     shard_key = _mesh_key(mesh, mesh_axis)
     dev_key = str(device)
-    out_key = ("compact",) if output == "compact" else ()
+    out_key = (output,) if output != "block" else ()
 
     token_key = None
     if pattern_token is not None:
@@ -1942,12 +2064,13 @@ def spgemm_plan(
             mesh=mesh, mesh_axis=mesh_axis, output=output,
         ), validate, verified)
 
-    plan, hit = cache.get_or_build(
-        key,
-        lambda: _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
-                              device, output, mesh, mesh_axis),
-        loader=load,
-    )
+    def build() -> SpGEMMPlan:
+        if output == "exact":
+            return _exact_plan(a_coo, b_coo, dtypes, pattern, backend, device)
+        return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
+                             device, output, mesh, mesh_axis)
+
+    plan, hit = cache.get_or_build(key, build, loader=load)
     plan._input_dtypes = dtype_names
     bind_token(plan, key)
     plan.report.cache_stats = cache.stats()
@@ -1956,6 +2079,7 @@ def spgemm_plan(
             plan.report.cache_hits += 1
             # A hit may carry the previous caller's values; the pattern
             # matches by construction, so rebind this call's.
+            plan._unbound = None
             plan._a_blocks = plan._rebind(
                 a_coo.val, plan._a_blocks, plan._a_scatter, plan.report.nnz_a,
                 "a_vals", plan._a_shape, plan._a_dtype)
@@ -1996,6 +2120,38 @@ def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend,
         b_pattern=b_coo,
         output=output,
         **extra,
+    )
+
+
+def _exact_plan(a_coo: COO, b_coo: COO, dtypes, pattern, backend, device) -> SpGEMMPlan:
+    """The symbolic phase of an ``output="exact"`` plan from canonical COO
+    operands. At tile 1 the packed blocks are the values themselves, in
+    canonical order ``[nnz, 1, 1]``, and the scatter is the identity
+    (what :func:`bcsv_from_coo` and :func:`bcsr_from_coo` return there)."""
+    with span("spgemm.plan.convert"):
+        a_blocks = np.array(a_coo.val).reshape(-1, 1, 1)
+        b_blocks = np.array(b_coo.val).reshape(-1, 1, 1)
+        a_scatter = np.arange(a_coo.nnz, dtype=np.int64)
+        b_scatter = np.arange(b_coo.nnz, dtype=np.int64)
+    schedule = _build_exact_schedule(a_coo, b_coo)
+    report = _make_report(
+        pattern, (1, 1, 1), 1, backend, (a_coo.shape[0], b_coo.shape[1]),
+        a_coo.nnz, b_coo.nnz, a_coo.nnz, b_coo.nnz, schedule,
+    )
+    return SpGEMMPlan(
+        schedule=schedule,
+        a_blocks=a_blocks,
+        b_blocks=b_blocks,
+        value_dtypes=dtypes,
+        backend=backend,
+        device=device,
+        out_shape=(a_coo.shape[0], b_coo.shape[1]),
+        report=report,
+        a_scatter=a_scatter,
+        b_scatter=b_scatter,
+        a_pattern=a_coo,
+        b_pattern=b_coo,
+        output="exact",
     )
 
 
@@ -2086,6 +2242,8 @@ class SpGEMMChain:
         plans = list(plans)
         if not plans:
             raise ValueError("a chain needs at least one plan")
+        if any(p.output == "exact" for p in plans):
+            raise _not_served("chains")
         for s, (p, q) in enumerate(zip(plans, plans[1:])):
             _check_chain_link(p, q, s)
         self.plans = plans
@@ -2195,6 +2353,8 @@ def plan_from_structural_pattern(
     """
     _check_validate(validate)
     _check_output(output)
+    if output == "exact":
+        raise _not_served("chains")
     verified: list = []  # the plan the loader verified, if it loaded one
     device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
@@ -2237,6 +2397,7 @@ def plan_from_structural_pattern(
             # call's B values (the host blocks and the chained stage's
             # device copy). The A placeholders stay: chained executes bind
             # A per run, on the device.
+            plan._bind_host()
             plan._b_blocks = plan._rebind(
                 b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
                 "b_vals", plan._b_shape, plan._b_dtype)

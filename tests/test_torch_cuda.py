@@ -1,5 +1,7 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
-block-Gustavson SpGEMM (K1, K2; also through the asynchronous pipeline,
+block-Gustavson SpGEMM (K1, K2, and their 1 x 1 x 1 specialization of
+``output="exact"`` plans, within one float32 ulp of its plain version and
+bitwise equal to K1 at tile 16; also through the asynchronous pipeline,
 on side streams, a device-resident chain, a sharded plan of four shards on
 one card, a plan rehydrated from the disk tier, the autotuner's probes and
 the serving gateway; the probe timer's device wait), flash attention (K5,
@@ -41,7 +43,7 @@ import copy
 
 from repro_torch.configs.registry import get_reduced
 from repro_torch.core.gustavson import spgemm_gustavson
-from repro_torch.core.schedule import build_spgemm_schedule
+from repro_torch.core.schedule import build_exact_schedule, build_spgemm_schedule
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_staged, stage_bsr_index
 from repro_torch.kernels.flash_attention import flash_attention
@@ -53,7 +55,7 @@ from repro_torch.kernels.gustavson_spgemm import (
     stage_runs,
 )
 from repro_torch.sparse.convert import to_bcsr, to_bcsv
-from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.formats import COO, CSR
 from repro_torch.sparse.random import random_block_sparse, suite_matrix
 from repro_torch.models import transformer as tr
 from repro_torch.spgemm import spgemm_plan
@@ -174,6 +176,96 @@ def test_kernel_rejects_unsupported_tiles(cuda):
     bt = torch.from_numpy(b.blocks).to(cuda)
     with pytest.raises(ValueError, match="multiples of 16"):
         spgemm_scheduled(at, bt, stage_runs(sch, cuda))
+
+
+def _element_case(structure, m, k, n, seed):
+    """Operands of an element (tile 1) schedule, as canonical COOs."""
+    from repro_torch.sparse.random import random_coo
+
+    a = random_coo(m, k, 12.0 / k, structure, seed=seed)
+    b = random_coo(k, n, 12.0 / n, structure, seed=seed + 1)
+    return a, b, build_exact_schedule(a.row, a.col, b.row, b.col, a.shape, b.shape)
+
+
+def _within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    up = torch.nextafter(want, torch.full_like(want, float("inf")))
+    down = torch.nextafter(want, torch.full_like(want, float("-inf")))
+    return bool(((got == want) | (got == up) | (got == down)).all())
+
+
+@pytest.mark.parametrize("structure", ["graph", "fem", "circuit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_element_kernel_within_one_ulp_of_plain(cuda, structure, dtype):
+    """K1's 1 x 1 x 1 specialization (one thread per entry) against its
+    plain version on the CPU, which sums each entry's pairs in run order
+    rounding once per step: within one float32 ulp entry by entry; one
+    launch counted."""
+    a, b, sch = _element_case(structure, 3000, 2500, 2800, seed=3)
+    rng = np.random.default_rng(4)
+    av = torch.from_numpy(rng.standard_normal((a.nnz, 1, 1), dtype=np.float32)).to(dtype)
+    bv = torch.from_numpy(rng.standard_normal((b.nnz, 1, 1), dtype=np.float32)).to(dtype)
+    before = spgemm_scheduled.launches
+    kernel = spgemm_scheduled(av.to(cuda), bv.to(cuda), stage_runs(sch, cuda)).cpu()
+    assert spgemm_scheduled.launches == before + 1
+    plain = spgemm_scheduled(av, bv, stage_runs(sch, "cpu"))
+    assert kernel.shape == plain.shape == (sch.n_panels, 1, 1)
+    assert _within_one_ulp(kernel, plain)
+
+
+def test_element_kernel_batch_equals_looped_single_bitwise(cuda):
+    """The batched form over three value sets equals three single launches
+    bit for bit, counted once in ``spgemm_scheduled_batch.launches``."""
+    a, b, sch = _element_case("graph", 2000, 2000, 2000, seed=5)
+    runs = stage_runs(sch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a_sets = torch.randn((3, a.nnz, 1, 1), generator=g, device=cuda)
+    b_sets = torch.randn((3, b.nnz, 1, 1), generator=g, device=cuda)
+    before = spgemm_scheduled_batch.launches
+    batch = spgemm_scheduled_batch(a_sets.flatten(0, 1), b_sets.flatten(0, 1), runs, bsz=3)
+    assert spgemm_scheduled_batch.launches == before + 1
+    assert batch.shape == (3, sch.n_panels, 1, 1)
+    for i in range(3):
+        assert torch.equal(batch[i], spgemm_scheduled(a_sets[i], b_sets[i], runs))
+
+
+def test_exact_plan_on_card(cuda):
+    """An ``output="exact"`` plan on the card: each ``execute`` launches K1
+    once; C equals the compact plan's at tile 16 bit for bit (K1's ring at
+    16^3 sums the same FMA chain, its block fill adding exact zeros), is
+    within one ulp of the exact plan on the CPU and within 1e-5 of the
+    oracle; ``execute_batch`` and a depth-2 pipeline equal ``execute``
+    bitwise; a rectangular A·B too."""
+    from repro_torch.spgemm import PlanCache
+
+    for m, k, n in ((4000, 4000, 4000), (1500, 2200, 900)):
+        a, b, _ = _element_case("graph", m, k, n, seed=7)
+        plan = spgemm_plan(a, b, tile=1, group=1, output="exact", device=cuda,
+                           cache=PlanCache())
+        block = spgemm_plan(a, b, tile=16, group=1, output="compact", device=cuda,
+                            cache=PlanCache())
+        cpu = spgemm_plan(a, b, tile=1, group=1, output="exact", device="cpu",
+                          cache=PlanCache())
+        rng = np.random.default_rng(8)
+        av = rng.standard_normal((3, a.nnz)).astype(np.float32)
+        bv = rng.standard_normal((3, b.nnz)).astype(np.float32)
+        before = spgemm_scheduled.launches
+        got = [plan.execute(av[i], bv[i]) for i in range(3)]
+        assert spgemm_scheduled.launches == before + 3
+        want = block.execute(av[0], bv[0])
+        assert np.array_equal(got[0].indptr, want.indptr)
+        assert np.array_equal(got[0].indices, want.indices)
+        assert np.array_equal(got[0].data, want.data)
+        assert _within_one_ulp(torch.from_numpy(got[0].data),
+                               torch.from_numpy(cpu.execute(av[0], bv[0]).data))
+        oracle = spgemm_gustavson(CSR.from_coo(COO(a.row, a.col, av[0], a.shape)),
+                                  CSR.from_coo(COO(b.row, b.col, bv[0], b.shape)))
+        np.testing.assert_allclose(got[0].todense(), oracle.todense(), rtol=1e-5, atol=1e-5)
+        for g, w in zip(plan.execute_batch(av, bv), got):
+            assert np.array_equal(g.data, w.data)
+        with plan.pipeline(depth=2) as pipe:
+            piped = list(pipe.stream((av[i], bv[i]) for i in range(3)))
+        for g, w in zip(piped, got):
+            assert np.array_equal(g.data, w.data)
 
 
 def test_bf16_plan_on_card_launches_bf16_blocks(cuda):

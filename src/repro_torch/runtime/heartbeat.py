@@ -32,7 +32,6 @@ Three layers:
 """
 from __future__ import annotations
 
-import contextlib
 import contextvars
 import functools
 import itertools
@@ -323,7 +322,6 @@ def _covered(intervals) -> int:
 _RECORDER = SpanRecorder()
 # The innermost open span of this thread or task: (id, root id).
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_span", default=None)
-_OFF = contextlib.nullcontext()
 # The record function a span enters: torch's fast one where this torch has
 # it, else ``record_function``. Under a profiler ``record_function`` takes
 # tens of microseconds to enter and to leave, and the profiler's own stamps
@@ -336,12 +334,34 @@ _record_function = getattr(torch._C._profiler, "_RecordFunctionFast", record_fun
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
+class _Off:
+    """What :func:`span` gives while tracing is off: a no-op."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
 class _Span:
     __slots__ = ("name", "counts", "_id", "_parent", "_root", "_token", "_rf", "_start")
 
     def __init__(self, name: str, counts: dict):
         self.name = name
         self.counts = counts or None
+
+    def count(self, **counts) -> None:
+        """Attach ``counts`` known only once the span's work is done."""
+        self.counts = {**(self.counts or {}), **counts}
 
     def __enter__(self):
         parent = _CURRENT.get()
@@ -366,8 +386,9 @@ class _Span:
 
 def span(name: str, **counts):
     """A context manager timing a named stage of the program, with
-    ``counts`` (e.g. ``bytes``) attached. Off, it is a no-op after one flag
-    check; on, see the module docstring."""
+    ``counts`` (e.g. ``bytes``) attached; ``with span(...) as s`` gives
+    ``s.count(**counts)`` for counts known only inside. Off, it is a no-op
+    after one flag check; on, see the module docstring."""
     if not (_RECORDER.forced or _profiler_enabled()):
         return _OFF
     return _Span(name, counts)

@@ -1676,9 +1676,33 @@ def _normalize_tile(tile: Union[int, Tuple[int, ...]]) -> Tuple[int, int, int]:
     return tile
 
 
-def _canonical_coo(coo: COO) -> COO:
-    """The COO in canonical order, paying the sort only when needed."""
-    return coo if _coo_is_canonical(coo) else coo.sum_duplicates()
+def _canonical_coo(coo: COO) -> Tuple[COO, bool]:
+    """``coo`` in canonical row-major order, with arrays of its own, and
+    whether it took the sort. The COO equals ``coo.sum_duplicates()``,
+    dtypes included; one already strictly ascending in (row, col) skips
+    that sort and is copied, a linear pass where the sort is not."""
+    if not _coo_is_canonical(coo):
+        return coo.sum_duplicates(), True
+    # 0 + v, as sum_duplicates' np.add.at computes it: -0.0 becomes +0.0.
+    val = np.zeros_like(coo.val)
+    val += coo.val
+    return COO(coo.row.copy(), coo.col.copy(), val, coo.shape), False
+
+
+def _canonical_operands(a, b) -> Tuple[COO, COO, int]:
+    """Both operands as canonical COOs (:func:`_canonical_coo`), and how
+    many took the sort. One operand passed twice, as the same input or as
+    two COOs over the same arrays and shape, is canonicalized once and
+    shared by both sides."""
+    a_coo = to_coo(a)
+    b_coo = a_coo if b is a else to_coo(b)
+    a_c, a_sorted = _canonical_coo(a_coo)
+    if b_coo is a_coo or (b_coo.row is a_coo.row and b_coo.col is a_coo.col
+                          and b_coo.val is a_coo.val
+                          and tuple(b_coo.shape) == tuple(a_coo.shape)):
+        return a_c, a_c, int(a_sorted)
+    b_c, b_sorted = _canonical_coo(b_coo)
+    return a_c, b_c, int(a_sorted) + int(b_sorted)
 
 
 def _check_validate(validate) -> None:
@@ -1741,7 +1765,7 @@ def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block", v
                 or _input_dtype_name(b) != meta.get("b_dtype")):
             raise ValueError("value dtype differs from the persisted plan")
         if kind == "element" and isinstance(a, COO) and isinstance(b, COO):
-            a_c, b_c = _canonical_coo(a), _canonical_coo(b)
+            a_c, b_c, _ = _canonical_operands(a, b)
             plan = SpGEMMPlan.from_artifacts(
                 arrays, meta, backend=backend, device=device, pattern_key=key[0],
                 a_vals=a_c.val, b_vals=b_c.val, a_pattern=a_c, b_pattern=b_c,
@@ -1774,7 +1798,7 @@ def _token_hit(plan: SpGEMMPlan, a, b, pattern_token) -> None:
         if a is None and b is None:
             return
         if element and isinstance(a, COO) and isinstance(b, COO):
-            a_c, b_c = _canonical_coo(a), _canonical_coo(b)
+            a_c, b_c, _ = _canonical_operands(a, b)
             if a_c.nnz != plan.report.nnz_a or b_c.nnz != plan.report.nnz_b:
                 raise ValueError(
                     f"pattern_token {pattern_token!r}: input nnz ({a_c.nnz}, {b_c.nnz}) "
@@ -2035,10 +2059,9 @@ def spgemm_plan(
         return _deep_verify(plan, validate, verified)
 
     bm, bk, bn = _normalize_tile(tile)
-    with span("spgemm.plan.inputs"):
-        # sum_duplicates already emits canonical row-major order.
-        a_coo = to_coo(a).sum_duplicates()
-        b_coo = to_coo(b).sum_duplicates()
+    with span("spgemm.plan.inputs") as inputs:
+        a_coo, b_coo, sorts = _canonical_operands(a, b)
+        inputs.count(sorts=sorts)
         if a_coo.shape[1] != b_coo.shape[0]:
             raise ValueError(f"inner dims mismatch: {a_coo.shape} x {b_coo.shape}")
         # The value dtypes, from the inputs themselves: to_coo widens a
@@ -2310,9 +2333,9 @@ def execute_chain(plans, a_vals=None, b_vals=None) -> CSR:
 
 def _coo_is_canonical(coo: COO) -> bool:
     """True when the COO is strictly increasing in row-major (row, col)
-    keys: sorted and deduplicated."""
-    key = coo.row.astype(np.int64) * int(coo.shape[1]) + coo.col
-    return bool(np.all(np.diff(key) > 0))
+    order: sorted and deduplicated."""
+    r0, r1 = coo.row[:-1], coo.row[1:]
+    return bool(np.all((r1 > r0) | ((r1 == r0) & (coo.col[1:] > coo.col[:-1]))))
 
 
 def plan_from_structural_pattern(
@@ -2361,7 +2384,7 @@ def plan_from_structural_pattern(
     cache = _cache_check(cache)
     shard_key = _mesh_key(mesh, mesh_axis)
     bm, bk, bn = _normalize_tile(tile)
-    b_coo = _canonical_coo(to_coo(b))
+    b_coo, _ = _canonical_coo(to_coo(b))
     if c_pattern.shape[1] != b_coo.shape[0]:
         raise ValueError(f"inner dims mismatch: {c_pattern.shape} x {b_coo.shape}")
     dtypes = (_value_dtype(dtype),

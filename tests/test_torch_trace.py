@@ -172,6 +172,43 @@ def test_each_call_emits_its_spans_once_inside_its_root(call):
     assert t[names[0]]["self_seconds"] == pytest.approx(t[names[0]]["seconds"] - covered, abs=1e-9)
 
 
+def _shuffled(coo, seed):
+    order = np.random.default_rng(seed).permutation(coo.nnz)
+    return type(coo)(coo.row[order], coo.col[order], coo.val[order], coo.shape)
+
+
+@pytest.mark.parametrize("operands,sorts", [("canonical_a_a", 0), ("shuffled_a_a", 1),
+                                            ("one_shuffled", 1), ("two_shuffled", 2)])
+def test_the_inputs_span_counts_the_operands_it_sorted(operands, sorts):
+    """``sorts`` on ``spgemm.plan.inputs``: the operands that took the
+    sort, where one already canonical takes none and A passed as both
+    operands is put in order once."""
+    a, b = random_coo(80, 80, 0.06, seed=3), random_coo(80, 72, 0.06, seed=4)
+    args = {"canonical_a_a": (a, a), "shuffled_a_a": (_shuffled(a, 1),) * 2,
+            "one_shuffled": (a, _shuffled(b, 2)),
+            "two_shuffled": (_shuffled(a, 1), _shuffled(b, 2))}[operands]
+    hb.set_tracing(True)
+    spgemm_plan(*args, tile=16, group=2, device="cpu", cache=PlanCache())
+    hb.set_tracing(False)
+    (rec,) = [r for r in hb.spans() if r.name == "spgemm.plan.inputs"]
+    assert rec.counts == {"sorts": sorts}
+    assert hb.totals()["spans"]["spgemm.plan.inputs"]["counts"] == {"sorts": sorts}
+
+
+def test_counts_set_inside_a_span_join_its_own_and_cost_nothing_off():
+    with hb.span("off", bytes=1) as s:
+        s.count(sorts=2)
+    assert hb.spans() == []
+    hb.set_tracing(True)
+    with hb.span("on", bytes=1) as s:
+        s.count(sorts=2)
+    with hb.span("bare") as s:
+        s.count(sorts=0)
+    hb.set_tracing(False)
+    assert {r.name: r.counts for r in hb.spans()} == {"on": {"bytes": 1, "sorts": 2},
+                                                    "bare": {"sorts": 0}}
+
+
 @pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("staged", [False, True])
 def test_bytes_are_the_bytes_copied(traced, staged):

@@ -1212,7 +1212,7 @@ def phase_sharded(mats, dev) -> dict:
         a_dev = torch.from_numpy(av).to(dev)
         b_dev = torch.from_numpy(bv).to(dev)
         single_ms = host_ms(lambda: single.execute(av, bv), reps=5)
-        single_dev_ms = time_ms(lambda: single._executor.run_values(a_dev, b_dev), reps=10)
+        single_dev_ms = time_ms(lambda: single._executor.run(a_dev, b_dev), reps=10)
         for n in SHARDS[name]:
             t0 = time.perf_counter()
             plan = sharded_from(single, make_shard_mesh(n, devices=[dev] * n), dev)
@@ -1245,7 +1245,7 @@ def phase_sharded(mats, dev) -> dict:
             check(counts()["spgemm_scheduled"] == PIPE_STEPS * (1 + launching),
                   f"{name} x{n} pipeline: launches {counts()}")
             ms = host_ms(lambda: plan.execute(av, bv), reps=5)
-            dev_ms = time_ms(lambda: plan._executor.run_values(a_dev, b_dev), reps=10)
+            dev_ms = time_ms(lambda: plan._executor.run(a_dev, b_dev), reps=10)
             st = plan.shard_stats()
             info[f"{name}_x{n}"] = {
                 "triples": st["triples"], "nnz_c": st["nnz_c"], "imbalance": st["imbalance"],
@@ -1650,7 +1650,7 @@ def analysis_values(plan, a: COO, b: COO, av, bv):
     element vectors, or for a block plan the packed blocks of them."""
     from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo
 
-    if plan._a_scatter is not None:
+    if plan.kind == "element":
         return av, bv
     tile, group = plan.report.tile, plan.report.group
     return (bcsv_from_coo(COO(a.row, a.col, av, a.shape), tile[:2], group)[0].blocks,

@@ -231,9 +231,11 @@ def lint_plan_kernel_specs(
             _err(findings, "kernel.block-align",
                  f"{what} blocks [{rows}, {cols}] of {itemsize}-byte values: "
                  f"rows or blocks not 16-byte aligned")
+    # A block plan's staged values are the blocks the kernel reads; an
+    # element plan's are [nnz] vectors, bound into fresh blocks per run.
     with plan._lock:
         staged = [(name, t) for name, t in (("A", plan._a_dev), ("B", plan._b_dev))
-                  if isinstance(t, torch.Tensor)]
+                  if plan.kind == "block" and isinstance(t, torch.Tensor)]
     for name, t in staged:
         if not t.is_contiguous() or t.data_ptr() % 16:
             _err(findings, "kernel.block-align",

@@ -839,10 +839,8 @@ def verify_plan(
             check_schedule_runs(plan._shards[i].schedule, runs, findings,
                                 label="races.shards")
         lap("races.shards")
-    element = getattr(plan, "_a_scatter", None) is not None \
-        and getattr(plan, "_b_scatter", None) is not None
     return VerifyReport(
-        plan_kind="element" if element else "block",
+        plan_kind=plan.kind,
         sharded=bool(sharded),
         backend=getattr(plan, "backend", "?"),
         checks_run=checks,

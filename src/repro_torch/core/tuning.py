@@ -257,11 +257,11 @@ def measure_chunk_knee(
             rng.integers(-3, 4, (batch, b.val.shape[0])).astype(np.float32)).to(dev)
 
         def fused():
-            return ex.run_batch(av, bv, rebind=True)
+            return ex.run_batch(av, bv)
 
         def split():
             return [
-                ex.run_batch(av[i:i + 1], bv[i:i + 1], rebind=True)
+                ex.run_batch(av[i:i + 1], bv[i:i + 1])
                 for i in range(batch)
             ]
 
@@ -282,8 +282,7 @@ def measure_chunk_knee(
 
                 def chunked():
                     return [
-                        ex.run_batch(av[lo:lo + chunk], bv[lo:lo + chunk],
-                                     rebind=True)
+                        ex.run_batch(av[lo:lo + chunk], bv[lo:lo + chunk])
                         for lo in range(0, batch, chunk)
                     ]
 

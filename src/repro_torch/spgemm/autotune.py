@@ -409,7 +409,7 @@ def autotune_plan(
         a, b, tile=req_tile, group=req_group, backend=backend, device=device,
         cache=cache, mesh=mesh, mesh_axis=mesh_axis, pattern_token=pattern_token,
     )
-    block_input = base_plan._a_scatter is None or base_plan._b_scatter is None
+    block_input = base_plan.kind == "block"
     if block_input:
         # Block formats fix tile/group structurally (spgemm_plan ignores
         # the args); rebase the search on the plan's real config so the

@@ -18,8 +18,8 @@ chaining three device-side stages:
    :class:`~repro_torch.core.schedule.AssemblyMap` — no data-dependent
    ``nonzero``, no per-panel host loop.
 
-Every stage is shape-static, so the same core runs a batch of value sets
-over a leading axis (:func:`numeric_core_batch`, the engine behind
+Every stage is shape-static, so the same stages run a batch of value sets
+over a leading axis (``run_batch``, the engine behind
 ``SpGEMMPlan.execute_batch``): on the ``cuda`` backend the batch is a grid
 dimension of one kernel launch
 (:func:`~repro_torch.kernels.gustavson_spgemm.spgemm_scheduled_batch`), on
@@ -31,27 +31,36 @@ device once). A scatter inverse or gather map that is the identity (at
 tile 1, where the packed blocks are the values and the panels are C's
 entries) is not staged, and its gather is skipped.
 
+**One way to the device.** An executor takes the operands of a plan in
+the plan's value shape — ``[nnz]`` vectors for element plans, packed
+blocks for block plans — and decides, from the scatters it was built
+with, whether stage 1 gathers values into blocks on the device.
+``stage`` copies operands into the layout the kernels read (the plan keeps
+what it stages and hands it back); ``run`` and ``run_batch`` take operands
+staged or not.
+
 **Stage-split pipeline surface.** Each stage is also a function of its
 own (``bind_core`` / ``kernel_core`` / ``assemble_core`` and their batched
-forms), and the fused cores are compositions of them, so a step run stage
-by stage is the same sequence of operations. :class:`SpGEMMExecutor`
-carries the pipeline protocol over them::
+forms), and ``run`` / ``run_batch`` are the protocol's device steps back to
+back, so a step run stage by stage is the same sequence of operations.
+:class:`SpGEMMExecutor` carries the pipeline protocol over them (``mode``
+is ``"single"`` or ``"batch"``)::
 
-    staged = ex.pipe_stage(a, b, mode=...)   # host-to-device copy + rebind
-    panels = ex.pipe_kernel(staged, mode)    # the scheduled kernel
-    packed = ex.pipe_assemble(panels, mode)  # the assembly gather
-    pend   = ex.pipe_download(packed)        # device-to-host copy, started
-    out    = ex.pipe_collect(pend, mode)     # the ONLY blocking call
+    staged = ex.pipe_stage(a, b, mode=mode)      # host-to-device copy + rebind
+    panels = ex.pipe_kernel(staged, mode=mode)   # the scheduled kernel
+    packed = ex.pipe_assemble(panels, mode=mode) # the assembly gather
+    pend   = _download(packed)                   # device-to-host copy, started
+    out    = _collect(pend)                      # the ONLY blocking call
 
-On a CUDA executor every step but ``pipe_collect`` only enqueues work on
-the current stream: host operands come from pinned memory and go to the
-card with ``non_blocking`` copies, and ``pipe_download`` copies C's
-values into a fresh pinned host tensor and records an event, which
-``pipe_collect`` waits on. A caller that runs each step on a stream of
-its own (:class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`) overlaps
-step ``s + 1``'s copies and kernel with step ``s``'s: the paper's double
-buffer. On the CPU every step runs at once and ``pipe_collect`` returns
-its values.
+On a CUDA executor every step but ``_collect`` only enqueues work on the
+current stream: host operands come from pinned memory and go to the card
+with ``non_blocking`` copies, and ``_download`` copies C's values into a
+fresh pinned host tensor and records an event, which ``_collect`` waits
+on. A caller that runs each step on a stream of its own
+(:class:`repro_torch.spgemm.pipeline.SpGEMMPipeline`) overlaps step
+``s + 1``'s copies and kernel with step ``s``'s: the paper's double
+buffer. On the CPU every step runs at once and ``_collect`` returns its
+values.
 
 **Sharded plans.** :class:`ShardedSpGEMMExecutor` has the same surface
 over a schedule partitioned at block-row-group boundaries
@@ -89,9 +98,6 @@ __all__ = [
     "bind_core",
     "kernel_batch_core",
     "kernel_core",
-    "numeric_core",
-    "numeric_core_batch",
-    "numeric_core_values",
     "resolve_chunk_bytes",
 ]
 
@@ -205,8 +211,8 @@ def _invert_scatter(scatter: np.ndarray, size: int) -> np.ndarray:
 
 # -- stage cores ---------------------------------------------------------------
 #
-# The fused cores below are compositions of these, so a step run stage by
-# stage (the pipeline) runs exactly the operations of a fused call.
+# An executor's run and run_batch are compositions of these, so a step run
+# stage by stage (the pipeline) runs exactly the operations of a fused call.
 
 
 def bind_core(vals, inv, *, shape):
@@ -259,45 +265,10 @@ def assemble_batch_core(panels, gather):
     return panels.reshape(panels.shape[0], -1).index_select(1, gather)
 
 
-def numeric_core(a_blocks, b_blocks, runs, gather, *, backend):
-    """Functional numeric phase: packed blocks -> packed C values."""
-    return assemble_core(kernel_core(a_blocks, b_blocks, runs, backend=backend), gather)
-
-
-def numeric_core_values(
-    a_vals, b_vals, a_inv, b_inv, runs, gather, *, a_shape, b_shape, backend,
-):
-    """Numeric phase from [nnz] value vectors: rebind + kernel + assembly."""
-    return numeric_core(
-        bind_core(a_vals, a_inv, shape=a_shape), bind_core(b_vals, b_inv, shape=b_shape),
-        runs, gather, backend=backend,
-    )
-
-
 def _stack_blocks(vals, shape):
-    """Batched packed blocks ``[batch, slots, ...]`` -> ``[batch * slots,
-    ...]``."""
+    """Packed blocks, batched (``[batch, slots, ...]``) or not, ->
+    ``[batch * slots, ...]``."""
     return vals.reshape((-1,) + tuple(shape[1:]))
-
-
-def numeric_core_batch(
-    a_vals, b_vals, a_inv, b_inv, runs, gather, *,
-    a_shape, b_shape, rebind, backend,
-):
-    """Batched numeric phase over a leading value axis.
-
-    ``rebind=True`` takes [batch, nnz] value vectors (element plans);
-    ``rebind=False`` takes batched packed block arrays (block plans).
-    Returns packed C values ``[batch, nnz_c]``, each row bitwise-equal to
-    the single-set core on the same backend.
-    """
-    if rebind:
-        a_blocks = bind_batch_core(a_vals, a_inv, shape=a_shape)
-        b_blocks = bind_batch_core(b_vals, b_inv, shape=b_shape)
-    else:
-        a_blocks, b_blocks = _stack_blocks(a_vals, a_shape), _stack_blocks(b_vals, b_shape)
-    panels = kernel_batch_core(a_blocks, b_blocks, runs, a_slots=a_shape[0], backend=backend)
-    return assemble_batch_core(panels, gather)
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -310,6 +281,16 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
         np.copyto(out.reshape(-1).view(torch.uint8).numpy(),
                   t.contiguous().reshape(-1).view(torch.uint8).numpy())
     return out
+
+
+def _to_devices(t: torch.Tensor, devices: Sequence[torch.device]) -> list:
+    """``t`` on each of ``devices`` (not copied where it is already there).
+    On the card a host tensor goes through page-locked memory, copied there
+    once unless it is page-locked already, so no copy blocks the host."""
+    if (t.device.type == "cpu" and any(d.type == "cuda" for d in devices)
+            and not t.is_pinned()):
+        t = _pinned_copy(t)
+    return [t.to(d, non_blocking=True) for d in devices]
 
 
 class _Download:
@@ -349,15 +330,71 @@ def _collect(pending) -> torch.Tensor:
     return pending
 
 
-class SpGEMMExecutor:
+class _Executor:
+    """What both executors share: the chunk policy of a batch and ``run``
+    / ``run_batch``, which are the pipeline protocol's device steps back to
+    back (``pipe_stage``, ``pipe_kernel``, ``pipe_assemble``, each
+    executor's own)."""
+
+    @property
+    def can_rebind(self) -> bool:
+        """True for element plans: both operands are ``[nnz]`` value
+        vectors, bound into packed blocks on the device."""
+        return self._element
+
+    def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
+        """Re-resolve the chunk policy with a new per-set budget;
+        ``REPRO_SPGEMM_CHUNK_BYTES`` still wins (:func:`resolve_chunk_bytes`)."""
+        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
+
+    def batch_chunk(
+        self,
+        small_set_bytes: Optional[int] = None,
+        cache_bytes: Optional[int] = None,
+    ) -> int:
+        """Max batch elements per fused device call.
+
+        Sets whose working bytes (``4 * per_set_rows * bn``; a sharded
+        executor's largest shard's) fit the per-set budget are fused up to
+        ``cache_bytes`` per call; larger sets run one per call. Both knobs
+        default to the resolved per-device policy.
+        """
+        if small_set_bytes is None:
+            small_set_bytes = self._chunk_policy[0]
+        if cache_bytes is None:
+            cache_bytes = self._chunk_policy[1]
+        per_set = 4 * self._per_set_rows * self._bn
+        if per_set <= small_set_bytes:
+            return max(1, cache_bytes // max(per_set, 1))
+        return 1
+
+    def run(self, a, b) -> torch.Tensor:
+        """One value set in the plan's value shape (host tensors, tensors
+        on the device, or what :meth:`stage` made of them) -> packed C
+        values ``[nnz_c]``, on the executor's device."""
+        return self._steps(a, b, "single")
+
+    def run_batch(self, a, b) -> torch.Tensor:
+        """Value sets stacked on a leading batch axis -> packed C values
+        ``[batch, nnz_c]``: one K2 launch (per launching shard)."""
+        return self._steps(a, b, "batch")
+
+    def _steps(self, a, b, mode: str) -> torch.Tensor:
+        staged = self.pipe_stage(a, b, mode=mode)
+        return self.pipe_assemble(self.pipe_kernel(staged, mode=mode), mode=mode)
+
+
+class SpGEMMExecutor(_Executor):
     """A plan's numeric phase with device-resident constants.
 
     Copies the schedule runs, the scatter inverses and the assembly gather
     map to ``device`` once (an identity map as ``None``: its gather is
-    skipped); ``run``/``run_values``/``run_batch`` then call the numeric
-    cores with no per-call host work beyond operand transfer. ``pairs`` is
-    the scalar products one launch computes: the element pairs at tile 1,
-    the block fill included at larger tiles.
+    skipped); ``run``/``run_batch`` then call the stage cores with no
+    per-call host work beyond operand transfer. Built with both scatters
+    (an element plan), it binds ``[nnz]`` value vectors into packed blocks
+    on the device; without them its operands are the packed blocks.
+    ``pairs`` is the scalar products one launch computes: the element pairs
+    at tile 1, the block fill included at larger tiles.
     ``backend="cuda"`` runs the hand-written kernel on every path,
     ``backend="torch"`` its plain version.
     """
@@ -412,17 +449,6 @@ class SpGEMMExecutor:
         inv = _invert_scatter(np.asarray(scatter), int(np.prod(shape)))
         return torch.from_numpy(inv).to(self.device)
 
-    @property
-    def can_rebind(self) -> bool:
-        """True for element plans: both operands rebind from value
-        vectors on the device."""
-        return self._element
-
-    def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
-        """Re-resolve the chunk policy with a new per-set budget;
-        ``REPRO_SPGEMM_CHUNK_BYTES`` still wins (:func:`resolve_chunk_bytes`)."""
-        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
-
     def staged_runs(self) -> dict:
         """The schedule runs the kernel reads, as staged on the device:
         ``{0: ScheduleRuns}`` (keyed like the sharded executor's, by
@@ -436,27 +462,6 @@ class SpGEMMExecutor:
         out = [runs.ptr, runs.a_slot, runs.b_slot, runs.panel, runs.sub_row]
         return out + [t for t in (self._gather, self._a_inv, self._b_inv) if t is not None]
 
-    def batch_chunk(
-        self,
-        small_set_bytes: Optional[int] = None,
-        cache_bytes: Optional[int] = None,
-    ) -> int:
-        """Max batch elements per fused device call.
-
-        Sets whose working bytes (``4 * per_set_rows * bn``) fit the
-        per-set budget are fused up to ``cache_bytes`` per call; larger
-        sets run one per call. Both knobs default to the resolved
-        per-device policy.
-        """
-        if small_set_bytes is None:
-            small_set_bytes = self._chunk_policy[0]
-        if cache_bytes is None:
-            cache_bytes = self._chunk_policy[1]
-        per_set = 4 * self._per_set_rows * self._bn
-        if per_set <= small_set_bytes:
-            return max(1, cache_bytes // max(per_set, 1))
-        return 1
-
     def device_indptr(self) -> torch.Tensor:
         """Device-resident CSR ``indptr`` (int32) of the active output map
         (:func:`~repro_torch.kernels.gustavson_spgemm.compact_csr_indptr`
@@ -469,53 +474,29 @@ class SpGEMMExecutor:
             )).to(self.device)
         return compact_csr_indptr(self._row_ids, m=self._out_rows)
 
-    def run(self, a_blocks, b_blocks) -> torch.Tensor:
-        """Packed blocks -> packed C values (plan's backend)."""
-        return numeric_core(
-            a_blocks, b_blocks, self._runs, self._gather, backend=self.backend,
-        )
+    def stage(self, a, b):
+        """Operands in the plan's value shape, single or batched -> the
+        layout the kernel reads: each on ``device``. ``None`` stays
+        ``None``; one tensor passed as both operands is copied once."""
+        a_dev = None if a is None else _to_devices(a, [self.device])[0]
+        b_dev = a_dev if b is a else None if b is None else _to_devices(b, [self.device])[0]
+        return a_dev, b_dev
 
-    def run_values(self, a_vals, b_vals) -> torch.Tensor:
-        """[nnz] value vectors -> packed C values, rebind included."""
-        return numeric_core_values(
-            a_vals, b_vals, self._a_inv, self._b_inv, self._runs, self._gather,
-            a_shape=self.a_shape, b_shape=self.b_shape, backend=self.backend,
-        )
-
-    def run_batch(self, a_vals, b_vals, *, rebind: bool) -> torch.Tensor:
-        """Batched values (on ``device``) -> packed C values [batch, nnz_c]."""
-        return numeric_core_batch(
-            a_vals, b_vals, self._a_inv, self._b_inv, self._runs, self._gather,
-            a_shape=self.a_shape, b_shape=self.b_shape, rebind=rebind,
-            backend=self.backend,
-        )
-
-    # -- pipeline protocol (stage-split; only pipe_collect blocks) ----------
+    # -- pipeline protocol (stage-split; only _collect blocks) --------------
     #
-    # ``mode`` for pipe_stage: "values" ([nnz] vectors, element plans),
-    # "blocks" (packed blocks, block plans), "batch_values" ([batch, nnz])
-    # or "batch_blocks" ([batch, slots, ...]). Operands are CPU tensors
-    # (pinned, for a CUDA executor) or tensors already on the device.
-    # ``mode`` for kernel/assemble/collect: "single" or "batch".
-
-    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device, non_blocking=True)
+    # Operands are CPU tensors (pinned, for a CUDA executor), tensors on the
+    # device, or what stage() made of them; ``mode`` is "single" or "batch".
 
     def pipe_stage(self, a, b, *, mode: str):
-        """Host-to-device copy (asynchronous from pinned memory) and the
-        value rebind; returns the staged packed blocks."""
-        a, b = self._to_device(a), self._to_device(b)
-        if mode == "values":
-            return (bind_core(a, self._a_inv, shape=self.a_shape),
-                    bind_core(b, self._b_inv, shape=self.b_shape))
-        if mode == "blocks":
-            return a, b
-        if mode == "batch_values":
-            return (bind_batch_core(a, self._a_inv, shape=self.a_shape),
-                    bind_batch_core(b, self._b_inv, shape=self.b_shape))
-        if mode == "batch_blocks":
+        """Host-to-device copy (asynchronous from pinned memory) and stage
+        1: element plans bind their values into packed blocks; returns the
+        packed blocks (stacked over the batch)."""
+        a, b = self.stage(a, b)
+        if not self._element:
             return _stack_blocks(a, self.a_shape), _stack_blocks(b, self.b_shape)
-        raise ValueError(f"unknown stage mode {mode!r}")
+        bind = bind_core if mode == "single" else bind_batch_core
+        return (bind(a, self._a_inv, shape=self.a_shape),
+                bind(b, self._b_inv, shape=self.b_shape))
 
     def pipe_kernel(self, staged, *, mode: str):
         """The scheduled kernel over staged blocks."""
@@ -530,17 +511,6 @@ class SpGEMMExecutor:
         if mode == "single":
             return assemble_core(panels, self._gather)
         return assemble_batch_core(panels, self._gather)
-
-    def pipe_download(self, packed: torch.Tensor):
-        """Start the device-to-host copy of packed C values: on a CUDA
-        executor into a fresh pinned tensor, with an event recorded after
-        the copy on the current stream; on the CPU the values themselves."""
-        return _download(packed)
-
-    def pipe_collect(self, pending, *, mode: str) -> torch.Tensor:
-        """Packed C values on the host: waits for the step's copy (the only
-        blocking call of the protocol)."""
-        return _collect(pending)
 
 
 class _ShardPart:
@@ -563,11 +533,11 @@ class _ShardPart:
         self.a_inv = a_inv
 
 
-class ShardedSpGEMMExecutor:
+class ShardedSpGEMMExecutor(_Executor):
     """Numeric phase of a sharded plan: one program per shard.
 
-    Drop-in for :class:`SpGEMMExecutor` on the plan side (``run``,
-    ``run_values``, ``run_batch``, ``batch_chunk``, ``device_indptr``,
+    Drop-in for :class:`SpGEMMExecutor` on the plan side (``stage``,
+    ``run``, ``run_batch``, ``batch_chunk``, ``device_indptr``,
     ``can_rebind``, ``set_chunk_bytes`` and the ``pipe_*`` stages). Where
     the JAX package stacks the shards into one ``shard_map`` program over
     a mesh axis, each shard here runs the single executor's stage cores on
@@ -668,17 +638,6 @@ class ShardedSpGEMMExecutor:
         values): the launches of one ``run`` or batch chunk."""
         return len(self._parts)
 
-    @property
-    def can_rebind(self) -> bool:
-        """True for element plans: both operands rebind from value
-        vectors on the device."""
-        return self._element
-
-    def set_chunk_bytes(self, chunk_bytes: Optional[int]) -> None:
-        """Re-resolve the chunk policy with a new per-set budget;
-        ``REPRO_SPGEMM_CHUNK_BYTES`` still wins."""
-        self._chunk_policy = resolve_chunk_bytes(chunk_bytes, self.device)
-
     def staged_runs(self) -> dict:
         """The schedule runs each launching shard's kernel reads, as
         staged on its device: ``{shard index: ScheduleRuns}``."""
@@ -693,22 +652,6 @@ class ShardedSpGEMMExecutor:
             if p.a_inv is not None:
                 out.append(p.a_inv)
         return out + list(self._b_inv.values())
-
-    def batch_chunk(
-        self,
-        small_set_bytes: Optional[int] = None,
-        cache_bytes: Optional[int] = None,
-    ) -> int:
-        """Same policy as :meth:`SpGEMMExecutor.batch_chunk`, applied to
-        the largest shard's working set."""
-        if small_set_bytes is None:
-            small_set_bytes = self._chunk_policy[0]
-        if cache_bytes is None:
-            cache_bytes = self._chunk_policy[1]
-        per_set = 4 * self._per_set_rows * self._bn
-        if per_set <= small_set_bytes:
-            return max(1, cache_bytes // max(per_set, 1))
-        return 1
 
     def device_indptr(self) -> torch.Tensor:
         """Plan-wide device CSR ``indptr`` (int32) on the plan's device.
@@ -727,12 +670,24 @@ class ShardedSpGEMMExecutor:
                 np.concatenate(ids) if ids else np.zeros(0, np.int64)).to(self.device)
         return compact_csr_indptr(self._row_ids, m=self._out_rows)
 
-    # -- layout helpers ----------------------------------------------------
+    def stage(self, a, b, *, batch: bool = False):
+        """Operands in the plan's value shape -> the layout the shards
+        read: an element plan's value vectors once per distinct device (a
+        dict; one tensor passed as both operands, once), a block plan's A
+        as each launching shard's slot slice on its device (a list; only
+        the slice is copied) and its B once per distinct device. ``None``
+        stays ``None``, and an operand already laid out passes through."""
 
-    def _per_device(self, t: torch.Tensor) -> Dict[torch.device, torch.Tensor]:
-        """``t`` on every device a launching shard runs on, copied once per
-        distinct device (asynchronously from pinned host memory)."""
-        return {d: t.to(d, non_blocking=True) for d in self._b_devices}
+        def lay(t, slices):
+            if not isinstance(t, torch.Tensor):
+                return t
+            if slices:
+                return [_to_devices(t[:, p.a_lo:p.a_hi] if batch else t[p.a_lo:p.a_hi],
+                                    [p.device])[0] for p in self._parts]
+            return dict(zip(self._b_devices, _to_devices(t, self._b_devices)))
+
+        a_on = lay(a, not self._element)
+        return a_on, a_on if b is a and self._element else lay(b, False)
 
     def _concat(self, segments: list, batch: Optional[int]) -> torch.Tensor:
         """The shards' packed segments, in shard order, on the plan's
@@ -743,114 +698,43 @@ class ShardedSpGEMMExecutor:
             return torch.zeros(shape, dtype=torch.float32, device=self.device)
         return torch.cat(segments, dim=-1)
 
-    def stage_a(self, blocks: torch.Tensor) -> list:
-        """Full packed A blocks (host) -> each launching shard's slot slice
-        on its device (fresh copies, never aliases of the host blocks)."""
-        out = []
-        for p in self._parts:
-            part = blocks[p.a_lo:p.a_hi]
-            if p.device.type == "cuda":
-                out.append(_pinned_copy(part).to(p.device, non_blocking=True))
-            else:
-                out.append(part.to(p.device, copy=True))
-        return out
-
-    def stage_b(self, blocks: torch.Tensor) -> dict:
-        """Full packed B blocks (host) -> one copy per distinct device."""
-        out = {}
-        for d in self._b_devices:
-            if d.type == "cuda":
-                out[d] = _pinned_copy(blocks).to(d, non_blocking=True)
-            else:
-                out[d] = blocks.to(d, copy=True)
-        return out
-
-    # -- stages ------------------------------------------------------------
-
-    def _bind(self, a, b, *, mode: str):
-        """Stage 1 for every launching shard: ``(a_blocks per shard, B
-        blocks per device)``. ``a`` and ``b`` are whole operands (host or
-        device tensors); each is copied once per distinct device."""
-        a_on, b_on = self._per_device(a), self._per_device(b)
-        if mode == "values":
-            b_blk = {d: bind_core(b_on[d], self._b_inv[d], shape=self.b_shape) for d in b_on}
-            a_blk = [bind_core(a_on[p.device][p.e_lo:p.e_hi], p.a_inv, shape=p.a_shape)
-                     for p in self._parts]
-        elif mode == "blocks":
-            b_blk = b_on
-            a_blk = [a_on[p.device][p.a_lo:p.a_hi] for p in self._parts]
-        elif mode == "batch_values":
-            b_blk = {d: bind_batch_core(b_on[d], self._b_inv[d], shape=self.b_shape)
-                     for d in b_on}
-            a_blk = [bind_batch_core(a_on[p.device][:, p.e_lo:p.e_hi], p.a_inv, shape=p.a_shape)
-                     for p in self._parts]
-        elif mode == "batch_blocks":
-            b_blk = {d: _stack_blocks(b_on[d], self.b_shape) for d in b_on}
-            a_blk = [_stack_blocks(a_on[p.device][:, p.a_lo:p.a_hi], p.a_shape)
-                     for p in self._parts]
-        else:
-            raise ValueError(f"unknown stage mode {mode!r}")
-        return a_blk, b_blk
-
-    def _kernel(self, staged, *, batch: bool) -> list:
-        """Stage 2: one launch per launching shard, on its own schedule."""
-        a_blk, b_blk = staged
-        if batch:
-            return [kernel_batch_core(a, b_blk[p.device], p.runs, a_slots=p.a_shape[0],
-                                      backend=self.backend)
-                    for p, a in zip(self._parts, a_blk)]
-        return [kernel_core(a, b_blk[p.device], p.runs, backend=self.backend)
-                for p, a in zip(self._parts, a_blk)]
-
-    def _assemble(self, panels: list, *, batch: Optional[int]) -> torch.Tensor:
-        """Stage 3: each shard's gather, then the concatenation."""
-        if batch is None:
-            segs = [assemble_core(x, p.gather) for p, x in zip(self._parts, panels)]
-        else:
-            segs = [assemble_batch_core(x, p.gather) for p, x in zip(self._parts, panels)]
-        return self._concat(segs, batch)
-
-    def run(self, a_staged: list, b_staged: dict) -> torch.Tensor:
-        """Staged operands (:meth:`stage_a` / :meth:`stage_b`) -> packed C."""
-        return self._assemble(self._kernel((a_staged, b_staged), batch=False), batch=None)
-
-    def run_values(self, a_vals, b_vals) -> torch.Tensor:
-        """[nnz] value vectors -> packed C; each shard binds its own A
-        elements and its device's copy of B."""
-        staged = self._bind(a_vals, b_vals, mode="values")
-        return self._assemble(self._kernel(staged, batch=False), batch=None)
-
-    def run_batch(self, a_vals, b_vals, *, rebind: bool) -> torch.Tensor:
-        """Batched values -> packed C values [batch, nnz_c]: one K2 launch
-        per launching shard."""
-        bsz = int(a_vals.shape[0])
-        staged = self._bind(a_vals, b_vals, mode="batch_values" if rebind else "batch_blocks")
-        return self._assemble(self._kernel(staged, batch=True), batch=bsz)
-
     # -- pipeline protocol (same surface as SpGEMMExecutor) ----------------
 
     def pipe_stage(self, a, b, *, mode: str):
-        """Copies to each distinct device and each shard's rebind; returns
-        ``(a blocks per shard, B blocks per device, batch or None)``. A
-        ``"blocks"`` operand that :meth:`stage_a` / :meth:`stage_b`
-        already laid out (a list and a dict) passes through."""
-        bsz = int(a.shape[0]) if mode.startswith("batch") else None
-        if mode == "blocks" and isinstance(a, list):
-            return a, b, bsz
-        return self._bind(a, b, mode=mode) + (bsz,)
+        """Copies to each distinct device and each shard's stage 1;
+        returns ``(a blocks per shard, B blocks per device, batch or
+        None)``."""
+        batch = mode == "batch"
+        bsz = int(a.shape[0]) if batch else None
+        a_on, b_on = self.stage(a, b, batch=batch)
+        if self._element:
+            bind = bind_batch_core if batch else bind_core
+            b_blk = {d: bind(b_on[d], self._b_inv[d], shape=self.b_shape) for d in b_on}
+            a_blk = [bind(a_on[p.device][..., p.e_lo:p.e_hi], p.a_inv, shape=p.a_shape)
+                     for p in self._parts]
+        else:
+            b_blk = {d: _stack_blocks(b_on[d], self.b_shape) for d in b_on}
+            a_blk = [_stack_blocks(x, p.a_shape) for p, x in zip(self._parts, a_on)]
+        return a_blk, b_blk, bsz
 
     def pipe_kernel(self, staged, *, mode: str):
-        """Every launching shard's kernel."""
+        """Every launching shard's kernel: one launch each, on its own
+        schedule."""
         a_blk, b_blk, bsz = staged
-        return self._kernel((a_blk, b_blk), batch=mode != "single"), bsz
+        if mode == "batch":
+            panels = [kernel_batch_core(a, b_blk[p.device], p.runs, a_slots=p.a_shape[0],
+                                        backend=self.backend)
+                      for p, a in zip(self._parts, a_blk)]
+        else:
+            panels = [kernel_core(a, b_blk[p.device], p.runs, backend=self.backend)
+                      for p, a in zip(self._parts, a_blk)]
+        return panels, bsz
 
     def pipe_assemble(self, panels, *, mode: str):
-        """Every shard's gather and the concatenation."""
+        """Every shard's gather, then the concatenation."""
         panels, bsz = panels
-        return self._assemble(panels, batch=None if mode == "single" else bsz)
-
-    def pipe_download(self, packed: torch.Tensor):
-        return _download(packed)
-
-    def pipe_collect(self, pending, *, mode: str) -> torch.Tensor:
-        return _collect(pending)
+        if mode == "single":
+            segs = [assemble_core(x, p.gather) for p, x in zip(self._parts, panels)]
+        else:
+            segs = [assemble_batch_core(x, p.gather) for p, x in zip(self._parts, panels)]
+        return self._concat(segs, bsz)

@@ -9,8 +9,8 @@ device-to-host copy serialized per step. :class:`SpGEMMPipeline` removes
 it:
 
 * ``submit(a_vals, b_vals)`` *dispatches* a step (the executor's ``pipe_*``
-  protocol: host-to-device copy and value rebind, the scheduled kernel,
-  the assembly gather, the device-to-host copy) and returns a
+  steps: host-to-device copy and value rebind, the scheduled kernel, the
+  assembly gather; then the device-to-host copy) and returns a
   :class:`SpGEMMTicket` at once. On a CUDA plan each in-flight step owns
   one of the pipeline's ``depth`` CUDA streams, its staged device blocks
   and two page-locked host tensors, one for its input values and one for
@@ -27,8 +27,8 @@ it:
   ``stream(value_iter)`` / ``__iter__`` manage the bound for you,
   yielding ordered results.
 
-Results are **bitwise-equal** to sequential ``execute`` calls: the stage
-cores are the operations of the fused cores, and submission is stateless
+Results are **bitwise-equal** to sequential ``execute`` calls: a step runs
+the operations ``execute`` runs, and submission is stateless
 with respect to the plan's staged values (like ``execute_batch``). Each
 collected CSR owns its value array (a fresh pinned tensor per step on the
 card), so no later step writes into an earlier result.
@@ -59,18 +59,17 @@ class PipelineFullError(RuntimeError):
 
 class _Prepared:
     """A validated, host-side-prepared submission (built by
-    ``SpGEMMPlan._pipe_check``): execution mode, operands (tensors in the
-    plan's value dtypes: pinned host tensors on a CUDA plan, or tensors
-    already on the plan's device), batch size (``None`` single-shot), the
-    executes-counter increment, and the plan's executor as it stood when
-    the submission was checked (``None`` for an empty plan): dispatch and
-    collect run on it, never on the plan's attribute, which ``release()``
-    clears."""
+    ``SpGEMMPlan._pipe_check``): operands (tensors in the plan's value
+    dtypes: pinned host tensors on a CUDA plan, tensors already on the
+    plan's device, or the plan's own values as its executor staged them),
+    batch size (``None`` single-shot), the executes-counter increment, and
+    the plan's executor as it stood when the submission was checked
+    (``None`` for an empty plan): dispatch and collect run on it, never on
+    the plan's attribute, which ``release()`` clears."""
 
-    __slots__ = ("mode", "a", "b", "batch", "n_execs", "executor")
+    __slots__ = ("a", "b", "batch", "n_execs", "executor")
 
-    def __init__(self, mode, a, b, batch, n_execs, executor):
-        self.mode = mode
+    def __init__(self, a, b, batch, n_execs, executor):
         self.a = a
         self.b = b
         self.batch = batch

@@ -11,9 +11,9 @@ to be performed once". This module is that claim as an API:
 * The numeric phase is :class:`~repro_torch.spgemm.executor.SpGEMMExecutor`:
   value rebind, the scheduled kernel and output assembly on the device;
   C's CSR pattern is precomputed, so assembly is a single static gather.
-* :meth:`SpGEMMPlan.execute` keeps the lock / host-value staging
-  semantics (no-arg ``execute()`` reuses staged values) and wraps the
-  packed C values in the precomputed CSR structure;
+* :meth:`SpGEMMPlan.execute` binds fresh values (no-arg ``execute()``
+  reuses the bound ones), stages on the device what is not there yet and
+  wraps the packed C values in the precomputed CSR structure;
   :meth:`SpGEMMPlan.execute_batch` runs a leading batch of value sets.
 * :meth:`SpGEMMPlan.pipeline` / ``execute_async`` / ``execute_stream``
   serve a stream of value sets through a bounded submit/collect pipeline
@@ -52,10 +52,10 @@ as the JAX package does: bfloat16 (a numpy array whose dtype is named
 float64 is cast, as the JAX package does with 64-bit mode off). Every
 later rebind, single or batched, host or device, rounds its values to that
 dtype (round to nearest even, as ``astype`` does), and a bfloat16 plan
-stages bfloat16 blocks, so the kernel reads them as bfloat16; C is float32
+stages bfloat16 values, so the kernel reads bfloat16 blocks; C is float32
 either way. The port imports no ``ml_dtypes``: a numpy bfloat16 array is
-read through a 16-bit view, and the plan holds its packed blocks on the
-host as CPU tensors of its dtype.
+read through a 16-bit view, and the plan holds its values on the host as
+CPU tensors of its dtype.
 
 Output convention: C's CSR pattern is *structural* (every element of every
 structurally nonzero C block, trimmed to the true shape, or under
@@ -335,8 +335,16 @@ class SpGEMMPlan:
       ``[nnzb_a, bm, bk]`` block array, likewise ``b_vals``.
 
     Values may be numpy arrays or tensors. Passing ``None`` reuses the
-    values staged at build / last execute. ``execute_batch`` takes the same
-    per-set shapes with a leading batch axis.
+    values bound at build, by the last execute or by a cache hit.
+    ``execute_batch`` takes the same per-set shapes with a leading batch
+    axis.
+
+    The plan holds one value state per operand, in its value shape
+    (:meth:`value_shapes`): a host copy of its own (page-locked on the
+    card) and a device copy in the executor's layout, staged when a run
+    first needs it. :meth:`_bind` is the one writer of the host copies;
+    the executor alone decides whether values become packed blocks on the
+    device.
 
     ``output="compact"`` wraps results in the element-exact map
     (``plan.compact``) instead of the block-structural one
@@ -353,8 +361,9 @@ class SpGEMMPlan:
         self,
         *,
         schedule: SpGEMMSchedule,
-        a_blocks,
-        b_blocks,
+        a_vals,
+        b_vals,
+        block_shapes: Tuple[Tuple[int, ...], Tuple[int, ...]],
         value_dtypes: Tuple[torch.dtype, torch.dtype],
         backend: str,
         device,
@@ -377,14 +386,16 @@ class SpGEMMPlan:
         self.b_pattern = b_pattern
         self._a_scatter = a_scatter
         self._b_scatter = b_scatter
-        # The packed dtypes of the values the plan was built on, and the
-        # host packed blocks (CPU tensors of those dtypes; None once
-        # release_values() dropped them). The shapes survive release.
+        # The packed dtypes of the values the plan was built on, the packed
+        # block shapes, and the bound values in the plan's value shape (CPU
+        # tensors of those dtypes; None once release_values() dropped
+        # them). One array passed as both operands is held, and staged,
+        # once.
         self._a_dtype, self._b_dtype = value_dtypes
-        self._a_blocks = _host_values(a_blocks, self._a_dtype)
-        self._b_blocks = _host_values(b_blocks, self._b_dtype)
-        self._a_shape = tuple(self._a_blocks.shape)
-        self._b_shape = tuple(self._b_blocks.shape)
+        self._a_shape, self._b_shape = (tuple(int(x) for x in sh) for sh in block_shapes)
+        self._a_host = _host_values(a_vals, self._a_dtype)
+        self._b_host = self._a_host if b_vals is a_vals and self._b_dtype == self._a_dtype \
+            else _host_values(b_vals, self._b_dtype)
         self._m, self._n = out_shape
         self._group = schedule.group
         self._bm = int(self._a_shape[1]) if len(self._a_shape) == 3 else 0
@@ -420,16 +431,14 @@ class SpGEMMPlan:
                 if schedule.num_triples and self.assembly.nnz
                 else None
             )
-        # Device block values are staged lazily (first no-arg execute).
+        # The bound values on the device, in the executor's layout: staged
+        # by the first run that needs them, dropped by every rebind.
         self._a_dev = None
         self._b_dev = None
         # Device copy of B's element values, staged by the first chained
         # execute (a later chain stage multiplies the previous stage's
-        # device values by its own B).
+        # device values by b_pattern's, as in the JAX package).
         self._b_vals_dev = None
-        # Host copies of the values of the latest fused execute, newer than
-        # the host blocks until _bind_host scatters them there.
-        self._unbound: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # Guards value rebinds + report counters, so concurrent executes
         # each see a consistent (values, device array) pair.
         self._lock = threading.Lock()
@@ -468,6 +477,15 @@ class SpGEMMPlan:
             a_shape=self._a_shape,
             b_shape=self._b_shape,
         )
+
+    @property
+    def kind(self) -> str:
+        """``"element"`` for a plan built from element inputs (its values
+        are ``[nnz]`` vectors in canonical pattern order, bound into packed
+        blocks on the device), ``"block"`` for one built from packed blocks
+        (BCSV/BCSR), whose values are the blocks."""
+        return "element" if self._a_scatter is not None and self._b_scatter is not None \
+            else "block"
 
     def _active(self) -> AssemblyMap:
         """The output map results are wrapped in (and the executor gathers
@@ -526,23 +544,6 @@ class SpGEMMPlan:
         cfg = self.tuned_config
         return int(cfg.pipeline_depth) if cfg is not None else 2
 
-    def _stage(self, blocks: torch.Tensor) -> torch.Tensor:
-        """Host packed blocks -> a device copy (never an alias of the host
-        scratch that later rebinds write into). On the card the copy goes
-        through a pinned copy of the blocks, so it does not block the
-        host."""
-        if self.device.type == "cuda":
-            return _pinned_copy(blocks).to(self.device, non_blocking=True)
-        return blocks.to(self.device, copy=True)
-
-    def _stage_a(self, blocks: torch.Tensor):
-        """Host packed A blocks -> the executor's device layout."""
-        return self._stage(blocks)
-
-    def _stage_b(self, blocks: torch.Tensor):
-        """Host packed B blocks -> the executor's device layout."""
-        return self._stage(blocks)
-
     # -- construction -----------------------------------------------------
 
     @classmethod
@@ -593,8 +594,9 @@ class SpGEMMPlan:
         plan_cls, extra = _resolve_plan_cls(mesh, mesh_axis)
         plan = plan_cls(
             schedule=schedule,
-            a_blocks=a.blocks,
-            b_blocks=b.blocks,
+            a_vals=a.blocks,
+            b_vals=b.blocks,
+            block_shapes=(a.blocks.shape, b.blocks.shape),
             value_dtypes=(_packed_dtype(a.blocks), _packed_dtype(b.blocks)),
             backend=backend,
             device=device,
@@ -603,8 +605,8 @@ class SpGEMMPlan:
             output=output,
             **extra,
         )
-        report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
-        report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
+        report._nnz_a = _staged_nnz(plan, "_a_host", "nnz_a")
+        report._nnz_b = _staged_nnz(plan, "_b_host", "nnz_b")
         return plan
 
     # -- persistence -------------------------------------------------------
@@ -628,13 +630,11 @@ class SpGEMMPlan:
         arrays.update(assembly_to_arrays(self.assembly))
         if self.output == "compact":
             arrays.update(assembly_to_arrays(self.compact, prefix="casm."))
-        if self._a_scatter is not None:
+        if self.kind == "element":
             arrays["a_scatter"] = self._a_scatter
-        if self._b_scatter is not None:
             arrays["b_scatter"] = self._b_scatter
-        element = self._a_scatter is not None and self._b_scatter is not None
         meta = {
-            "kind": "element" if element else "block",
+            "kind": self.kind,
             "output": self.output,
             "backend": self.backend,
             "out_shape": [self._m, self._n],
@@ -678,10 +678,10 @@ class SpGEMMPlan:
         compact map (``output="compact"``, which must match the persisted
         output), for element plans the value-scatter indices, and for
         sharded plans the shard bounds. The symbolic phase is **not**
-        re-run (``report.schedule_builds == 0``). The packed block arrays
-        are rebuilt by scattering ``a_vals``/``b_vals`` through the
-        persisted scatter indices (element plans) or taken from
-        ``a_blocks``/``b_blocks`` (block plans). The persisted backend may
+        re-run (``report.schedule_builds == 0``). The values are
+        ``a_vals``/``b_vals``, one per persisted scatter index (element
+        plans), or ``a_blocks``/``b_blocks`` of the persisted shapes (block
+        plans). The persisted backend may
         name the other package's backend and is not read. ``mesh`` gives a
         :class:`ShardedSpGEMMPlan`, partitioned by the persisted shard
         bounds when there are any (their shard count must be the mesh's);
@@ -715,37 +715,33 @@ class SpGEMMPlan:
         # The persisted value dtypes (the JAX package's names).
         a_dtype, b_dtype = (_value_dtype(meta.get(f"{x}_dtype", "float32")) for x in ("a", "b"))
 
-        def rebuild(vals, scatter, shape, dtype, name):
+        def element_values(vals, scatter, dtype, name):
             if scatter is None:
                 raise ValueError(f"{name}: persisted scatter missing")
             vals = _host_values(vals, dtype)
-            scatter = np.asarray(scatter)
-            if vals.shape != (int(scatter.shape[0]),):
+            if vals.shape != (int(np.asarray(scatter).shape[0]),):
                 raise ValueError(
                     f"{name}: {tuple(vals.shape)} values vs persisted scatter "
-                    f"of {int(scatter.shape[0])}"
+                    f"of {int(np.asarray(scatter).shape[0])}"
                 )
-            blocks = torch.zeros(shape, dtype=dtype)
-            blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
-            return blocks
+            return vals.clone()  # the plan's own: the caller may reuse its buffer
 
         if kind == "element":
             if a_vals is None or b_vals is None:
                 raise ValueError("element plan needs a_vals/b_vals")
-            a_blocks = rebuild(a_vals, a_scatter, a_shape, a_dtype, "a_vals")
-            b_blocks = rebuild(b_vals, b_scatter, b_shape, b_dtype, "b_vals")
-            nnz_a = int(np.asarray(a_scatter).shape[0])
-            nnz_b = int(np.asarray(b_scatter).shape[0])
+            a_vals = element_values(a_vals, a_scatter, a_dtype, "a_vals")
+            b_vals = element_values(b_vals, b_scatter, b_dtype, "b_vals")
+            nnz_a, nnz_b = int(a_vals.shape[0]), int(b_vals.shape[0])
         else:
             if a_blocks is None or b_blocks is None:
                 raise ValueError("block plan needs a_blocks/b_blocks")
-            a_blocks = _as_tensor(a_blocks, a_dtype)
-            b_blocks = _as_tensor(b_blocks, b_dtype)
-            if tuple(a_blocks.shape) != a_shape:
-                raise ValueError(f"a_blocks {a_blocks.shape} vs persisted {a_shape}")
-            if tuple(b_blocks.shape) != b_shape:
-                raise ValueError(f"b_blocks {b_blocks.shape} vs persisted {b_shape}")
-            nnz_a = nnz_b = 0  # bound to staged blocks below (lazy)
+            a_vals = _as_tensor(a_blocks, a_dtype)
+            b_vals = _as_tensor(b_blocks, b_dtype)
+            if tuple(a_vals.shape) != a_shape:
+                raise ValueError(f"a_blocks {a_vals.shape} vs persisted {a_shape}")
+            if tuple(b_vals.shape) != b_shape:
+                raise ValueError(f"b_blocks {b_vals.shape} vs persisted {b_shape}")
+            nnz_a = nnz_b = 0  # bound to the plan's values below (lazy)
         report = _make_report(
             pattern_key, tile, group, backend, out_shape, nnz_a, nnz_b,
             a_shape[0] if len(a_shape) == 3 else 0,
@@ -759,8 +755,9 @@ class SpGEMMPlan:
             extra["shards"] = shards_from_bounds(schedule, arrays["shard_bounds"])
         plan = plan_cls(
             schedule=schedule,
-            a_blocks=a_blocks,
-            b_blocks=b_blocks,
+            a_vals=a_vals,
+            b_vals=b_vals,
+            block_shapes=(a_shape, b_shape),
             value_dtypes=(a_dtype, b_dtype),
             backend=backend,
             device=device,
@@ -776,8 +773,8 @@ class SpGEMMPlan:
             **extra,
         )
         if kind == "block":
-            report._nnz_a = _staged_nnz(plan, "_a_blocks", "nnz_a")
-            report._nnz_b = _staged_nnz(plan, "_b_blocks", "nnz_b")
+            report._nnz_a = _staged_nnz(plan, "_a_host", "nnz_a")
+            report._nnz_b = _staged_nnz(plan, "_b_host", "nnz_b")
         tuned_meta = meta.get("tuned_config")
         if tuned_meta is not None:
             # Imported here: the autotuner imports this module.
@@ -789,41 +786,12 @@ class SpGEMMPlan:
 
     # -- numeric phase ----------------------------------------------------
 
-    def _rebind(
-        self,
-        vals,
-        blocks: Optional[torch.Tensor],
-        scatter: Optional[np.ndarray],
-        nnz: int,
-        name: str,
-        shape: Tuple[int, ...],
-        dtype: torch.dtype,
-    ) -> torch.Tensor:
-        """``vals`` rounded to the packed ``dtype`` and, for element plans,
-        scattered into ``blocks`` (reallocated if released); returns the
-        host packed blocks."""
-        if scatter is not None:
-            vals = self._checked_values(vals, nnz, name, dtype).cpu().contiguous()
-            if blocks is None:  # scratch was released; reallocate
-                blocks = torch.zeros(shape, dtype=dtype)
-            # Positions outside `scatter` are structurally zero and never
-            # written, so in-place rebinding is sound.
-            blocks.view(-1)[torch.from_numpy(np.asarray(scatter, np.int64))] = vals
-            return blocks
-        vals = _host_values(vals, dtype)
-        if vals.shape != shape:
-            raise ValueError(
-                f"{name}: expected packed blocks of shape {shape}, "
-                f"got {tuple(vals.shape)}"
-            )
-        return vals
-
     def value_shapes(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
         """Per-set operand shapes the numeric phase accepts:
         ``(want_a, want_b)`` — ``[nnz]`` vectors for element plans, packed
         block arrays for block plans. ``execute_batch`` and ``submit`` take
         the same shapes with a shared leading batch axis."""
-        if self._a_scatter is not None and self._b_scatter is not None:
+        if self.kind == "element":
             return (self.report.nnz_a,), (self.report.nnz_b,)
         return self._a_shape, self._b_shape
 
@@ -909,119 +877,93 @@ class SpGEMMPlan:
     __call__ = execute
 
     def _run_packed(self, a_vals=None, b_vals=None) -> Optional[torch.Tensor]:
-        """``execute``'s device core: run the numeric phase and return the
-        packed C values on the device (``None`` for an empty plan): the
-        handoff ``execute_chain`` keeps on the device between stages."""
-        # Element plans called with both value vectors take the fused
-        # device path (rebind + kernel + assembly on the device): only
-        # [nnz] vectors cross to the device, not full packed blocks, and
-        # one array passed as both operands crosses once. The plan keeps
-        # host copies of them, scattered into its host blocks only when
-        # something reads those (_bind_host), so no-arg execute() stays
-        # current.
-        fused_values = (
-            a_vals is not None and b_vals is not None
-            and self._a_scatter is not None
-            and self._b_scatter is not None
-        )
+        """``execute``'s device core: bind the values given, stage on the
+        device whichever bound operand is not there yet, run the numeric
+        phase and return the packed C values on the device (``None`` for
+        an empty plan): the handoff ``execute_chain`` keeps on the device
+        between stages."""
         with self._lock:
             self._check_released()
-            if fused_values:
+            if a_vals is not None or b_vals is not None:
                 with span("spgemm.execute.rebind"):
-                    a_host = self._checked_values(a_vals, self.report.nnz_a, "a_vals",
-                                                  self._a_dtype)
-                    same = (b_vals is a_vals and self._b_dtype == self._a_dtype
-                            and self.report.nnz_b == self.report.nnz_a)
-                    b_host = a_host if same else self._checked_values(
-                        b_vals, self.report.nnz_b, "b_vals", self._b_dtype)
-                nbytes = a_host.nbytes + (0 if same else b_host.nbytes)
-                with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
-                    a_own, a_dev = self._own_values(a_host)
-                    b_own, b_dev = (a_own, a_dev) if same else self._own_values(b_host)
-                self._unbound = (a_own, b_own)
-                self._a_dev = None
-                self._b_dev = None
-            else:
-                self._bind_host()
-                if a_vals is not None or b_vals is not None:
-                    with span("spgemm.execute.rebind"):
-                        if a_vals is not None:
-                            self._a_blocks = self._rebind(
-                                a_vals, self._a_blocks, self._a_scatter,
-                                self.report.nnz_a if self._a_scatter is not None else 0,
-                                "a_vals", self._a_shape, self._a_dtype,
-                            )
-                            self._a_dev = None
-                        if b_vals is not None:
-                            self._b_blocks = self._rebind(
-                                b_vals, self._b_blocks, self._b_scatter,
-                                self.report.nnz_b if self._b_scatter is not None else 0,
-                                "b_vals", self._b_shape, self._b_dtype,
-                            )
-                            self._b_dev = None
-                if self._a_blocks is None or self._b_blocks is None:
-                    raise ValueError(
-                        "plan values were released (release_values); pass "
-                        "a_vals/b_vals to execute"
-                    )
-                nbytes = sum(blocks.nbytes for blocks, dev in (
-                    (self._a_blocks, self._a_dev), (self._b_blocks, self._b_dev)) if dev is None)
-                with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
-                    if self._a_dev is None:
-                        self._a_dev = self._stage_a(self._a_blocks)
-                    if self._b_dev is None:
-                        self._b_dev = self._stage_b(self._b_blocks)
-                # Snapshot under the lock so a concurrent rebind cannot mix
-                # one caller's A with another's B.
-                a_dev, b_dev = self._a_dev, self._b_dev
+                    self._bind(a_vals, b_vals)
+            # Snapshot under the lock so a concurrent rebind cannot mix one
+            # caller's A with another's B.
+            a_dev, b_dev = self._staged("execute")
             # The executor too: a release() after this block drops the
             # plan's reference, not the snapshot, so this execute stays
             # correct; None here means an empty plan, never a released one.
             ex = self._executor
             self.report.executes += 1
-
         if ex is None:
             return None
         with span("spgemm.execute.launch", pairs=ex.pairs):
-            if fused_values:
-                return ex.run_values(a_dev, b_dev)
             return ex.run(a_dev, b_dev)
 
-    @staticmethod
-    def _checked_values(vals, nnz: int, name: str, dtype: torch.dtype) -> torch.Tensor:
-        """``vals`` as ``[nnz]`` values of the packed ``dtype`` (a tensor on
-        a device stays there)."""
+    def _bind(self, a_vals=None, b_vals=None) -> None:
+        """Make ``a_vals`` / ``b_vals`` the plan's bound values; an operand
+        passed as ``None`` keeps its own. The one writer of the bound
+        values (call under ``self._lock``): each operand is checked against
+        :meth:`value_shapes`, rounded to the plan's dtype and copied into a
+        host tensor the plan owns (the caller may reuse its buffer), and
+        its device copy is dropped, so the next run stages it. One array
+        passed as both operands is copied, and staged, once."""
+        want_a, want_b = self.value_shapes()
+        a = None if a_vals is None else self._checked(a_vals, want_a, "a_vals", self._a_dtype)
+        same = (a is not None and b_vals is a_vals and self._b_dtype == self._a_dtype
+                and want_b == want_a)
+        b = a if same else None if b_vals is None else self._checked(
+            b_vals, want_b, "b_vals", self._b_dtype)
+        if a is not None:
+            self._a_host, self._a_dev = self._own(a), None
+        if b is not None:
+            self._b_host, self._b_dev = self._a_host if same else self._own(b), None
+
+    def _checked(self, vals, want: Tuple[int, ...], name: str,
+                 dtype: torch.dtype) -> torch.Tensor:
+        """``vals`` as a tensor of the packed ``dtype`` and the shape
+        ``want`` (a tensor on a device stays there)."""
         vals = _as_tensor(vals, dtype)
-        if tuple(vals.shape) != (nnz,):
+        if tuple(vals.shape) != want:
+            if self.kind == "element":
+                raise ValueError(
+                    f"{name}: expected [{want[0]}] values in canonical pattern "
+                    f"order, got shape {tuple(vals.shape)}"
+                )
             raise ValueError(
-                f"{name}: expected [{nnz}] values in canonical pattern "
-                f"order, got shape {tuple(vals.shape)}"
+                f"{name}: expected packed blocks of shape {want}, "
+                f"got {tuple(vals.shape)}"
             )
         return vals
 
-    def _own_values(self, vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The plan's own host copy of ``vals`` (never an alias: the caller
-        may reuse its buffer) and ``vals`` on the plan's device. On the
-        card the host copy is page-locked and the device copy is made from
-        it without blocking the host."""
-        if self.device.type == "cuda":
-            if vals.device.type == "cpu":
-                host = _pinned_copy(vals)
-                return host, host.to(self.device, non_blocking=True)
-            return vals.cpu(), vals.to(self.device).contiguous()
-        host = vals.cpu().contiguous().clone()
-        return host, host.to(self.device)
+    def _own(self, vals: torch.Tensor) -> torch.Tensor:
+        """The plan's own host copy of ``vals``, never an alias; on the card
+        page-locked, so that staging it does not block the host."""
+        if self.device.type == "cuda" and vals.device.type == "cpu":
+            return _pinned_copy(vals)
+        return vals.contiguous().clone() if vals.device.type == "cpu" else vals.cpu()
 
-    def _bind_host(self) -> None:
-        """Scatter the values of the latest fused execute into the host
-        blocks (call under ``self._lock``, before reading them)."""
-        if self._unbound is not None:
-            a, b = self._unbound
-            self._unbound = None
-            self._a_blocks = self._rebind(a, self._a_blocks, self._a_scatter, self.report.nnz_a,
-                                          "a_vals", self._a_shape, self._a_dtype)
-            self._b_blocks = self._rebind(b, self._b_blocks, self._b_scatter, self.report.nnz_b,
-                                          "b_vals", self._b_shape, self._b_dtype)
+    def _staged(self, what: str):
+        """The bound values in the executor's device layout, staging the
+        operands that have no device copy yet (call under ``self._lock``;
+        an empty plan stages nothing). The span ``spgemm.execute.upload``
+        and the counter ``spgemm.h2d_bytes`` count the bytes copied."""
+        if self._a_host is None or self._b_host is None:
+            raise ValueError(
+                f"plan values were released (release_values); pass "
+                f"a_vals/b_vals to {what}"
+            )
+        a = self._a_host if self._a_dev is None else None
+        b = self._b_host if self._b_dev is None else None
+        nbytes = (0 if a is None else a.nbytes) + (0 if b is None or b is a else b.nbytes)
+        with _copy_span("spgemm.execute.upload", "spgemm.h2d_bytes", nbytes):
+            if self._executor is not None and (a is not None or b is not None):
+                a_dev, b_dev = self._executor.stage(a, b)
+                if a is not None:
+                    self._a_dev = a_dev
+                if b is not None:
+                    self._b_dev = b_dev
+        return self._a_dev, self._b_dev
 
     def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A later stage of :func:`execute_chain`: the previous stage's
@@ -1029,7 +971,7 @@ class SpGEMMPlan:
         order) are this plan's A values, bound on the device and rounded
         to this plan's A dtype; B values are the plan's own, copied to
         the device once and reused across chain executes."""
-        if self._a_scatter is None or self._b_scatter is None:
+        if self.kind != "element":
             raise ValueError(
                 "chained stages need element plans (built from COO/CSR "
                 "inputs or plan_from_structural_pattern)"
@@ -1057,7 +999,7 @@ class SpGEMMPlan:
             )
         if ex is None:
             return None
-        return ex.run_values(c_packed.to(self._a_dtype), b_dev)
+        return ex.run(c_packed.to(self._a_dtype), b_dev)
 
     def execute_batch(self, a_vals, b_vals) -> list:
         """Batched numeric phase over a leading value-batch axis.
@@ -1077,7 +1019,6 @@ class SpGEMMPlan:
             a_vals = np.asarray(a_vals)
         if not isinstance(b_vals, torch.Tensor):
             b_vals = np.asarray(b_vals)
-        rebind = self._a_scatter is not None and self._b_scatter is not None
         want_a, want_b = self.value_shapes()
         a_shape = tuple(a_vals.shape)
         b_shape = tuple(b_vals.shape)
@@ -1109,7 +1050,6 @@ class SpGEMMPlan:
             packed = _collect(_download(ex.run_batch(
                 _device_values(a_vals[lo:hi], self.device, self._a_dtype),
                 _device_values(b_vals[lo:hi], self.device, self._b_dtype),
-                rebind=rebind,
             )))
             out.extend(self._wrap_packed(packed[i]) for i in range(hi - lo))
         return out
@@ -1200,19 +1140,8 @@ class SpGEMMPlan:
         if a_vals is None:
             with self._lock:
                 self._check_released()
-                self._bind_host()
-                if self._a_blocks is None or self._b_blocks is None:
-                    raise ValueError(
-                        "plan values were released (release_values); pass "
-                        "a_vals/b_vals to submit"
-                    )
-                ex = self._executor
-                if ex is not None:
-                    if self._a_dev is None:
-                        self._a_dev = self._stage_a(self._a_blocks)
-                    if self._b_dev is None:
-                        self._b_dev = self._stage_b(self._b_blocks)
-                return _Prepared("blocks", self._a_dev, self._b_dev, None, 1, ex)
+                a_dev, b_dev = self._staged("submit")
+                return _Prepared(a_dev, b_dev, None, 1, self._executor)
         with self._lock:
             self._check_released()
             # The step's executor, taken with the released check (see
@@ -1222,7 +1151,6 @@ class SpGEMMPlan:
             a_vals = np.asarray(a_vals)
         if not isinstance(b_vals, torch.Tensor):
             b_vals = np.asarray(b_vals)
-        rebind = self._a_scatter is not None and self._b_scatter is not None
         want_a, want_b = self.value_shapes()
         a_shape, b_shape = tuple(a_vals.shape), tuple(b_vals.shape)
         single = a_shape == want_a and b_shape == want_b
@@ -1239,9 +1167,9 @@ class SpGEMMPlan:
         a = self._pipe_operand(a_vals, self._a_dtype)
         b = self._pipe_operand(b_vals, self._b_dtype)
         if single:
-            return _Prepared("values" if rebind else "blocks", a, b, None, 1, ex)
+            return _Prepared(a, b, None, 1, ex)
         batch = int(a_shape[0])
-        return _Prepared("batch_values" if rebind else "batch_blocks", a, b, batch, batch, ex)
+        return _Prepared(a, b, batch, batch, ex)
 
     def _pipe_begin(self, n_execs: int) -> None:
         with self._lock:
@@ -1278,19 +1206,12 @@ class SpGEMMPlan:
     def _pipe_run(self, prep: _Prepared):
         ex = prep.executor
         if prep.batch is None:
-            staged = ex.pipe_stage(prep.a, prep.b, mode=prep.mode)
-            panels = ex.pipe_kernel(staged, mode="single")
-            return ex.pipe_download(ex.pipe_assemble(panels, mode="single"))
+            return _download(ex.run(prep.a, prep.b))
         # Batch submissions chunk exactly like execute_batch; the chunks
         # are enqueued back to back.
         chunk = min(prep.batch, ex.batch_chunk())
-        out = []
-        for lo in range(0, prep.batch, chunk):
-            hi = min(lo + chunk, prep.batch)
-            staged = ex.pipe_stage(prep.a[lo:hi], prep.b[lo:hi], mode=prep.mode)
-            panels = ex.pipe_kernel(staged, mode="batch")
-            out.append(ex.pipe_download(ex.pipe_assemble(panels, mode="batch")))
-        return out
+        return [_download(ex.run_batch(prep.a[lo:lo + chunk], prep.b[lo:lo + chunk]))
+                for lo in range(0, prep.batch, chunk)]
 
     def _pipe_collect(self, prep: _Prepared, packed):
         """Wait for one dispatched step and wrap it in the plan's
@@ -1299,12 +1220,12 @@ class SpGEMMPlan:
         if prep.batch is None:
             if ex is None:
                 return self._empty_csr()
-            return self._wrap_packed(ex.pipe_collect(packed, mode="single"))
+            return self._wrap_packed(_collect(packed))
         if ex is None:
             return [self._empty_csr() for _ in range(prep.batch)]
         out = []
         for chunk_packed in (packed or ()):
-            arr = ex.pipe_collect(chunk_packed, mode="batch")
+            arr = _collect(chunk_packed)
             out.extend(self._wrap_packed(arr[i]) for i in range(arr.shape[0]))
         return out
 
@@ -1312,7 +1233,7 @@ class SpGEMMPlan:
 
     def release_device_values(self) -> None:
         """Drop only the staged device copies of the values; the next
-        execute restages from the host blocks. Refuses while pipeline
+        execute restages from the host copies. Refuses while pipeline
         steps are in flight."""
         with self._lock:
             self._check_no_inflight("release device values")
@@ -1321,19 +1242,15 @@ class SpGEMMPlan:
             self._b_vals_dev = None
 
     def release_values(self) -> None:
-        """Drop the host and device copies of the packed block values, so
-        that a plan kept for its pattern pins no operand-sized memory.
-        Afterwards ``execute`` needs explicit ``a_vals``/``b_vals``
+        """Drop the host and device copies of the values, so that a plan
+        kept for its pattern pins no operand-sized memory. Afterwards
+        ``execute`` needs explicit ``a_vals``/``b_vals``
         (``execute_batch`` never reads staged values). Refuses while
         pipeline steps are in flight."""
         with self._lock:
             self._check_no_inflight("release values")
-            self._a_dev = None
-            self._b_dev = None
-            self._b_vals_dev = None
-            self._unbound = None
-            self._a_blocks = None
-            self._b_blocks = None
+            self._a_host = self._b_host = None
+            self._a_dev = self._b_dev = self._b_vals_dev = None
 
     def release(self) -> None:
         """Full teardown: values (host and device) and the executor's
@@ -1346,12 +1263,8 @@ class SpGEMMPlan:
         with self._lock:
             self._check_no_inflight("release plan")
             self._released = True
-            self._a_dev = None
-            self._b_dev = None
-            self._b_vals_dev = None
-            self._unbound = None
-            self._a_blocks = None
-            self._b_blocks = None
+            self._a_host = self._b_host = None
+            self._a_dev = self._b_dev = self._b_vals_dev = None
             self._executor = None
             ref = self._cache_ref
         # Self-evict outside the plan lock: the cache takes its own lock
@@ -1375,11 +1288,11 @@ class SpGEMMPlan:
             if pat is not None:
                 arrays += [pat.row, pat.col, pat.val]
         with self._lock:
-            blocks = [t for t in (self._a_blocks, self._b_blocks) if t is not None]
+            values = {id(t): t for t in (self._a_host, self._b_host) if t is not None}
         compact = self.compact.nbytes() if self.compact is not None else 0
         return (self.assembly.nbytes() + compact
                 + sum(a.nbytes for a in arrays if a is not None)
-                + sum(t.numel() * t.element_size() for t in blocks))
+                + sum(t.nbytes for t in values.values()))
 
 
 class ShardedSpGEMMPlan(SpGEMMPlan):
@@ -1472,7 +1385,7 @@ class ShardedSpGEMMPlan(SpGEMMPlan):
                 raise AssertionError("shard compact slices do not cover the compact map")
             active = self._shard_compacts
         a_val_bounds = None
-        if self._a_scatter is not None:
+        if self.kind == "element":
             if self.a_pattern is None:
                 raise ValueError("a sharded element plan needs its A pattern")
             # Element values are canonical row-major and shards own
@@ -1492,16 +1405,6 @@ class ShardedSpGEMMPlan(SpGEMMPlan):
             b_shape=self._b_shape,
             a_val_bounds=a_val_bounds,
         )
-
-    def _stage_a(self, blocks: torch.Tensor):
-        if self._executor is None:  # empty plan: nothing to lay out
-            return self._stage(blocks)
-        return self._executor.stage_a(blocks)
-
-    def _stage_b(self, blocks: torch.Tensor):
-        if self._executor is None:
-            return self._stage(blocks)
-        return self._executor.stage_b(blocks)
 
     def shard_stats(self) -> dict:
         """Per-shard load profile: triple, panel and output-value counts,
@@ -1786,51 +1689,61 @@ def _token_disk_loader(a, b, backend, device, mesh, mesh_axis, output="block", v
     return load
 
 
-def _token_hit(plan: SpGEMMPlan, a, b, pattern_token) -> None:
-    """Rebind this call's values into a plan found by its pattern token:
-    COO inputs for element plans (canonical order verified, and restored
-    by a sort only when needed), BCSV/BCSR inputs for block plans, nothing
-    for a pure lookup (``a = b = None``). Any other input type raises: it
-    would silently keep the previous caller's staged values."""
-    element = plan._a_scatter is not None and plan._b_scatter is not None
-    with plan._lock:
-        plan.report.cache_hits += 1
-        if a is None and b is None:
-            return
-        if element and isinstance(a, COO) and isinstance(b, COO):
-            a_c, b_c, _ = _canonical_operands(a, b)
-            if a_c.nnz != plan.report.nnz_a or b_c.nnz != plan.report.nnz_b:
-                raise ValueError(
-                    f"pattern_token {pattern_token!r}: input nnz ({a_c.nnz}, {b_c.nnz}) "
-                    f"does not match the token's plan ({plan.report.nnz_a}, "
-                    f"{plan.report.nnz_b}); the token must name this exact sparsity pattern"
-                )
-            plan._unbound = None  # this call's values replace them
-            plan._a_blocks = plan._rebind(a_c.val, plan._a_blocks, plan._a_scatter,
-                                          plan.report.nnz_a, "a_vals", plan._a_shape,
-                                          plan._a_dtype)
-            plan._b_blocks = plan._rebind(b_c.val, plan._b_blocks, plan._b_scatter,
-                                          plan.report.nnz_b, "b_vals", plan._b_shape,
-                                          plan._b_dtype)
-        elif not element and isinstance(a, BCSV) and isinstance(b, BCSR):
-            if (tuple(a.blocks.shape) != plan._a_shape
-                    or tuple(b.blocks.shape) != plan._b_shape):
-                raise ValueError(
-                    f"pattern_token {pattern_token!r}: packed block shapes "
-                    f"{tuple(a.blocks.shape)}/{tuple(b.blocks.shape)} do not match the "
-                    f"token's plan {plan._a_shape}/{plan._b_shape}"
-                )
-            plan._a_blocks = _host_values(a.blocks, plan._a_dtype)
-            plan._b_blocks = _host_values(b.blocks, plan._b_dtype)
-        else:
+def _token_values(plan: SpGEMMPlan, a, b, pattern_token) -> Tuple:
+    """The values a call brings to a plan found by its pattern token: COO
+    inputs' for element plans (canonical order verified, and restored by
+    a sort only when needed), BCSV/BCSR inputs' blocks for block plans,
+    ``(None, None)`` for a pure lookup (``a = b = None``). Any other input
+    type raises: it would silently keep the previous caller's values."""
+    if a is None and b is None:
+        return None, None
+    if plan.kind == "element" and isinstance(a, COO) and isinstance(b, COO):
+        a_c, b_c, _ = _canonical_operands(a, b)
+        if a_c.nnz != plan.report.nnz_a or b_c.nnz != plan.report.nnz_b:
             raise ValueError(
-                f"pattern_token {pattern_token!r}: the token fast path rebinds values "
-                f"only for COO (element plans) or BCSV/BCSR (block plans) inputs, or "
-                f"a=b=None for a pure lookup; got {type(a).__name__}/{type(b).__name__}"
-                f" — drop pattern_token to take the full conversion path"
+                f"pattern_token {pattern_token!r}: input nnz ({a_c.nnz}, {b_c.nnz}) "
+                f"does not match the token's plan ({plan.report.nnz_a}, "
+                f"{plan.report.nnz_b}); the token must name this exact sparsity pattern"
             )
-        plan._a_dev = None
-        plan._b_dev = None
+        return a_c.val, b_c.val
+    if plan.kind == "block" and isinstance(a, BCSV) and isinstance(b, BCSR):
+        if (tuple(a.blocks.shape) != plan._a_shape
+                or tuple(b.blocks.shape) != plan._b_shape):
+            raise ValueError(
+                f"pattern_token {pattern_token!r}: packed block shapes "
+                f"{tuple(a.blocks.shape)}/{tuple(b.blocks.shape)} do not match the "
+                f"token's plan {plan._a_shape}/{plan._b_shape}"
+            )
+        return a.blocks, b.blocks
+    raise ValueError(
+        f"pattern_token {pattern_token!r}: the token fast path rebinds values "
+        f"only for COO (element plans) or BCSV/BCSR (block plans) inputs, or "
+        f"a=b=None for a pure lookup; got {type(a).__name__}/{type(b).__name__}"
+        f" — drop pattern_token to take the full conversion path"
+    )
+
+
+def _served(plan: SpGEMMPlan, cache: PlanCache, hit: bool, vals=(None, None), *,
+            validate=None, verified: Optional[list] = None, dtype_names=None,
+            token: Optional[Tuple] = None) -> SpGEMMPlan:
+    """The end of every path by which :func:`spgemm_plan` and
+    :func:`plan_from_structural_pattern` return a plan: record the input
+    dtypes and bind the pattern token ``token = (token key, plan key,
+    token)`` (when given), take the cache's stats, and on a hit count it
+    and bind this call's values ``vals`` (``(a_vals, b_vals)``, ``None``
+    for an operand that keeps its own); then ``validate="deep"``."""
+    if dtype_names is not None:
+        plan._input_dtypes = dtype_names
+    if token is not None:
+        token_key, key, pattern_token = token
+        cache.token_bind(token_key, key)
+        plan.report.pattern_token = str(pattern_token)
+    plan.report.cache_stats = cache.stats()
+    if hit:
+        with plan._lock:
+            plan.report.cache_hits += 1
+            plan._bind(*vals)
+    return _deep_verify(plan, validate, verified)
 
 
 def _dtype_mismatch(plan: SpGEMMPlan, a, b) -> bool:
@@ -2006,25 +1919,22 @@ def spgemm_plan(
             if fresh:
                 # Verified by the loader; values were bound there.
                 plan.report.pattern_token = str(pattern_token)
-                plan.report.cache_stats = cache.stats()
-                return plan
+                return _served(plan, cache, False)
             if plan is not None and _dtype_mismatch(plan, a, b):
                 plan = None
         if plan is not None:
-            _token_hit(plan, a, b, pattern_token)
-            plan.report.cache_stats = cache.stats()
-            return _deep_verify(plan, validate, verified)
+            return _served(plan, cache, True, _token_values(plan, a, b, pattern_token),
+                           validate=validate, verified=verified)
         if a is None or b is None:
             raise KeyError(
                 f"pattern_token {pattern_token!r} is not resident in the plan cache and "
                 f"no operands were given to build from"
             )
 
-    def bind_token(plan: SpGEMMPlan, key: Tuple) -> None:
-        if token_key is None:
-            return
-        cache.token_bind(token_key, key)
-        plan.report.pattern_token = str(pattern_token)
+    def served(plan: SpGEMMPlan, hit: bool, vals, key: Tuple) -> SpGEMMPlan:
+        return _served(plan, cache, hit, vals, validate=validate, verified=verified,
+                       dtype_names=dtype_names,
+                       token=None if token_key is None else (token_key, key, pattern_token))
 
     dtype_names = (_input_dtype_name(a), _input_dtype_name(b))
     if isinstance(a, BCSV) and isinstance(b, BCSR):
@@ -2044,19 +1954,9 @@ def spgemm_plan(
                 mesh=mesh, mesh_axis=mesh_axis, output=output, validate=validate,
                 verified=verified),
         )
-        plan._input_dtypes = dtype_names
-        bind_token(plan, key)
-        plan.report.cache_stats = cache.stats()
-        if hit:
-            with plan._lock:
-                plan.report.cache_hits += 1
-                # Pattern-equal, possibly fresh values: stage this call's
-                # blocks, so that a no-arg execute() is current.
-                plan._a_blocks = _host_values(a.blocks, plan._a_dtype)
-                plan._b_blocks = _host_values(b.blocks, plan._b_dtype)
-                plan._a_dev = None
-                plan._b_dev = None
-        return _deep_verify(plan, validate, verified)
+        # A hit is pattern-equal and may carry fresh values: this call's
+        # blocks become the plan's, so that a no-arg execute() is current.
+        return served(plan, hit, (a.blocks, b.blocks), key)
 
     bm, bk, bn = _normalize_tile(tile)
     with span("spgemm.plan.inputs") as inputs:
@@ -2094,29 +1994,15 @@ def spgemm_plan(
                              device, output, mesh, mesh_axis)
 
     plan, hit = cache.get_or_build(key, build, loader=load)
-    plan._input_dtypes = dtype_names
-    bind_token(plan, key)
-    plan.report.cache_stats = cache.stats()
-    if hit:
-        with plan._lock:
-            plan.report.cache_hits += 1
-            # A hit may carry the previous caller's values; the pattern
-            # matches by construction, so rebind this call's.
-            plan._unbound = None
-            plan._a_blocks = plan._rebind(
-                a_coo.val, plan._a_blocks, plan._a_scatter, plan.report.nnz_a,
-                "a_vals", plan._a_shape, plan._a_dtype)
-            plan._a_dev = None
-            plan._b_blocks = plan._rebind(
-                b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
-                "b_vals", plan._b_shape, plan._b_dtype)
-            plan._b_dev = None
-    return _deep_verify(plan, validate, verified)
+    # A hit may carry the previous caller's values; the pattern matches by
+    # construction, so this call's are bound.
+    return served(plan, hit, (a_coo.val, b_coo.val), key)
 
 
 def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend, device,
                   output, mesh=None, mesh_axis=None) -> SpGEMMPlan:
-    """The symbolic phase of an element plan from canonical COO operands."""
+    """The symbolic phase of an element plan from canonical COO operands,
+    whose values become the plan's."""
     bm, bk, bn = tile
     with span("spgemm.plan.convert"):
         a_bcsv, a_scatter = bcsv_from_coo(a_coo, (bm, bk), group)
@@ -2130,8 +2016,9 @@ def _element_plan(a_coo: COO, b_coo: COO, dtypes, pattern, tile, group, backend,
     plan_cls, extra = _resolve_plan_cls(mesh, mesh_axis)
     return plan_cls(
         schedule=schedule,
-        a_blocks=a_bcsv.blocks,
-        b_blocks=b_bcsr.blocks,
+        a_vals=a_coo.val,
+        b_vals=b_coo.val,
+        block_shapes=(a_bcsv.blocks.shape, b_bcsr.blocks.shape),
         value_dtypes=dtypes,
         backend=backend,
         device=device,
@@ -2152,8 +2039,6 @@ def _exact_plan(a_coo: COO, b_coo: COO, dtypes, pattern, backend, device) -> SpG
     canonical order ``[nnz, 1, 1]``, and the scatter is the identity
     (what :func:`bcsv_from_coo` and :func:`bcsr_from_coo` return there)."""
     with span("spgemm.plan.convert"):
-        a_blocks = np.array(a_coo.val).reshape(-1, 1, 1)
-        b_blocks = np.array(b_coo.val).reshape(-1, 1, 1)
         a_scatter = np.arange(a_coo.nnz, dtype=np.int64)
         b_scatter = np.arange(b_coo.nnz, dtype=np.int64)
     schedule = _build_exact_schedule(a_coo, b_coo)
@@ -2163,8 +2048,9 @@ def _exact_plan(a_coo: COO, b_coo: COO, dtypes, pattern, backend, device) -> SpG
     )
     return SpGEMMPlan(
         schedule=schedule,
-        a_blocks=a_blocks,
-        b_blocks=b_blocks,
+        a_vals=a_coo.val,
+        b_vals=b_coo.val,
+        block_shapes=((a_coo.nnz, 1, 1), (b_coo.nnz, 1, 1)),
         value_dtypes=dtypes,
         backend=backend,
         device=device,
@@ -2225,7 +2111,7 @@ def _check_chain_link(p: SpGEMMPlan, q: SpGEMMPlan, stage: int) -> None:
     """Stage ``stage + 1``'s A pattern must be stage ``stage``'s output
     pattern, elementwise: the positional-binding contract of
     :func:`execute_chain`."""
-    if q._a_scatter is None or q._b_scatter is None:
+    if q.kind != "element":
         raise ValueError(
             f"chain stage {stage + 1} is not an element plan; chained "
             f"stages are built by plan_from_structural_pattern"
@@ -2412,19 +2298,12 @@ def plan_from_structural_pattern(
                               device, output, mesh, mesh_axis),
         loader=load,
     )
-    plan.report.cache_stats = cache.stats()
     if hit:
+        # A pattern-equal hit may serve another B operand: it becomes the
+        # chained stage's B (restaged by the next chained execute) and the
+        # plan's bound B. The A placeholders stay: chained executes bind A
+        # per run, on the device.
         with plan._lock:
-            plan.report.cache_hits += 1
-            # A pattern-equal hit may serve another B operand: rebind this
-            # call's B values (the host blocks and the chained stage's
-            # device copy). The A placeholders stay: chained executes bind
-            # A per run, on the device.
-            plan._bind_host()
-            plan._b_blocks = plan._rebind(
-                b_coo.val, plan._b_blocks, plan._b_scatter, plan.report.nnz_b,
-                "b_vals", plan._b_shape, plan._b_dtype)
-            plan._b_dev = None
-            plan._b_vals_dev = None
             plan.b_pattern = b_coo
-    return _deep_verify(plan, validate, verified)
+            plan._b_vals_dev = None
+    return _served(plan, cache, hit, (None, b_coo.val), validate=validate, verified=verified)

@@ -28,12 +28,19 @@ from repro_torch.core.gustavson import spgemm_gustavson  # noqa: E402
 from repro_torch.data.pipeline import SpGEMMValueStream  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import make_shard_mesh  # noqa: E402
-from repro_torch.sparse.convert import to_bcsr, to_bcsv, to_csr  # noqa: E402
+from repro_torch.sparse.convert import (  # noqa: E402
+    bcsr_from_coo,
+    bcsv_from_coo,
+    to_bcsr,
+    to_bcsv,
+    to_csr,
+)
 from repro_torch.sparse.formats import BCSR, BCSV, COO  # noqa: E402
 from repro_torch.sparse.random import random_block_sparse  # noqa: E402
 from repro_torch.spgemm import (  # noqa: E402
     PlanCache,
     default_cache,
+    execute_chain,
     plan_from_structural_pattern,
     schedule_build_count,
     spgemm_plan,
@@ -78,17 +85,53 @@ def _oracle(a, b):
 
 # -- hits, misses, LRU, byte budget ----------------------------------------------
 
-def test_hit_returns_the_same_plan_with_this_calls_values():
+def _hit_path(path, cache):
+    """How the hit path ``path`` plans operands ``x @ y`` in ``cache``:
+    by the element digest, by a pattern token, by the block digest (the
+    operands packed as BCSV/BCSR), or as the chained stage ``(a @ b) @ y``,
+    whose hit binds only ``y``."""
+    if path == "element_digest":
+        return lambda x, y: _plan(x, y, cache, tile=16)
+    if path == "token":
+        return lambda x, y: _plan(x, y, cache, tile=16, pattern_token="hit")
+    if path == "block_digest":
+        return lambda x, y: spgemm_plan(bcsv_from_coo(x, (16, 16), 2)[0],
+                                        bcsr_from_coo(y, (16, 16))[0], device="cpu",
+                                        cache=cache)
+    pattern = _plan(_pc(23, 48, 64, 0.1), _pc(24, 64, 48, 0.1), PlanCache()).output_pattern()
+    return lambda x, y: plan_from_structural_pattern(pattern, y, tile=8, group=2,
+                                                     device="cpu", cache=cache)
+
+
+@pytest.mark.parametrize("path", ["element_digest", "token", "block_digest", "chained"])
+def test_hit_returns_the_same_plan_with_this_calls_values(path):
+    """Every hit path returns the same plan with this call's values bound:
+    afterwards the plan computes what a fresh plan on those values does,
+    bitwise (a chained stage's hit binds B, which its chained executes
+    read too)."""
     a, b = _pc(21, 64, 48, 0.1), _pc(22, 48, 64, 0.1)
     cache = PlanCache()
-    p1 = _plan(a, b, cache, tile=16)
+    get = _hit_path(path, cache)
+    p1 = get(a, b)
     builds = schedule_build_count()
     a2 = COO(a.row, a.col, a.val * 2.0, a.shape)
-    p2 = _plan(a2, b, cache, tile=16)
+    b2 = COO(b.row, b.col, b.val * -3.0, b.shape)
+    p2 = get(a2, b2)
     assert p2 is p1 and schedule_build_count() == builds
-    assert cache.stats.hits == 1 and cache.stats.misses == 1
-    assert p1.report.cache_hits == 1 and p1.report.cache_stats["hits"] == 1
-    assert np.array_equal(p2.execute().todense(), _oracle(a2, b))
+    assert p1.report.cache_hits == 1
+    fresh = _hit_path(path, PlanCache())(a2, b2)
+    if path == "chained":
+        first = _plan(_pc(23, 48, 64, 0.1), _pc(24, 64, 48, 0.1), PlanCache())
+        v = np.random.default_rng(25).integers(-4, 5, p2.report.nnz_a).astype(np.float32)
+        assert np.array_equal(p2.execute(a_vals=v).data, fresh.execute(a_vals=v).data)
+        assert np.array_equal(execute_chain([first, p2]).data,
+                              execute_chain([first, fresh]).data)
+        return
+    assert np.array_equal(p2.execute().data, fresh.execute().data)
+    assert np.array_equal(p2.execute().todense(), _oracle(a2, b2))
+    if path == "element_digest":
+        assert cache.stats.hits == 1 and cache.stats.misses == 1
+        assert p1.report.cache_stats["hits"] == 1
 
 
 def test_misses_on_pattern_dtype_params_device_mesh_and_output():

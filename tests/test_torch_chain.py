@@ -296,11 +296,15 @@ def test_from_artifacts_output_must_match():
 @pytest.mark.parametrize("output", ["block", "compact"])
 def test_plan_members_match_reference(output):
     """``value_shapes``, ``value_nbytes``, ``host_nbytes`` and
-    ``output_pattern`` give the reference's numbers and arrays."""
+    ``output_pattern`` give the reference's numbers and arrays. The port's
+    element plan holds its values as the ``[nnz]`` vectors, where the
+    reference holds packed blocks of them: ``host_nbytes`` differs by
+    exactly that."""
     got, want = _plans("random", output)
     assert got.value_shapes() == want.value_shapes()
     assert got.value_nbytes() == want.value_nbytes()
-    assert got.host_nbytes() == want.host_nbytes()
+    blocks = want._a_blocks.nbytes + want._b_blocks.nbytes
+    assert got.host_nbytes() == want.host_nbytes() - blocks + got.value_nbytes()
     pat, r_pat = got.output_pattern(), want.output_pattern()
     assert isinstance(pat, StructuralPattern) and pat.nnz == r_pat.nnz
     assert np.array_equal(pat.indptr, r_pat.indptr) and np.array_equal(pat.indices, r_pat.indices)

@@ -337,43 +337,57 @@ def test_the_plain_kernel_takes_tile_1():
         assert torch.equal(batch[i], spgemm_scheduled(sets_a[i], sets_b[i], runs))
 
 
-def test_staged_values_stay_current_for_later_executes():
-    """An exact plan stages values as any element plan does: a no-arg
+def _plan_of(kind, a):
+    """A plan of ``a @ a`` on the CPU and a cache of its own: exact, an
+    element plan of block or compact output, or a block plan built from
+    BCSV/BCSR."""
+    if kind == "exact":
+        return _exact(a, a)
+    if kind == "bcsv_bcsr":
+        return spgemm_plan(bcsv_from_coo(a, (8, 8), 2)[0], bcsr_from_coo(a, (8, 8))[0],
+                           device="cpu", cache=PlanCache())
+    return spgemm_plan(a, a, tile=8, group=2, output=kind, device="cpu", cache=PlanCache())
+
+
+@pytest.mark.parametrize("kind", ["exact", "block", "compact", "bcsv_bcsr"])
+def test_staged_values_stay_current_for_later_executes(kind):
+    """Every kind of plan holds and stages its values one way: a no-arg
     ``execute`` reuses the last ones, after ``release_device_values`` too;
     a later one-operand rebind keeps the other's; after ``release_values``
     the plan takes values again; no staged copy aliases a caller's tensor;
     one array passed as both operands is uploaded once, two arrays both."""
     a = random_coo(150, 150, 0.04, "graph", seed=41)
-    plan = _exact(a, a)
-    v1, v2, v3 = (_values(a.nnz, s) for s in (42, 43, 44))
+    plan = _plan_of(kind, a)
+    shape, shape_b = plan.value_shapes()
+    assert shape_b == shape
+    v1, v2, v3 = (_values(shape, s) for s in (42, 43, 44))
     want = plan.execute(v1, v2)
     assert np.array_equal(plan.execute().data, want.data)
     plan.release_device_values()
     assert np.array_equal(plan.execute().data, want.data)
     only_a = plan.execute(a_vals=v3)
-    assert np.array_equal(only_a.data, _exact(a, a).execute(v3, v2).data)
+    assert np.array_equal(only_a.data, _plan_of(kind, a).execute(v3, v2).data)
     plan.release_values()
     t = torch.from_numpy(v3.copy())
     got = plan.execute(t, t)
     t.mul_(2)
     assert np.array_equal(plan.execute().data, got.data)
-    assert np.array_equal(got.data, _exact(a, a).execute(v3, v3).data)
+    assert np.array_equal(got.data, _plan_of(kind, a).execute(v3, v3).data)
     hb.set_tracing(True)
     plan.execute(v1, v1)
     plan.execute(v1, v2)
     up = [r.counts["bytes"] for r in hb.spans() if r.name == "spgemm.execute.upload"]
-    assert up == [4 * a.nnz, 8 * a.nnz]
+    assert up == [v1.nbytes, 2 * v1.nbytes]
 
 
 # -- against the JAX package ---------------------------------------------------
 
 @pytest.mark.parametrize("output,tile,group", [("exact", 1, 1), ("block", 4, 2)])
 def test_values_of_a_fused_execute_reach_every_later_reader(output, tile, group):
-    """An element plan given both value vectors binds them on the device
-    only; its host blocks take them when something reads those: a no-arg
-    execute, a no-arg pipeline submit, a one-operand rebind (the other
-    operand keeps the fused values), and a cache hit, whose newer values
-    win."""
+    """The values an element plan was last given both of reach every later
+    reader: a no-arg execute, a no-arg pipeline submit, a one-operand
+    rebind (the other operand keeps them), and a cache hit, whose newer
+    values win."""
     a = random_coo(120, 120, 0.05, "fem", seed=61)
     v1, v2, v3 = (_values(a.nnz, s) for s in (62, 63, 64))
     cache = PlanCache()

@@ -379,7 +379,7 @@ def test_release_values_then_explicit_values():
     _assert_same_csr(plan.execute_batch(av[None], bv[None])[0], want)
     _assert_same_csr(plan.execute(av, bv), want)
     plan.release_device_values()
-    _assert_same_csr(plan.execute(), want)  # the rebind restaged the host blocks
+    _assert_same_csr(plan.execute(), want)  # the rebound values, staged again
 
 
 def test_released_plan_refuses_work():

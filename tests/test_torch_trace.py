@@ -15,6 +15,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.runtime import heartbeat as hb
+from repro_torch.sparse.convert import bcsr_from_coo, bcsv_from_coo
 from repro_torch.sparse.random import random_coo
 from repro_torch.spgemm import PlanCache, execute_chain, spgemm_plan
 
@@ -209,23 +210,29 @@ def test_counts_set_inside_a_span_join_its_own_and_cost_nothing_off():
                                                     "bare": {"sorts": 0}}
 
 
+@pytest.mark.parametrize("kind", ["element", "block"])
 @pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("staged", [False, True])
-def test_bytes_are_the_bytes_copied(traced, staged):
+def test_bytes_are_the_bytes_copied(traced, staged, kind):
     """``bytes`` of the upload and the download, and the process-level
     counters (which count traced or not), are the nbytes of the tensors
-    that cross: the float32 values (or the packed blocks) in, C's values
-    out."""
-    plan, a, b = _plan()
-    a_vals = np.random.default_rng(1).standard_normal(a.nnz)  # float64, copied as float32
-    b_vals = np.random.default_rng(2).standard_normal(b.nnz)
-    if staged:
-        plan.execute(a_vals, b_vals)  # the host blocks now hold these values
-        plan._a_dev = plan._b_dev = None
-        want_in = plan._a_blocks.nbytes + plan._b_blocks.nbytes
+    that cross: the values in, as the plan holds them (float32 ``[nnz]``
+    vectors of an element plan, float32 packed blocks of a block plan),
+    whether given to this execute or staged again from the plan's own
+    after ``release_device_values``; C's values out."""
+    a, b = _operands()
+    if kind == "element":
+        plan = spgemm_plan(a, b, tile=16, group=2, device="cpu", cache=PlanCache())
     else:
-        want_in = (torch.from_numpy(a_vals.astype(np.float32)).nbytes
-                   + torch.from_numpy(b_vals.astype(np.float32)).nbytes)
+        plan = spgemm_plan(bcsv_from_coo(a, (16, 16), 2)[0], bcsr_from_coo(b, (16, 16))[0],
+                           device="cpu", cache=PlanCache())
+    want_a, want_b = plan.value_shapes()
+    a_vals = np.random.default_rng(1).standard_normal(want_a)  # float64, copied as float32
+    b_vals = np.random.default_rng(2).standard_normal(want_b)
+    want_in = 4 * (a_vals.size + b_vals.size)
+    if staged:
+        plan.execute(a_vals, b_vals)  # the plan now holds these values
+        plan.release_device_values()
     h2d, d2h = _counter("spgemm.h2d_bytes"), _counter("spgemm.d2h_bytes")
     hb.set_tracing(traced)
     c = plan.execute() if staged else plan.execute(a_vals, b_vals)

@@ -1,2 +1,2 @@
-"""Host symbolic phase (block schedule, assembly map) and the numpy
-Gustavson oracle."""
+"""Host symbolic phase (block schedule, assembly map, which a CUDA plan
+builds on its device) and the numpy Gustavson oracle."""

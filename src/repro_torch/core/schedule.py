@@ -31,7 +31,8 @@ panels into packed CSR value order. With it, the numeric phase needs no
 data-dependent ``nonzero`` scan — assembly is one static device gather
 (Nagasaka et al. 2018: the symbolic phase can precompute all output
 accumulation structure, leaving the numeric phase pure
-gather-multiply-scatter).
+gather-multiply-scatter). :func:`assembly_map_on` computes the same map
+with tensor ops on a device, where a CUDA plan builds it.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.sparse.formats import BCSR, BCSV
 
@@ -47,6 +49,7 @@ __all__ = [
     "ScheduleShard",
     "SpGEMMSchedule",
     "assembly_from_arrays",
+    "assembly_map_on",
     "assembly_to_arrays",
     "build_assembly_map",
     "build_compact_map",
@@ -374,6 +377,27 @@ def _assembly_row_major(brow, bcol, base, bm: int, bn: int, m: int, n: int,
     return AssemblyMap(gather.reshape(-1), indptr, cols.reshape(-1), (m, n))
 
 
+def _block_bases(schedule: SpGEMMSchedule, bm: int, bn: int):
+    """Each C block's flat offset into the kernel's output panels
+    ``[n_panels, group*bm, bn]`` (int64), and the dtype a gather into
+    them takes: int32 unless the panels hold more than int32 counts."""
+    g = schedule.group
+    # Panel of each C block. Panels are emitted in ascending (group, bcol)
+    # order by build_spgemm_schedule, so a searchsorted on the combined key
+    # recovers the panel id; every C block has a panel by construction.
+    pkey = schedule.panel_group.astype(np.int64) * schedule.grid_n \
+        + schedule.panel_bcol
+    cgrp = schedule.c_brow.astype(np.int64) // g
+    ckey = cgrp * schedule.grid_n + schedule.c_bcol
+    p_of = np.minimum(np.searchsorted(pkey, ckey), pkey.shape[0] - 1)
+    if not np.array_equal(pkey[p_of], ckey):
+        raise AssertionError("C block without a matching output panel")
+    sub = schedule.c_brow.astype(np.int64) - cgrp * g
+    flat_panels = schedule.n_panels * g * bm * bn
+    gdtype = np.int32 if flat_panels <= np.iinfo(np.int32).max else np.int64
+    return p_of * (g * bm * bn) + sub * (bm * bn), gdtype
+
+
 def build_assembly_map(
     schedule: SpGEMMSchedule,
     block_shape: Tuple[int, int],
@@ -394,36 +418,19 @@ def build_assembly_map(
             np.zeros(0, np.int32), np.zeros(m + 1, np.int64),
             np.zeros(0, np.int32), (m, n),
         )
-    g = schedule.group
-    # Panel of each C block. Panels are emitted in ascending (group, bcol)
-    # order by build_spgemm_schedule, so a searchsorted on the combined key
-    # recovers the panel id; every C block has a panel by construction.
-    pkey = schedule.panel_group.astype(np.int64) * schedule.grid_n \
-        + schedule.panel_bcol
-    cgrp = schedule.c_brow.astype(np.int64) // g
-    ckey = cgrp * schedule.grid_n + schedule.c_bcol
-    p_of = np.minimum(np.searchsorted(pkey, ckey), pkey.shape[0] - 1)
-    if not np.array_equal(pkey[p_of], ckey):
-        raise AssertionError("C block without a matching output panel")
-    sub = schedule.c_brow.astype(np.int64) - cgrp * g
-    flat_panels = schedule.n_panels * g * bm * bn
-    gdtype = np.int32 if flat_panels <= np.iinfo(np.int32).max else np.int64
+    base, gdtype = _block_bases(schedule, bm, bn)
     # CSR order: row-major. The schedule emits C's blocks ascending, which
     # needs no sort; any other order takes the reference's sort below.
     if _blocks_ascending(schedule.c_brow, schedule.c_bcol, schedule.grid_n):
         return _assembly_row_major(
             schedule.c_brow.astype(np.int64), schedule.c_bcol.astype(np.int64),
-            p_of * (g * bm * bn) + sub * (bm * bn), bm, bn, m, n, gdtype)
+            base, bm, bn, m, n, gdtype)
     # Per-block element coordinates and their flat panel offsets.
     rr = np.arange(bm, dtype=np.int64)[None, :, None]  # [1, bm, 1]
     cc = np.arange(bn, dtype=np.int64)[None, None, :]  # [1, 1, bn]
     rows = schedule.c_brow.astype(np.int64)[:, None, None] * bm + rr
     cols = schedule.c_bcol.astype(np.int64)[:, None, None] * bn + cc
-    gather = (
-        p_of[:, None, None] * (g * bm * bn)
-        + (sub[:, None, None] * bm + rr) * bn
-        + cc
-    )
+    gather = base[:, None, None] + rr * bn + cc
     shape3 = (nb, bm, bn)
     rows = np.broadcast_to(rows, shape3).reshape(-1)
     cols = np.broadcast_to(cols, shape3).reshape(-1)
@@ -441,6 +448,71 @@ def build_assembly_map(
         gather.astype(gdtype, copy=False), indptr,
         cols.astype(np.int32), (m, n),
     )
+
+
+def assembly_map_on(
+    device,
+    schedule: SpGEMMSchedule,
+    block_shape: Tuple[int, int],
+    out_shape: Tuple[int, int],
+) -> AssemblyMap:
+    """:func:`build_assembly_map` computed with tensor ops on ``device``:
+    the same map, bitwise, its three arrays tensors there (``gather`` in
+    ``build_assembly_map``'s dtype, ``indptr`` int64, ``indices`` int32).
+
+    C's blocks must be (brow, bcol)-ascending, as
+    :func:`build_spgemm_schedule` emits them. Only the blocks' coordinates,
+    widths and panel offsets go to the device; the arithmetic is
+    :func:`_assembly_row_major`'s, on element-row segments in CSR order.
+    A segment of an overhanging row gets width 0, so no step compacts a
+    mask: segment ``s`` covers CSR positions ``[start_s, start_s + w_s)``,
+    and position ``p`` of it gathers ``gbase_s + p - start_s`` and has
+    column ``col0_s + p - start_s``. Nothing waits for the device.
+    """
+    bm, bn = block_shape
+    m, n = out_shape
+    dev = torch.device(device)
+    if schedule.nnzb_c == 0 or bm == 0 or bn == 0:
+        empty = build_assembly_map(schedule, block_shape, out_shape)
+        return AssemblyMap(*(torch.from_numpy(x).to(dev) for x in (
+            empty.gather, empty.indptr, empty.indices)), (m, n))
+    if not _blocks_ascending(schedule.c_brow, schedule.c_bcol, schedule.grid_n):
+        raise ValueError("assembly_map_on needs C's blocks (brow, bcol)-ascending")
+    base, gdtype = _block_bases(schedule, bm, bn)
+    brow = schedule.c_brow.astype(np.int64)
+    bcol = schedule.c_bcol.astype(np.int64)
+    width = np.clip(n - bcol * bn, 0, bn)
+    # The map's size, from the blocks alone: the device's result needs no
+    # read-back to be sized.
+    nnz = int((np.clip(m - brow * bm, 0, bm) * width).sum())
+    brow_t, bcol_t, base_t, width_t = torch.from_numpy(
+        np.stack([brow, bcol, base, width])).to(dev)
+    nb = brow.shape[0]
+    # Segment (b, rr) lands at first * bm + rr * k + j (_assembly_row_major).
+    first = torch.searchsorted(brow_t, brow_t)
+    k = torch.searchsorted(brow_t, brow_t, right=True) - first
+    j = torch.arange(nb, device=dev) - first
+    rr = torch.arange(bm, device=dev)
+    dest = ((first * bm + j)[:, None] + k[:, None] * rr[None, :]).reshape(-1)
+    order = torch.empty(nb * bm, dtype=torch.int64, device=dev)
+    order[dest] = torch.arange(nb * bm, device=dev)
+    blk, srr = order // bm, order % bm
+    row = brow_t[blk] * bm + srr
+    seg_w = torch.where(row < m, width_t[blk], 0)
+    end = torch.cumsum(seg_w, 0)
+    start = end - seg_w
+    # Rows ascend over the segments: a row's pointer is the width of the
+    # segments above it.
+    indptr = torch.cat([end.new_zeros(1), end])[
+        torch.searchsorted(row, torch.arange(m + 1, device=dev))]
+    # Element level, in the gather's dtype (int64 only where the panels
+    # outgrow int32; then nnz may too).
+    wdt = torch.int32 if gdtype == np.int32 else torch.int64
+    seg = torch.repeat_interleave(seg_w.to(wdt), output_size=nnz)
+    pos = torch.arange(nnz, dtype=wdt, device=dev)
+    gather = (base_t[blk] + srr * bn - start).to(wdt).index_select(0, seg).add_(pos)
+    cols = (bcol_t[blk] * bn - start).to(wdt).index_select(0, seg).add_(pos)
+    return AssemblyMap(gather, indptr, cols.to(torch.int32), (m, n))
 
 
 def structural_product_pattern(

@@ -312,11 +312,17 @@ def _download(packed: torch.Tensor):
     if packed.device.type != "cuda":
         return packed
     default_registry().counter("spgemm.d2h_pinned_bytes").inc(packed.nbytes)
-    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    # The copy runs on the current stream of packed's device, which need
-    # not be the current device: the event goes on that same stream.
-    with torch.cuda.device(packed.device):
-        host.copy_(packed, non_blocking=True)
+    return _copy_out(packed)
+
+
+def _copy_out(t: torch.Tensor) -> "_Download":
+    """:func:`_download` of a CUDA tensor, counted nowhere (the plan's own
+    symbolic arrays, which are no result)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    # The copy runs on the current stream of t's device, which need not be
+    # the current device: the event goes on that same stream.
+    with torch.cuda.device(t.device):
+        host.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
     return _Download(host, event)
@@ -389,8 +395,9 @@ class SpGEMMExecutor(_Executor):
 
     Copies the schedule runs, the scatter inverses and the assembly gather
     map to ``device`` once (an identity map as ``None``: its gather is
-    skipped); ``run``/``run_batch`` then call the stage cores with no
-    per-call host work beyond operand transfer. Built with both scatters
+    skipped; a map built on the device passes its gather as ``gather``,
+    which is not copied); ``run``/``run_batch`` then call the stage cores
+    with no per-call host work beyond operand transfer. Built with both scatters
     (an element plan), it binds ``[nnz]`` value vectors into packed blocks
     on the device; without them its operands are the packed blocks.
     ``pairs`` is the scalar products one launch computes: the element pairs
@@ -411,6 +418,7 @@ class SpGEMMExecutor(_Executor):
         a_shape: Tuple[int, ...] = (),
         b_shape: Tuple[int, ...] = (),
         chunk_bytes: Optional[int] = None,
+        gather: Optional[torch.Tensor] = None,
     ):
         self.backend = backend
         self.device = torch.device(device)
@@ -432,10 +440,11 @@ class SpGEMMExecutor(_Executor):
         self._runs = stage_runs(schedule, self.device)
         # The assembly map is the plan's *active* output map: the block-
         # structural map for output="block", the element-exact compact map
-        # for output="compact"; every path gathers through it.
+        # for output="compact"; every path gathers through it. ``gather``
+        # is its gather already on the device (built there), not sent again.
         flat = schedule.n_panels * schedule.group * bm * self._bn
         self._gather = None if _is_identity(assembly.gather, flat) else (
-            torch.from_numpy(assembly.gather).to(self.device))
+            gather if gather is not None else torch.from_numpy(assembly.gather).to(self.device))
         self._out_rows = int(assembly.shape[0])
         self._indptr_host = np.asarray(assembly.indptr)
         self._row_ids: Optional[torch.Tensor] = None

@@ -78,7 +78,9 @@ from repro_torch.core.schedule import (
     AssemblyMap,
     ScheduleShard,
     SpGEMMSchedule,
+    _blocks_ascending,
     assembly_from_arrays,
+    assembly_map_on,
     assembly_to_arrays,
     build_assembly_map,
     build_compact_map,
@@ -103,6 +105,7 @@ from repro_torch.spgemm.executor import (
     ShardedSpGEMMExecutor,
     SpGEMMExecutor,
     _collect,
+    _copy_out,
     _download,
     _pinned_copy,
 )
@@ -320,6 +323,17 @@ def _value_dtype(dtype) -> torch.dtype:
     return torch.bfloat16 if "bfloat16" in str(dtype) else torch.float32
 
 
+def _assembly_on_card(device, schedule, block_shape, out_shape):
+    """The block assembly map built on the CUDA ``device``
+    (:func:`~repro_torch.core.schedule.assembly_map_on`): the host map,
+    copied back once into page-locked memory, and its gather, left on the
+    device."""
+    on = assembly_map_on(device, schedule, block_shape, out_shape)
+    pending = [_copy_out(t) for t in (on.gather, on.indptr, on.indices)]
+    gather, indptr, indices = (_collect(p).numpy() for p in pending)
+    return AssemblyMap(gather, indptr, indices, on.shape), on.gather
+
+
 class SpGEMMPlan:
     """A fully pre-processed SpGEMM: symbolic phase done, numeric phase
     repeatable — single-shot, batched or pipelined — with fresh values.
@@ -402,15 +416,23 @@ class SpGEMMPlan:
         self._bn = int(self._b_shape[2]) if len(self._b_shape) == 3 else 0
         self.output = output
         self.compact: Optional[AssemblyMap] = compact
-        with span("spgemm.plan.assembly"):
+        with span("spgemm.plan.assembly") as assembly_span:
             # Symbolic output structure: C's CSR pattern + the panels->CSR
-            # gather map, consumed on device by the executor.
+            # gather map, consumed on device by the executor. A CUDA plan
+            # builds the block map on the card (the same map, bitwise) and
+            # keeps that gather there for its executor.
             if assembly is None and output == "exact":
                 assembly = exact_assembly_map(schedule, out_shape)
+            block_gather = None
+            if (assembly is None and self.device.type == "cuda" and self._assembles_on_device
+                    and _blocks_ascending(schedule.c_brow, schedule.c_bcol, schedule.grid_n)):
+                assembly, block_gather = _assembly_on_card(
+                    self.device, schedule, (self._bm, self._bn), out_shape)
             self.assembly: AssemblyMap = (
                 assembly if assembly is not None
                 else build_assembly_map(schedule, (self._bm, self._bn), out_shape)
             )
+            assembly_span.count(on_device=int(block_gather is not None))
             # Output mode and the element-exact compact map: a subset of
             # the block map's positions, so gathering through it is the
             # compaction (no nonzero scan).
@@ -427,7 +449,7 @@ class SpGEMMPlan:
         # replaces it with the sharded executor.
         with span("spgemm.plan.stage"):
             self._executor = (
-                self._make_executor()
+                self._make_executor(block_gather if output != "compact" else None)
                 if schedule.num_triples and self.assembly.nnz
                 else None
             )
@@ -465,8 +487,13 @@ class SpGEMMPlan:
         self.tuned_config = None
         self._stale_tuned = None
 
-    def _make_executor(self):
-        """The numeric executor (called once, at plan build)."""
+    # A CUDA plan builds its block assembly map on the card; a sharded
+    # plan slices the host map per shard, so it builds the map on the host.
+    _assembles_on_device = True
+
+    def _make_executor(self, gather=None):
+        """The numeric executor (called once, at plan build). ``gather`` is
+        the active map's gather where it is already on the device."""
         return SpGEMMExecutor(
             schedule=self.schedule,
             assembly=self._active(),
@@ -476,6 +503,7 @@ class SpGEMMPlan:
             b_scatter=self._b_scatter,
             a_shape=self._a_shape,
             b_shape=self._b_shape,
+            gather=gather,
         )
 
     @property
@@ -1351,7 +1379,9 @@ class ShardedSpGEMMPlan(SpGEMMPlan):
         self._shard_compacts: List[AssemblyMap] = []
         super().__init__(**kw)
 
-    def _make_executor(self):
+    _assembles_on_device = False
+
+    def _make_executor(self, gather=None):
         if self._preloaded_shards is not None:
             if len(self._preloaded_shards) != self.n_shards:
                 raise ValueError(

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
 block-Gustavson SpGEMM (K1, K2, and their 1 x 1 x 1 specialization of
 ``output="exact"`` plans, within one float32 ulp of its plain version and
-bitwise equal to K1 at tile 16; also through the asynchronous pipeline,
+bitwise equal to K1 at tile 16; a plan's block assembly map built on the
+card, bitwise the host's; also through the asynchronous pipeline,
 on side streams, a device-resident chain, a sharded plan of four shards on
 one card, a plan rehydrated from the disk tier, the autotuner's probes and
 the serving gateway; the probe timer's device wait), flash attention (K5,
@@ -352,6 +353,64 @@ def test_execute_downloads_into_page_locked_memory(cuda):
         assert not np.shares_memory(first.data, second.data)
         moved = reg.counter("spgemm.d2h_pinned_bytes").value - pinned
         assert moved == reg.counter("spgemm.d2h_bytes").value - d2h == 2 * first.data.nbytes
+
+
+@pytest.mark.parametrize("output", ["block", "compact"])
+def test_plan_builds_its_block_map_on_the_card(cuda, output, monkeypatch):
+    """On a fem14k-sized pattern (14,000², density 1.9e-3, class fem; the
+    last block row and column overhang by 16) a CUDA plan builds its block
+    assembly map on the card (``on_device`` 1 on its span): bitwise a CPU
+    plan's map; the block plan's executor gathers through the very tensor
+    ``assembly_map_on`` made, not a second upload, and under
+    ``output="compact"`` through the compact map, unchanged; ``execute``
+    equals bitwise a plan whose map was built on the host."""
+    from repro_torch.runtime import heartbeat as hb
+    from repro_torch.spgemm import PlanCache
+    from repro_torch.spgemm import plan as plan_mod
+    from repro_torch.sparse.random import random_coo
+
+    a = random_coo(14_000, 14_000, 1.9e-3, structure="fem", seed=0)
+    built, real = [], plan_mod.assembly_map_on
+
+    def recording(*args):
+        built.append(real(*args))
+        return built[-1]
+
+    monkeypatch.setattr(plan_mod, "assembly_map_on", recording)
+    hb.set_tracing(True)
+    hb.default_recorder().clear()
+    try:
+        on_card = spgemm_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache(),
+                              output=output)
+        counts = hb.totals()["spans"]["spgemm.plan.assembly"]["counts"]
+    finally:
+        hb.set_tracing(False)
+        hb.default_recorder().clear()
+    assert counts == {"on_device": 1} and len(built) == 1
+    on_cpu = spgemm_plan(a, a, tile=64, group=4, device="cpu", cache=PlanCache(),
+                         output=output)
+    for f in ("gather", "indptr", "indices"):
+        got, want = getattr(on_card.assembly, f), getattr(on_cpu.assembly, f)
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+        assert torch.from_numpy(got).is_pinned(), f
+    assert on_card.assembly.shape == on_cpu.assembly.shape == (14_000, 14_000)
+    assert 14_000 % 64 and on_card.assembly.nnz > 8_000_000
+    gather = on_card._executor._gather
+    if output == "block":
+        assert gather is built[0].gather
+    else:
+        for f in ("gather", "indptr", "indices"):
+            assert np.array_equal(getattr(on_card.compact, f), getattr(on_cpu.compact, f)), f
+        assert gather is not built[0].gather
+        assert torch.equal(gather.cpu(), torch.from_numpy(on_card.compact.gather))
+    monkeypatch.setattr(plan_mod.SpGEMMPlan, "_assembles_on_device", False)
+    on_host = spgemm_plan(a, a, tile=64, group=4, device=cuda, cache=PlanCache(),
+                          output=output)
+    assert len(built) == 1
+    vals = np.random.default_rng(11).standard_normal(a.nnz).astype(np.float32)
+    got, want = on_card.execute(vals, vals), on_host.execute(vals, vals)
+    assert np.array_equal(got.indptr, want.indptr) and np.array_equal(got.indices, want.indices)
+    assert np.array_equal(got.data.view(np.uint32), want.data.view(np.uint32))
 
 
 def _submit_without_sync(pipe, *vals):

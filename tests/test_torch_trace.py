@@ -196,6 +196,19 @@ def test_the_inputs_span_counts_the_operands_it_sorted(operands, sorts):
     assert hb.totals()["spans"]["spgemm.plan.inputs"]["counts"] == {"sorts": sorts}
 
 
+@pytest.mark.parametrize("output", ["block", "compact", "exact"])
+def test_the_assembly_span_counts_a_map_built_on_the_host(output):
+    """``on_device`` on ``spgemm.plan.assembly`` is 0 for a CPU plan (only
+    a CUDA plan builds its block map on its device)."""
+    a, b = _operands()
+    hb.set_tracing(True)
+    tile, group = (1, 1) if output == "exact" else (16, 2)
+    spgemm_plan(a, b, tile=tile, group=group, device="cpu", cache=PlanCache(), output=output)
+    hb.set_tracing(False)
+    (rec,) = [r for r in hb.spans() if r.name == "spgemm.plan.assembly"]
+    assert rec.counts == {"on_device": 0}
+
+
 def test_counts_set_inside_a_span_join_its_own_and_cost_nothing_off():
     with hb.span("off", bytes=1) as s:
         s.count(sorts=2)

@@ -12,9 +12,11 @@ numeric phase on the device through the hand-written CUDA kernel
     c = plan.execute(a_vals, b_vals)          # CSR, structural pattern
     cs = plan.execute_batch(a_batch, b_batch)  # list of CSR
 
-Beside them: element-exact output (``output="compact"``), device-resident
-chains (``plan.then``, :func:`chain_plans`, :func:`execute_chain`,
-:func:`plan_from_structural_pattern`), and the asynchronous submit/collect
+Beside them: element-exact output (``output="compact"``), element-granular
+plans (``output="exact"``, tile 1, group 1), device-resident chains
+(``plan.then``, :func:`chain_plans`, :func:`execute_chain`,
+:func:`plan_from_structural_pattern`; held against the plain float64 chain
+of :mod:`repro_torch.spgemm.plain`), and the asynchronous submit/collect
 pipeline (``plan.pipeline``, ``execute_async``, ``execute_stream``;
 :class:`SpGEMMPipeline`), whose in-flight steps run on CUDA streams of
 their own on the card::

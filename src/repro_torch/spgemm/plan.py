@@ -31,7 +31,8 @@ to be performed once". This module is that claim as an API:
   specialization, one thread per entry. Block fill costs nothing here,
   which is what an unstructured pattern needs: at any tile K1 takes, its
   blocks would hold almost nothing but fill. Exact plans serve
-  ``execute``, ``execute_batch`` and the pipeline; they are not chained,
+  ``execute``, ``execute_batch``, the pipeline and chains of exact plans
+  (an algebraic multigrid's Galerkin product ``R·A·P``); they are not
   sharded, persisted or autotuned yet (those raise ``ValueError``).
 * Plans are cached (:mod:`repro_torch.spgemm.cache`) keyed on
   ``(pattern hash, tile, group, backend, device, mesh key)``: a memory LRU
@@ -159,6 +160,22 @@ def _not_served(what: str) -> ValueError:
     """The error of an entry that ``output="exact"`` plans do not serve."""
     return ValueError(f"output='exact' plans do not serve {what} yet: use output='block' "
                       f"or 'compact' for it")
+
+
+def _check_exact(tile, group, mesh, mesh_axis) -> None:
+    """What an ``output="exact"`` plan takes: tile 1, group 1, one device."""
+    if _normalize_tile(tile) != (1, 1, 1) or int(group) != 1:
+        raise ValueError(f"output='exact' takes tile=1, group=1; got tile={tile!r}, "
+                         f"group={group!r}")
+    if mesh is not None or mesh_axis is not None:
+        raise _not_served("sharded plans (mesh=)")
+
+
+def _mixed_chain() -> ValueError:
+    """The error of a chain that mixes ``output="exact"`` stages with others."""
+    return ValueError("a chain is either all output='exact' plans or has no exact stage: "
+                      "build every stage with the same output")
+
 
 _REPORT_FIELDS = (
     "pattern_key", "pattern_token", "tile", "group", "backend", "shape",
@@ -356,9 +373,12 @@ class SpGEMMPlan:
     The plan holds one value state per operand, in its value shape
     (:meth:`value_shapes`): a host copy of its own (page-locked on the
     card) and a device copy in the executor's layout, staged when a run
-    first needs it. :meth:`_bind` is the one writer of the host copies;
-    the executor alone decides whether values become packed blocks on the
-    device.
+    first needs it. Values handed over as a tensor on a CUDA plan's
+    device stay there: the device copy is the plan's clone of them, and
+    a host copy is made, by one copy back, only for a reader that drops
+    the device copies (:meth:`release_device_values`). :meth:`_bind` is
+    the one writer of the values; the executor alone decides whether
+    values become packed blocks on the device.
 
     ``output="compact"`` wraps results in the element-exact map
     (``plan.compact``) instead of the block-structural one
@@ -403,8 +423,8 @@ class SpGEMMPlan:
         # The packed dtypes of the values the plan was built on, the packed
         # block shapes, and the bound values in the plan's value shape (CPU
         # tensors of those dtypes; None once release_values() dropped
-        # them). One array passed as both operands is held, and staged,
-        # once.
+        # them, or while values bound from the card are held there only).
+        # One array passed as both operands is held, and staged, once.
         self._a_dtype, self._b_dtype = value_dtypes
         self._a_shape, self._b_shape = (tuple(int(x) for x in sh) for sh in block_shapes)
         self._a_host = _host_values(a_vals, self._a_dtype)
@@ -454,7 +474,8 @@ class SpGEMMPlan:
                 else None
             )
         # The bound values on the device, in the executor's layout: staged
-        # by the first run that needs them, dropped by every rebind.
+        # by the first run that needs them, dropped by every rebind from
+        # the host, and the only copy of values bound from the card.
         self._a_dev = None
         self._b_dev = None
         # Device copy of B's element values, staged by the first chained
@@ -490,6 +511,10 @@ class SpGEMMPlan:
     # A CUDA plan builds its block assembly map on the card; a sharded
     # plan slices the host map per shard, so it builds the map on the host.
     _assembles_on_device = True
+    # A CUDA plan's executor reads values on the card in their value
+    # shape, so values bound there are its device copy; a sharded plan
+    # lays them out per shard, and binds every value through the host.
+    _binds_on_device = True
 
     def _make_executor(self, gather=None):
         """The numeric executor (called once, at plan build). ``gather`` is
@@ -633,8 +658,8 @@ class SpGEMMPlan:
             output=output,
             **extra,
         )
-        report._nnz_a = _staged_nnz(plan, "_a_host", "nnz_a")
-        report._nnz_b = _staged_nnz(plan, "_b_host", "nnz_b")
+        report._nnz_a = _staged_nnz(plan, "a", "nnz_a")
+        report._nnz_b = _staged_nnz(plan, "b", "nnz_b")
         return plan
 
     # -- persistence -------------------------------------------------------
@@ -801,8 +826,8 @@ class SpGEMMPlan:
             **extra,
         )
         if kind == "block":
-            report._nnz_a = _staged_nnz(plan, "_a_host", "nnz_a")
-            report._nnz_b = _staged_nnz(plan, "_b_host", "nnz_b")
+            report._nnz_a = _staged_nnz(plan, "a", "nnz_a")
+            report._nnz_b = _staged_nnz(plan, "b", "nnz_b")
         tuned_meta = meta.get("tuned_config")
         if tuned_meta is not None:
             # Imported here: the autotuner imports this module.
@@ -883,8 +908,8 @@ class SpGEMMPlan:
         return SpGEMMChain([self, self._plan_next(b, **kwargs)])
 
     def _plan_next(self, b, **kwargs) -> "SpGEMMPlan":
-        if self.output == "exact":
-            raise _not_served("chains")
+        if (kwargs.get("output", self.output) == "exact") != (self.output == "exact"):
+            raise _mixed_chain()
         kwargs.setdefault("tile", self.report.tile)
         kwargs.setdefault("group", self.report.group)
         kwargs.setdefault("backend", self.backend)
@@ -933,9 +958,11 @@ class SpGEMMPlan:
         passed as ``None`` keeps its own. The one writer of the bound
         values (call under ``self._lock``): each operand is checked against
         :meth:`value_shapes`, rounded to the plan's dtype and copied into a
-        host tensor the plan owns (the caller may reuse its buffer), and
-        its device copy is dropped, so the next run stages it. One array
-        passed as both operands is copied, and staged, once."""
+        tensor the plan owns (the caller may reuse its buffer), by
+        :meth:`_own`: a host copy, whose device copy the next run stages,
+        or, for a tensor already on a CUDA plan's device, a device copy
+        and no host copy. One array passed as both operands is copied, and
+        staged, once."""
         want_a, want_b = self.value_shapes()
         a = None if a_vals is None else self._checked(a_vals, want_a, "a_vals", self._a_dtype)
         same = (a is not None and b_vals is a_vals and self._b_dtype == self._a_dtype
@@ -943,9 +970,9 @@ class SpGEMMPlan:
         b = a if same else None if b_vals is None else self._checked(
             b_vals, want_b, "b_vals", self._b_dtype)
         if a is not None:
-            self._a_host, self._a_dev = self._own(a), None
+            self._a_host, self._a_dev = self._own(a)
         if b is not None:
-            self._b_host, self._b_dev = self._a_host if same else self._own(b), None
+            self._b_host, self._b_dev = (self._a_host, self._a_dev) if same else self._own(b)
 
     def _checked(self, vals, want: Tuple[int, ...], name: str,
                  dtype: torch.dtype) -> torch.Tensor:
@@ -964,19 +991,45 @@ class SpGEMMPlan:
             )
         return vals
 
-    def _own(self, vals: torch.Tensor) -> torch.Tensor:
-        """The plan's own host copy of ``vals``, never an alias; on the card
-        page-locked, so that staging it does not block the host."""
+    def _own(self, vals: torch.Tensor) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``(host copy, device copy)`` of ``vals`` that the plan owns,
+        never an alias. A tensor on a CUDA plan's own device is cloned
+        there and becomes the device copy, with no host copy, where the
+        executor reads values in their value shape; any other becomes a
+        host copy, page-locked on the card so that staging it does not
+        block the host, and no device copy yet."""
+        if vals.device == self.device and self.device.type == "cuda" and self._binds_on_device:
+            return None, vals.clone(memory_format=torch.contiguous_format)
         if self.device.type == "cuda" and vals.device.type == "cpu":
-            return _pinned_copy(vals)
-        return vals.contiguous().clone() if vals.device.type == "cpu" else vals.cpu()
+            return _pinned_copy(vals), None
+        return (vals.contiguous().clone() if vals.device.type == "cpu" else vals.cpu()), None
+
+    def _bound(self, side: str) -> Optional[torch.Tensor]:
+        """The bound values of operand ``side`` (``"a"`` or ``"b"``) in its
+        value shape, wherever they are: its host copy, else its device
+        copy (``None``: released)."""
+        host = getattr(self, f"_{side}_host")
+        return host if host is not None or not self._binds_on_device \
+            else getattr(self, f"_{side}_dev")
+
+    def _copy_back(self) -> None:
+        """Give each operand bound from the card a host copy, by one copy
+        back into page-locked memory (call under ``self._lock``), for a
+        reader that drops the device copies."""
+        for side in ("a", "b"):
+            host, dev = getattr(self, f"_{side}_host"), getattr(self, f"_{side}_dev")
+            if host is None and dev is not None:
+                if side == "b" and dev is self._a_dev:
+                    self._b_host = self._a_host
+                else:
+                    setattr(self, f"_{side}_host", _collect(_copy_out(dev)))
 
     def _staged(self, what: str):
         """The bound values in the executor's device layout, staging the
         operands that have no device copy yet (call under ``self._lock``;
         an empty plan stages nothing). The span ``spgemm.execute.upload``
         and the counter ``spgemm.h2d_bytes`` count the bytes copied."""
-        if self._a_host is None or self._b_host is None:
+        if self._bound("a") is None or self._bound("b") is None:
             raise ValueError(
                 f"plan values were released (release_values); pass "
                 f"a_vals/b_vals to {what}"
@@ -993,12 +1046,14 @@ class SpGEMMPlan:
                     self._b_dev = b_dev
         return self._a_dev, self._b_dev
 
-    def _run_packed_chained(self, c_packed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """A later stage of :func:`execute_chain`: the previous stage's
-        packed C values (active-map order, which is canonical element
-        order) are this plan's A values, bound on the device and rounded
-        to this plan's A dtype; B values are the plan's own, copied to
-        the device once and reused across chain executes."""
+    def _run_packed_chained(self, c_packed: Optional[torch.Tensor],
+                            stage: int = 2) -> Optional[torch.Tensor]:
+        """Stage ``stage`` (from 2) of :func:`execute_chain`: the previous
+        stage's packed C values (active-map order, which is canonical
+        element order) are this plan's A values, bound on the device and
+        rounded to this plan's A dtype; B values are the plan's own, copied
+        to the device once and reused across chain executes. The span
+        ``spgemm.chain.launch`` covers the bind and the launch."""
         if self.kind != "element":
             raise ValueError(
                 "chained stages need element plans (built from COO/CSR "
@@ -1027,7 +1082,8 @@ class SpGEMMPlan:
             )
         if ex is None:
             return None
-        return ex.run(c_packed.to(self._a_dtype), b_dev)
+        with span("spgemm.chain.launch", pairs=ex.pairs, stage=stage):
+            return ex.run(c_packed.to(self._a_dtype), b_dev)
 
     def execute_batch(self, a_vals, b_vals) -> list:
         """Batched numeric phase over a leading value-batch axis.
@@ -1261,10 +1317,12 @@ class SpGEMMPlan:
 
     def release_device_values(self) -> None:
         """Drop only the staged device copies of the values; the next
-        execute restages from the host copies. Refuses while pipeline
-        steps are in flight."""
+        execute restages from the host copies (an operand bound from the
+        card is copied back once first). Refuses while pipeline steps are
+        in flight."""
         with self._lock:
             self._check_no_inflight("release device values")
+            self._copy_back()
             self._a_dev = None
             self._b_dev = None
             self._b_vals_dev = None
@@ -1305,7 +1363,8 @@ class SpGEMMPlan:
                 cache.evict(ref[1], only=self)
 
     def host_nbytes(self) -> int:
-        """Approximate bytes of host arrays this plan retains."""
+        """Approximate bytes of host arrays this plan retains (values bound
+        from the card and held there only count none)."""
         sch = self.schedule
         arrays = [
             sch.a_slot, sch.b_slot, sch.panel, sch.sub_row, sch.start,
@@ -1380,6 +1439,7 @@ class ShardedSpGEMMPlan(SpGEMMPlan):
         super().__init__(**kw)
 
     _assembles_on_device = False
+    _binds_on_device = False
 
     def _make_executor(self, gather=None):
         if self._preloaded_shards is not None:
@@ -1549,10 +1609,11 @@ def _check_output(output: str) -> None:
         raise ValueError(f"output must be 'block', 'compact' or 'exact', got {output!r}")
 
 
-def _staged_nnz(plan: SpGEMMPlan, attr: str, field: str):
-    """Lazy element-count resolver reading the plan's staged blocks."""
+def _staged_nnz(plan: SpGEMMPlan, side: str, field: str):
+    """Lazy element-count resolver reading the plan's bound blocks of
+    ``side`` (``"a"`` or ``"b"``), host or device copy."""
     def resolve() -> int:
-        blocks = getattr(plan, attr)
+        blocks = plan._bound(side)
         if blocks is None:
             raise ValueError(
                 f"{field}: plan values were released before the lazy "
@@ -1866,11 +1927,11 @@ def spgemm_plan(
     same spans as the block phase; the kernel sums each entry's pairs in
     K1's order, one thread per entry, so its float32 results equal the
     block path's. ``execute``, ``execute_batch`` and the pipeline serve it
-    as any element plan; ``mesh``, ``autotune``, chains
-    (:meth:`SpGEMMPlan.then`, :func:`plan_from_structural_pattern`) and
-    persistence (``persist_artifacts``; the disk tier stores nothing for
-    it) raise ``ValueError``. Exact plans live under their own cache keys
-    (suffixed ``"exact"``).
+    as any element plan, and it chains with exact plans only
+    (:meth:`SpGEMMPlan.then`, :func:`plan_from_structural_pattern`);
+    ``mesh``, ``autotune`` and persistence (``persist_artifacts``; the
+    disk tier stores nothing for it) raise ``ValueError``. Exact plans
+    live under their own cache keys (suffixed ``"exact"``).
 
     ``autotune=True`` (or a dict of
     :func:`repro_torch.spgemm.autotune.autotune_plan` keyword overrides,
@@ -1895,11 +1956,7 @@ def spgemm_plan(
     _check_validate(validate)
     _check_output(output)
     if output == "exact":
-        if _normalize_tile(tile) != (1, 1, 1) or int(group) != 1:
-            raise ValueError(f"output='exact' takes tile=1, group=1; got tile={tile!r}, "
-                             f"group={group!r}")
-        if mesh is not None or mesh_axis is not None:
-            raise _not_served("sharded plans (mesh=)")
+        _check_exact(tile, group, mesh, mesh_axis)
         if autotune:
             raise _not_served("autotune (its search is over block tiles)")
         if isinstance(a, BCSV) or isinstance(b, BCSR):
@@ -2181,8 +2238,8 @@ class SpGEMMChain:
         plans = list(plans)
         if not plans:
             raise ValueError("a chain needs at least one plan")
-        if any(p.output == "exact" for p in plans):
-            raise _not_served("chains")
+        if len({p.output == "exact" for p in plans}) > 1:
+            raise _mixed_chain()
         for s, (p, q) in enumerate(zip(plans, plans[1:])):
             _check_chain_link(p, q, s)
         self.plans = plans
@@ -2232,19 +2289,24 @@ def execute_chain(plans, a_vals=None, b_vals=None) -> CSR:
     the same operand bits).
 
     ``plans`` is a :class:`SpGEMMChain` or a plan sequence (validated
-    here); ``a_vals``/``b_vals`` optionally rebind stage 1's operands.
+    here); ``a_vals``/``b_vals`` optionally rebind stage 1's operands
+    (a tensor on a CUDA plan's device is bound there, with no copy
+    through the host). The span ``spgemm.chain`` covers the run and
+    counts its ``stages`` and ``pairs`` (the products of every stage).
     """
     if isinstance(plans, SpGEMMChain):
         plans = plans.plans
     else:
         plans = SpGEMMChain(plans).plans
-    packed = plans[0]._run_packed(a_vals, b_vals)
-    for stage in plans[1:]:
-        packed = stage._run_packed_chained(packed)
-    last = plans[-1]
-    if packed is None:
-        return last._empty_csr()
-    return last._wrap_packed(packed)
+    pairs = sum(p._executor.pairs for p in plans if p._executor is not None)
+    with span("spgemm.chain", stages=len(plans), pairs=pairs):
+        packed = plans[0]._run_packed(a_vals, b_vals)
+        for s, stage in enumerate(plans[1:], 2):
+            packed = stage._run_packed_chained(packed, s)
+        last = plans[-1]
+        if packed is None:
+            return last._empty_csr()
+        return last._wrap_packed(packed)
 
 
 def _coo_is_canonical(coo: COO) -> bool:
@@ -2281,11 +2343,17 @@ def plan_from_structural_pattern(
     anything :func:`spgemm_plan` takes as an element operand; its values
     set the plan's B dtype.
 
-    Chained plans get their own cache keys (a ``"chain"``-tagged digest)
-    and the same two-tier :class:`~repro_torch.spgemm.cache.PlanCache` as
-    any other plan (``cache``, default the process-level one): a warm
-    restart rehydrates a whole chain from disk without re-running any
-    symbolic phase. ``mesh``/``mesh_axis`` give a
+    ``output="exact"`` (at ``tile=1, group=1``) builds the element plan of
+    :func:`spgemm_plan`'s exact output, with the identity binds and
+    assembly: the previous stage's exact values are its A values as they
+    lie. It chains only with exact plans.
+
+    Chained plans get their own cache keys (a ``"chain"``-tagged digest,
+    suffixed with the output when it is not block) and the same two-tier
+    :class:`~repro_torch.spgemm.cache.PlanCache` as any other plan
+    (``cache``, default the process-level one): a warm restart rehydrates
+    a whole chain from disk without re-running any symbolic phase (exact
+    stages excepted: the disk tier stores none). ``mesh``/``mesh_axis`` give a
     :class:`ShardedSpGEMMPlan`, as in :func:`spgemm_plan`.
     ``validate="deep"`` verifies the returned plan statically, and a disk
     rehydrate inside its loader, as :func:`spgemm_plan` does.
@@ -2293,7 +2361,7 @@ def plan_from_structural_pattern(
     _check_validate(validate)
     _check_output(output)
     if output == "exact":
-        raise _not_served("chains")
+        _check_exact(tile, group, mesh, mesh_axis)
     verified: list = []  # the plan the loader verified, if it loaded one
     device = _plan_device(device, mesh)
     backend = resolve_backend(backend, device)
@@ -2310,7 +2378,7 @@ def plan_from_structural_pattern(
         c_pattern.indptr, c_pattern.indices, b_coo.row, b_coo.col,
         meta=("chain", c_pattern.shape, b_coo.shape) + tuple(_dtype_name(d) for d in dtypes),
     )
-    out_key = ("compact",) if output == "compact" else ()
+    out_key = (output,) if output != "block" else ()
     key = (pattern, (bm, bk, bn), group, backend, str(device), shard_key) + out_key
     with cache._lock:
         cache.stats.chain_lookups += 1
@@ -2322,12 +2390,13 @@ def plan_from_structural_pattern(
             mesh=mesh, mesh_axis=mesh_axis, output=output,
         ), validate, verified)
 
-    plan, hit = cache.get_or_build(
-        key,
-        lambda: _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
-                              device, output, mesh, mesh_axis),
-        loader=load,
-    )
+    def build() -> SpGEMMPlan:
+        if output == "exact":
+            return _exact_plan(a_coo, b_coo, dtypes, pattern, backend, device)
+        return _element_plan(a_coo, b_coo, dtypes, pattern, (bm, bk, bn), group, backend,
+                             device, output, mesh, mesh_axis)
+
+    plan, hit = cache.get_or_build(key, build, loader=load)
     if hit:
         # A pattern-equal hit may serve another B operand: it becomes the
         # chained stage's B (restaged by the next chained execute) and the

@@ -481,6 +481,44 @@ def test_chain_on_card_keeps_intermediates_on_the_device(cuda):
                        torch.from_numpy(stage1.indptr.astype(np.int32)))
 
 
+def test_an_exact_chain_binds_values_from_the_card_on_the_card(cuda):
+    """The Galerkin product's request: an exact chain handed stage 1's B
+    values as a CUDA tensor copies nothing host to device, keeps no host
+    copy of them (its device copy is a clone, not the caller's buffer),
+    launches the element kernel once per stage and equals the same values
+    handed over from the host, bitwise. Numpy values still take the host
+    path. ``release_device_values`` copies them back once, and the next
+    no-arg run gives the same C."""
+    from repro_torch.runtime.heartbeat import default_registry
+    from repro_torch.sparse.random import random_coo
+    from repro_torch.spgemm import PlanCache, execute_chain
+
+    r, a = random_coo(200, 300, 0.02, seed=60), random_coo(300, 300, 0.03, "fem", seed=61)
+    p = random_coo(300, 180, 0.02, seed=62)
+    chain = spgemm_plan(r, a, tile=1, group=1, output="exact", device=cuda,
+                        cache=PlanCache()).then(p, cache=PlanCache())
+    chain.execute()  # R and P on the card
+    stage1 = chain.plans[0]
+    av = np.random.default_rng(63).standard_normal(a.nnz).astype(np.float32)
+    dev = torch.from_numpy(av).to(cuda)
+    h2d = default_registry().counter("spgemm.h2d_bytes")
+    before, launches = h2d.value, spgemm_scheduled.launches
+    got = execute_chain(chain, b_vals=dev)
+    assert h2d.value == before and spgemm_scheduled.launches == launches + 2
+    assert stage1._b_host is None and stage1._b_dev.is_cuda
+    assert stage1._b_dev.data_ptr() != dev.data_ptr()
+    dev.zero_()
+    assert np.array_equal(chain.execute().data, got.data)
+    want = execute_chain(chain, b_vals=av)
+    assert h2d.value == before + av.nbytes and stage1._b_host is not None
+    assert np.array_equal(got.data, want.data)
+    execute_chain(chain, b_vals=torch.from_numpy(av).to(cuda))
+    stage1.release_device_values()
+    assert stage1._b_dev is None and stage1._b_host is not None
+    assert np.array_equal(stage1._b_host.numpy(), av)
+    assert np.array_equal(chain.execute().data, want.data)
+
+
 def test_sharded_plan_on_card_bitwise_equals_single(cuda):
     """Four shards on cuda:0 (a mesh that repeats the card): ``execute``,
     ``execute_batch(4)``, compact output and a depth-2 pipeline equal the

@@ -4,7 +4,8 @@ row-wise Gustavson oracle on small graph, fem and circuit patterns, a
 rectangular A·B, empty rows and an entry whose run holds many pairs; the
 vectorized element builder against the block builder at tile 1 (the same
 runs, the same C pattern); the refusals (tile or group other than 1, and
-the chain, sharded, persistence and autotune entries); the spans and the
+the sharded, persistence and autotune entries; chains of exact plans are
+``tests/test_torch_exact_chain.py``'s); the spans and the
 ``pairs`` count; batch, pipeline and cache behaviour; the plain
 version's element chain; and, where JAX is installed, the element builder
 and C against the JAX package's block builder at tile 1 and its oracle."""
@@ -28,10 +29,7 @@ from repro_torch.sparse.formats import COO, CSR
 from repro_torch.sparse.random import random_coo
 from repro_torch.spgemm import (
     PlanCache,
-    SpGEMMChain,
     SpGEMMPlan,
-    execute_chain,
-    plan_from_structural_pattern,
     schedule_build_count,
     spgemm_plan,
 )
@@ -164,19 +162,13 @@ def test_exact_takes_tile_1_and_group_1_only(tile, group):
                     cache=PlanCache())
 
 
-@pytest.mark.parametrize("entry", ["then", "structural", "chain", "execute_chain", "sharded",
-                                   "persist", "from_artifacts", "autotune"])
+@pytest.mark.parametrize("entry", ["sharded", "persist", "from_artifacts", "autotune"])
 def test_entries_not_served_on_exact_plans_raise(entry):
     from repro_torch.launch.mesh import make_shard_mesh
 
     a = random_coo(40, 40, 0.08, seed=16)
     plan = _exact(a, a)
     calls = {
-        "then": lambda: plan.then(a),
-        "structural": lambda: plan_from_structural_pattern(
-            plan.output_pattern(), a, tile=1, group=1, output="exact", device="cpu"),
-        "chain": lambda: SpGEMMChain([plan]),
-        "execute_chain": lambda: execute_chain([plan], a.val, a.val),
         "sharded": lambda: spgemm_plan(a, a, tile=1, group=1, output="exact", device="cpu",
                                        mesh=make_shard_mesh(2, devices=["cpu"] * 2),
                                        cache=PlanCache()),

@@ -304,6 +304,38 @@ def test_each_result_owns_its_values(surface):
     assert not np.shares_memory(first.data, second.data)
 
 
+@pytest.mark.parametrize("output", ["exact", "compact"])
+def test_a_chain_records_its_root_and_a_launch_per_later_stage(output):
+    """``execute_chain`` runs under ``spgemm.chain`` (its ``stages`` and
+    ``pairs``); stage 1 records the execute stages, each later stage a
+    ``spgemm.chain.launch`` with its ``pairs`` and number, and the final
+    copy the download and the wrap. The stages' pairs sum to the root's."""
+    tile, group = (1, 1) if output == "exact" else (16, 2)
+    a, b = _operands()
+    ops = [random_coo(72, 64, 0.06, seed=5), random_coo(64, 50, 0.06, seed=6)]
+    chain = spgemm_plan(a, b, tile=tile, group=group, output=output, device="cpu",
+                        cache=PlanCache())
+    for c in ops:
+        chain = chain.then(c, cache=PlanCache())
+    b_vals = np.random.default_rng(8).standard_normal(b.nnz).astype(np.float32)
+    hb.set_tracing(True)
+    execute_chain(chain, b_vals=b_vals)
+    hb.set_tracing(False)
+    recs = hb.spans()
+    (root,) = [r for r in recs if r.name == "spgemm.chain"]
+    assert root.parent == 0 and all(r.root == root.id for r in recs)
+    pairs = [q._executor.pairs for q in chain.plans]
+    assert root.counts == {"stages": 3, "pairs": sum(pairs)} and min(pairs) > 0
+    stage_names = [r.name for r in sorted(recs, key=lambda r: r.start_ns) if r is not root]
+    assert stage_names == EXECUTE[1:4] + ["spgemm.chain.launch"] * 2 + EXECUTE[4:]
+    launches = [r for r in recs if r.name.endswith(".launch")]
+    assert [r.counts for r in sorted(launches, key=lambda r: r.start_ns)] == [
+        {"pairs": pairs[0]}, {"pairs": pairs[1], "stage": 2}, {"pairs": pairs[2], "stage": 3}]
+    assert sum(r.counts["pairs"] for r in launches) == root.counts["pairs"]
+    if output == "exact":
+        assert root.counts["pairs"] == sum(q.report.num_triples for q in chain.plans)
+
+
 def test_pinned_download_counter_stays_zero_on_a_cpu_plan():
     """On a CPU plan no download goes through page-locked memory:
     ``spgemm.d2h_pinned_bytes`` does not move, while ``spgemm.d2h_bytes``

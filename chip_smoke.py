@@ -134,6 +134,17 @@ the run with a nonzero exit code and no result line:
    float32 ulp of its plain version, its ms, bound, plain ms and
    cuSPARSE's ms, as its own entry of the kernels line
    (``spgemm_scheduled.elements``);
+5l. small tiles: the 3-D elasticity Galerkin chain R·A·P at the
+   benchmark's 72^3 grid (``perfbench/elastic.py``: 3 x 3 node blocks)
+   through ``spgemm_plan(R, A, tile=3, group=1).then(P)``: 2
+   ``execute_chain`` (A's values a CUDA tensor) and a stage-1
+   ``execute_batch(2)`` launch K1's small-tile specialization 4 and 1
+   times (``small_tile_launches``), each chain bitwise equal to its host
+   round trip; K1 at both stages' runs and block shapes against its plain
+   version (small integers bitwise, else within 2e-5 of each entry's sum of
+   product magnitudes), K2 bitwise equal to looped K1; its ms, bound, plain
+   ms and cuSPARSE's ms per stage, as the kernels line's
+   ``spgemm_scheduled.small_tiles``;
 6. hold the flash-attention kernel (K5) against its plain version at the
    JAX package's K5 test shapes, with windows, a q_offset, fully masked
    rows and ragged lengths and head widths, in float32 and bfloat16, and
@@ -337,6 +348,7 @@ from repro_torch.spgemm import (  # noqa: E402
     SpGEMMGateway,
     SpGEMMPlan,
     default_cache,
+    execute_chain,
     probe_run_count,
     schedule_build_count,
     spgemm_plan,
@@ -352,6 +364,13 @@ KERNEL_SHAPES = [
     ((256, 384, 256), (64, 64, 128), 4),
     ((256, 512, 256), (128, 128, 128), 2),
 ]
+# Phase 5l: the 3-D elasticity chain at the benchmark's 72^3 grid
+# (elastic72), and how far the small-tile kernel may sit from its plain
+# version with standard-normal values, over each entry's sum of product
+# magnitudes: the cell's own c_err limit (the plain version sums in another
+# order; small integers are held bitwise).
+ELASTIC_GRID = 72
+SMALL_TILE_TOL = 2e-5
 # Tiles whose runs hold 0, 1, 3 and 8 triples (phase 3).
 RUN_TILES = [(32, 32, 32), (64, 64, 64), (64, 64, 128), (128, 128, 128)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -501,11 +520,14 @@ def reset_counts() -> None:
         fn.bf16_launches = 0
     for fn in (spgemm_scheduled, spgemm_scheduled_batch):
         fn.stream_launches.clear()
+        fn.small_tile_launches = 0
 
 
 def counts() -> dict:
     out = {fn.__name__: fn.launches for fn in KERNELS}
     out.update({f"{fn.__name__}_bf16": fn.bf16_launches for fn in TC_KERNELS})
+    out.update({f"{fn.__name__}_small": fn.small_tile_launches
+                for fn in (spgemm_scheduled, spgemm_scheduled_batch)})
     return out
 
 
@@ -1859,28 +1881,32 @@ def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((got == want) | (got == up) | (got == down)).all())
 
 
-def library_exact(a: CSR, vals, want: CSR, dev):
-    """cuSPARSE CSR @ CSR through torch.sparse for C = A·A on ``vals``,
-    checked on the card against ``want``, the exact plan's C on the same
-    values (held against the oracle already): the same entries, values
-    within ``ORACLE_TOL``. Returns the call for timing."""
-    t = torch.sparse_csr_tensor(torch.from_numpy(a.indptr.astype(np.int32)).to(dev),
-                                torch.from_numpy(a.indices.astype(np.int32)).to(dev),
-                                torch.from_numpy(vals).to(dev), a.shape,
-                                check_invariants=False)
-    res = t @ t
-    m, n = a.shape
+def library_product(a: CSR, a_vals, b: CSR, b_vals, want: CSR, dev):
+    """cuSPARSE CSR @ CSR through torch.sparse for C = A·B on the values
+    given (numpy or tensors), checked on the card against ``want``, a
+    plan's C on the same values (held against its own check already): the
+    same entries, values within ``ORACLE_TOL``. Returns the call for
+    timing."""
+    def csr(m: CSR, vals):
+        return torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype(np.int32)).to(dev),
+                                       torch.from_numpy(m.indices.astype(np.int32)).to(dev),
+                                       torch.as_tensor(vals).to(dev), m.shape,
+                                       check_invariants=False)
+
+    ta, tb = csr(a, a_vals), csr(b, b_vals)
+    res = ta @ tb
+    m, n = a.shape[0], b.shape[1]
     rows = torch.repeat_interleave(torch.arange(m, device=dev),
                                    torch.diff(res.crow_indices().long()))
     key, order = torch.sort(rows * n + res.col_indices().long())
     want_rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(want.indptr))
     want_key = torch.from_numpy(want_rows * n + want.indices).to(dev)
     check(key.shape == want_key.shape and torch.equal(key, want_key),
-          "cuSPARSE CSR @ CSR: entries differ from the exact plan's")
+          "cuSPARSE CSR @ CSR: entries differ from the plan's")
     np.testing.assert_allclose(res.values()[order].cpu().numpy(), want.data, rtol=ORACLE_TOL,
                                atol=ORACLE_TOL, err_msg="cuSPARSE CSR @ CSR")
     del res, rows, key, order, want_key
-    return lambda: t @ t
+    return lambda: ta @ tb
 
 
 def phase_exact(dev, rng) -> tuple:
@@ -1938,7 +1964,7 @@ def phase_exact(dev, rng) -> tuple:
     (b_ms, b_by), flops, nbytes = bound(plan, 1)
     k_ms = time_ms(kernel, reps=20)
     p_ms = time_ms(plain, reps=3, warmup=1)
-    lib = library_exact(a, singles[0], c0, dev)
+    lib = library_product(a, singles[0], a, singles[0], c0, dev)
     lib_ms = time_ms(lib, reps=5, warmup=1)
     e2e_ms = host_ms(lambda: plan.execute(singles[0], singles[0]), reps=10)
     spans = execute_spans(plan, rng, reps=5)
@@ -1961,6 +1987,172 @@ def phase_exact(dev, rng) -> tuple:
             "execute_ms": e2e_ms, "execute_spans": spans,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
     del plan, av, bv
+    torch.cuda.empty_cache()
+    return entry, info
+
+
+# -- phase 5l: small tiles (3-D elasticity's 3 x 3 node blocks) -----------------
+
+def small_tile_blocks(plan, dev, g, integer: bool) -> tuple:
+    """A chain stage's packed blocks in its own shapes, drawn on the card:
+    standard normal, or small integers (A's from 1 to 3, B's from -3 to 3)
+    whose sums float32 holds exactly."""
+    ex = plan._executor
+
+    def draw(shape, lo, hi):
+        if integer:
+            return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.float32)
+        return torch.randn(shape, generator=g, device=dev)
+
+    return draw(ex.a_shape, 1, 4), draw(ex.b_shape, -3, 4)
+
+
+def small_tile_plain(at, bt, runs):
+    return ref.spgemm_scheduled_ref(at, bt, runs.a_slot, runs.b_slot, runs.panel,
+                                    runs.sub_row, runs.n_panels, runs.group)
+
+
+def small_tile_stage(plan, stage: int, dev, g) -> dict:
+    """K1 on one stage's runs and block shapes against its plain version:
+    small integers bitwise; standard-normal values within ``SMALL_TILE_TOL``
+    of each entry's sum of product magnitudes (the plain version sums in
+    another order); K1's time, its bound, the plain version's time. At
+    stage 1, K2 with two value sets bitwise equal to looped K1, and its
+    time."""
+    runs = plan._executor._runs
+    at, bt = small_tile_blocks(plan, dev, g, True)
+    check(torch.equal(spgemm_scheduled(at, bt, runs), small_tile_plain(at, bt, runs)),
+          f"small-tile K1, stage {stage}, small integers: not bitwise equal to plain")
+    at, bt = small_tile_blocks(plan, dev, g, False)
+    got = spgemm_scheduled(at, bt, runs)
+    diff = (got - small_tile_plain(at, bt, runs)).abs_()
+    del got
+    scale = small_tile_plain(at.abs(), bt.abs(), runs)
+    rel = float((diff / scale.clamp_min(1e-30)).max())
+    del diff, scale
+    check(rel <= SMALL_TILE_TOL, f"small-tile K1, stage {stage}: {rel:.3g} of the scale")
+    (b_ms, b_by), flops, nbytes = bound(plan, 1)
+    k_ms = time_ms(lambda: spgemm_scheduled(at, bt, runs), reps=20)
+    p_ms = time_ms(lambda: small_tile_plain(at, bt, runs), reps=3, warmup=1)
+    info = {"triples": int(plan.report.num_triples), "tiles": int(runs.n_panels * runs.group),
+            "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
+            "flops": flops, "bytes": float(nbytes), "max_rel_err": rel}
+    if stage == 1:
+        a2 = torch.cat([at, small_tile_blocks(plan, dev, g, False)[0]])
+        b2 = torch.cat([bt, bt])
+        batch = spgemm_scheduled_batch(a2, b2, runs, bsz=2)
+        for i in range(2):
+            check(torch.equal(batch[i], spgemm_scheduled(a2.chunk(2)[i], bt, runs)),
+                  f"small-tile K2 element {i} differs from K1")
+        del batch
+        info["K2_bsz2_ms"] = time_ms(lambda: spgemm_scheduled_batch(a2, b2, runs, bsz=2),
+                                     reps=10)
+        info["K2_bsz2_bound_ms"] = bound(plan, 2)[0][0]
+        del a2, b2
+    log(f"  stage {stage}: {info['triples']} triples into {info['tiles']} blocks; K1 "
+        f"{k_ms:.4f} ms ({b_ms / k_ms:.1%} of its bound, {b_ms:.4f} ms by {b_by}), plain "
+        f"{p_ms:.4f} ms, largest difference to plain {rel:.3g} of the scale; small integers "
+        f"bitwise" + (f"; K2 bsz 2 {info['K2_bsz2_ms']:.4f} ms, bitwise equal to looped K1"
+                      if stage == 1 else ""))
+    return info
+
+
+def small_tile_library(plans, c1: CSR, r: COO, a: COO, p: COO, rng, dev) -> list:
+    """cuSPARSE CSR @ CSR for each stage on its scalar operands (R·A, then
+    (R·A)·P on R·A's pattern ``c1``) with fresh values, each checked
+    against the stage plan's ``execute`` on them; its ms, or ``None`` for
+    a stage whose product cuSPARSE cannot hold in the card's memory."""
+    out = []
+    for stage, (left, right) in enumerate(((CSR.from_coo(r), CSR.from_coo(a)),
+                                           (c1, CSR.from_coo(p))), 1):
+        lv = rng.standard_normal(left.nnz, dtype=np.float32)
+        rv = rng.standard_normal(right.nnz, dtype=np.float32)
+        want = plans[stage - 1].execute(lv, rv)
+        try:
+            out.append(time_ms(library_product(left, lv, right, rv, want, dev), reps=3,
+                               warmup=1))
+        except RuntimeError as err:  # torch.OutOfMemoryError or cuSPARSE's own
+            if "memory" not in str(err) and "CUSPARSE" not in str(err).upper():
+                raise
+            out.append(None)
+            log(f"  cuSPARSE, stage {stage}: {str(err).splitlines()[0][:200]}")
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_tiles(dev, rng, grid: int = ELASTIC_GRID) -> tuple:
+    """The 3-D elasticity Galerkin chain R·A·P at ``grid``^3 nodes (the
+    benchmark's frozen generator, ``perfbench/elastic.py``: 3 x 3 node
+    blocks in A, 3 x 6 in P, R = Pᵀ) through ``spgemm_plan(R, A, tile=3,
+    group=1).then(P)`` on the card: two ``execute_chain`` with A's values a
+    CUDA tensor and one stage-1 ``execute_batch(2)`` from launch counts
+    reset just before, every launch on the small-tile kernel; each chain
+    bitwise equal to its host round trip, the batch to ``execute``. Then
+    K1 and K2 at both stages' runs and block shapes against the plain
+    version (:func:`small_tile_stage`), and cuSPARSE on the same products.
+    Returns the kernels-line entry of the small-tile kernel and the
+    phase's numbers."""
+    from perfbench import elastic
+
+    r, a, p = (COO(m.row, m.col, m.val, m.shape) for m in elastic.galerkin(grid, SEED, dev))
+    t0 = time.perf_counter()
+    cache = PlanCache()
+    chain = spgemm_plan(r, a, tile=3, group=1, output="block", device=dev, cache=cache).then(
+        p, cache=cache)
+    plan_s = time.perf_counter() - t0
+    plans = chain.plans
+    log(f"  elastic{grid}: R {r.shape} nnz {r.nnz}, A {a.shape} nnz {a.nnz}, P nnz {p.nnz}; "
+        f"chain planned in {plan_s:.2f} s")
+    sets = [elastic.a_values(SEED, j, a.nnz, dev) for j in range(2)]
+    r_vals = torch.from_numpy(r.val).to(dev)
+    reset_counts()
+    outs = [execute_chain(chain, b_vals=v) for v in sets]
+    batch = plans[0].execute_batch(torch.stack([r_vals, r_vals]), torch.stack(sets))
+    torch.cuda.synchronize()
+    launched = counts()
+    chunks = -(-2 // min(2, plans[0]._executor.batch_chunk()))
+    check(launched["spgemm_scheduled_small"] == launched["spgemm_scheduled"] == 4,
+          f"small-tile chain launches {launched}")
+    check(launched["spgemm_scheduled_batch_small"] == launched["spgemm_scheduled_batch"]
+          == chunks, f"small-tile batch launches {launched}")
+    for i, v in enumerate(sets):
+        c1 = plans[0].execute(None, v)
+        check(np.array_equal(c1.data, batch[i].data), f"stage-1 execute_batch[{i}] differs")
+        c2 = plans[1].execute(c1.data, None)
+        check(all(np.array_equal(x, y) for x, y in (
+            (c2.indptr, outs[i].indptr), (c2.indices, outs[i].indices),
+            (c2.data, outs[i].data))), f"chain {i} differs from its host round trip")
+    nnz = (int(c1.nnz), int(outs[0].nnz))
+    del outs, batch, sets
+    log(f"  execute_chain x2 and stage-1 execute_batch(2): {launched['spgemm_scheduled_small']} "
+        f"+ {launched['spgemm_scheduled_batch_small']} small-tile launches; chains bitwise "
+        f"equal to their host round trips; nnz R·A {nnz[0]}, A_c {nnz[1]}")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    stages = [small_tile_stage(plan, s, dev, g) for s, plan in enumerate(plans, 1)]
+    lib = small_tile_library(plans, c1, r, a, p, rng, dev)
+    k_ms = sum(st["ms"] for st in stages)
+    b_ms = sum(st["bound_ms"] for st in stages)
+    lib_ms = None if None in lib else sum(lib)
+    log(f"  small-tile kernel, both stages: {k_ms:.4f} ms ({b_ms / k_ms:.1%} of the stages' "
+        f"bounds, {b_ms:.4f} ms), plain {sum(st['plain_ms'] for st in stages):.4f} ms, "
+        f"cuSPARSE {lib}")
+    entry = {
+        "name": "spgemm_scheduled.small_tiles", "kernel": "gustavson_small_tile_kernel",
+        "route": "cuda", "source": SOURCE,
+        "replaces": "src/repro/kernels/gustavson_spgemm.py:128",
+        "launches": launched["spgemm_scheduled_small"] + launched["spgemm_scheduled_batch_small"],
+        "launches_by_path": {
+            f"elastic{grid} execute_chain x2": launched["spgemm_scheduled_small"],
+            f"elastic{grid} stage-1 execute_batch(2)": launched["spgemm_scheduled_batch_small"]},
+        "max_rel_err": max(st["max_rel_err"] for st in stages), "ms": k_ms,
+        "plain_ms": sum(st["plain_ms"] for st in stages), "bound_ms": b_ms,
+        "bound_by": "/".join(sorted({st["bound_by"] for st in stages})), "library_ms": lib_ms,
+    }
+    info = {"grid": grid, "plan_s": plan_s, "nnz_ra": nnz[0], "nnz_c": nnz[1],
+            "stages": stages, "library_ms_by_stage": lib,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del chain, plans, c1, c2
     torch.cuda.empty_cache()
     return entry, info
 
@@ -4252,6 +4444,12 @@ def main() -> int:
     exact_info["phase_s"] = time.perf_counter() - t0
     log(f"  phase 5k: {exact_info['phase_s']:.1f} s")
 
+    log(f"[5l] small tiles: elastic{ELASTIC_GRID}'s tile-3 chain R·A·P")
+    t0 = time.perf_counter()
+    small_entry, small_info = phase_small_tiles(dev, rng)
+    small_info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5l: {small_info['phase_s']:.1f} s")
+
     log("[6] flash attention vs plain version")
     phase_attention_checks(dev)
 
@@ -4266,8 +4464,9 @@ def main() -> int:
     extra.update(bf16_plan)
     extra.update({"compact": compact_info, "chain": chain_info, "pipeline": pipe_info,
                   "cache": cache_info, "sharded": shard_info, "autotune": tune_info,
-                  "gateway": gw_info, "analysis": analysis_info, "exact": exact_info})
-    entries.append(exact_entry)
+                  "gateway": gw_info, "analysis": analysis_info, "exact": exact_info,
+                  "small_tiles": small_info})
+    entries += [exact_entry, small_entry]
     del plan
     phase_second_timings(a2, plan2, dev, rng, extra)
     del plan2

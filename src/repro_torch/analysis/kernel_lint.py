@@ -13,16 +13,20 @@ Two layers, both execution-free:
   batch refusals of wrapper and library, and the constants of the Python
   shared-memory mirror (:func:`k1_smem_bytes`) equal to the source's.
 * :func:`lint_plan_kernel_specs` — given a built plan, check what one
-  launch of K1/K2 for it assumes: tile dims multiples of 16 in [16, 128];
+  launch of K1/K2 for it assumes: a tile one of the source's three kernels
+  takes (:func:`k1_kernel`: all dims 1, the element kernel; all at most 8,
+  the small-tile kernel; multiples of 16 in [16, 128], the ring kernel);
   ``1 <= bsz <= 65535`` and ``n_panels * group`` within grid x; every
   ``a_slot``/``b_slot`` of the runs, with batch element ``e``'s offset
   ``e * nnzb``, inside ``[0, bsz * nnzb)``; the output
-  ``[bsz, n_panels, group * bm, bn]`` float32; blocks contiguous and every
-  block and 16-byte copy aligned; the stage count within int32; the
-  threads per block within the kernel's launch bound; and the launch's
-  dynamic shared memory (:func:`k1_smem_bytes`) within the device's
-  opt-in limit (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; off the card,
-  the H100's 227 KiB).
+  ``[bsz, n_panels, group * bm, bn]`` float32; for the ring kernel,
+  blocks contiguous and every block and 16-byte copy aligned (the element
+  and small-tile kernels read scalars and assume no alignment); the stage
+  count within int32; the threads per block within the kernel's launch
+  bound; and the launch's dynamic shared memory (:func:`k1_smem_bytes`,
+  0 for the element and small-tile kernels) within the device's opt-in
+  limit (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; off the card, the
+  H100's 227 KiB).
 
 TPU checks with no counterpart here:
 
@@ -53,13 +57,18 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.verify import Finding, _err
+from repro_torch.kernels.gustavson_spgemm import SMALL_TILE_MAX, k1_kernel
 
 __all__ = [
     "H100_SMEM_OPTIN_BYTES",
+    "K1_ELEMENT_THREADS",
     "K1_MAX_THREADS",
+    "K1_SMALL_MAX",
+    "K1_SMALL_THREADS",
     "K1_STAGES",
     "device_smem_limit",
     "k1_config",
+    "k1_kernel",
     "k1_smem_bytes",
     "k1_threads",
     "lint_launch_config",
@@ -67,10 +76,15 @@ __all__ = [
     "lint_plan_kernel_specs",
 ]
 
-# The kernel's ring depth and launch bound (csrc/gustavson_spgemm.cu
-# kStages, kMaxThreads; lint_kernel_module holds them to the source).
+# The kernel's ring depth and launch bound, the element and small-tile
+# kernels' threads per block, and the small kernel's largest tile dim, the
+# wrapper's (csrc/gustavson_spgemm.cu kStages, kMaxThreads, kElemThreads,
+# kSmallThreads, kSmallMax; lint_kernel_module holds them to the source).
 K1_STAGES = 3
 K1_MAX_THREADS = 256
+K1_ELEMENT_THREADS = 256
+K1_SMALL_THREADS = 128
+K1_SMALL_MAX = SMALL_TILE_MAX
 # H100's opt-in dynamic shared memory per block (227 KiB), the limit the
 # lint holds a launch to where no CUDA device can be asked.
 H100_SMEM_OPTIN_BYTES = 227 * 1024
@@ -81,13 +95,13 @@ _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _SOURCE = Path(__file__).resolve().parents[1] / "kernels" / "csrc" / "gustavson_spgemm.cu"
 
 
-def _tile_dim_ok(d: int) -> bool:
-    return 16 <= d <= 128 and d % 16 == 0
-
-
 def k1_config(bm: int, bk: int, bn: int) -> Tuple[int, int, int]:
     """``(tm, tn, kc)`` of a launch at this tile: outputs per thread and
-    the stage depth along k (mirror of the source's ``config()``)."""
+    the stage depth along k (mirror of the source's ``config()``). The
+    element and small-tile kernels give a thread one whole tile and walk
+    one triple, all of bk, at a time: ``(bm, bn, bk)``."""
+    if k1_kernel((bm, bk, bn)) in ("element", "small"):
+        return bm, bn, bk
     kc = 32 if bk % 32 == 0 else 16
     tm = tn = 4
     if bm * bn >= 64 * 64:
@@ -98,12 +112,13 @@ def k1_config(bm: int, bk: int, bn: int) -> Tuple[int, int, int]:
 
 def k1_smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
     """Dynamic shared memory (bytes) of a K1/K2 launch at this tile and
-    block dtype, 0 for a tile the kernel refuses: mirror of the source's
+    block dtype, 0 for a tile the ring kernel does not run (the element and
+    small-tile kernels take none): mirror of the source's
     ``smem_bytes<T, KC>``. Each of the ``K1_STAGES`` ring stages holds A's
     ``bm x (KC + 16/itemsize)`` chunk (one 16-byte pad per row) and B's
     ``KC x bn`` chunk; bfloat16 blocks add one float32 stage, the widened
     chunk the multiply reads."""
-    if not all(_tile_dim_ok(d) for d in (bm, bk, bn)):
+    if k1_kernel((bm, bk, bn)) != "ring":
         return 0
     itemsize = _ITEMSIZE[dtype]
     kc = k1_config(bm, bk, bn)[2]
@@ -117,8 +132,9 @@ def k1_smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
 
 def k1_threads(bm: int, bk: int, bn: int) -> int:
     """Threads per block of a launch at this tile (0 if refused)."""
-    if not all(_tile_dim_ok(d) for d in (bm, bk, bn)):
-        return 0
+    kernel = k1_kernel((bm, bk, bn))
+    if kernel != "ring":
+        return {"element": K1_ELEMENT_THREADS, "small": K1_SMALL_THREADS}.get(kernel, 0)
     tm, tn, _ = k1_config(bm, bk, bn)
     return (bm // tm) * (bn // tn)
 
@@ -147,11 +163,11 @@ def lint_launch_config(
     ``smem_limit`` (default :data:`H100_SMEM_OPTIN_BYTES`)."""
     findings: List[Finding] = []
     bm, bk, bn = (int(d) for d in tile)
-    for name, d in (("bm", bm), ("bk", bk), ("bn", bn)):
-        if not _tile_dim_ok(d):
-            _err(findings, "kernel.tile-dims",
-                 f"{name}={d}: the kernel takes tile dims that are multiples "
-                 f"of 16 from 16 to 128")
+    if k1_kernel((bm, bk, bn)) is None:
+        _err(findings, "kernel.tile-dims",
+             f"tile {(bm, bk, bn)}: the kernel takes tiles whose dims are all 1 "
+             f"(element), all from 1 to {K1_SMALL_MAX} (small-tile) or all multiples "
+             f"of 16 from 16 to 128 (ring)")
     if dtype not in _ITEMSIZE:
         _err(findings, "kernel.block-dtype",
              f"blocks of {dtype}: the kernel takes float32 or bfloat16")
@@ -223,10 +239,12 @@ def lint_plan_kernel_specs(
              f"A blocks {plan._a_shape} and B blocks {plan._b_shape} differ in "
              f"the inner dim")
     # Each block is one contiguous [rows, cols] run of the stacked array;
-    # every cp.async copy moves 16 bytes of one row, so block starts and
-    # rows must be 16-byte aligned (given a 16-byte aligned base).
+    # every cp.async copy of the ring kernel moves 16 bytes of one row, so
+    # block starts and rows must be 16-byte aligned (given a 16-byte
+    # aligned base). The element and small-tile kernels load scalars.
+    ring = k1_kernel((bm, bk, bn)) == "ring"
     itemsize = _ITEMSIZE.get(plan._a_dtype, 4)
-    for what, rows, cols in (("A", bm, bk), ("B", bk, bn)):
+    for what, rows, cols in (("A", bm, bk), ("B", bk, bn)) if ring else ():
         if (cols * itemsize) % 16 or (rows * cols * itemsize) % 16:
             _err(findings, "kernel.block-align",
                  f"{what} blocks [{rows}, {cols}] of {itemsize}-byte values: "
@@ -235,7 +253,7 @@ def lint_plan_kernel_specs(
     # element plan's are [nnz] vectors, bound into fresh blocks per run.
     with plan._lock:
         staged = [(name, t) for name, t in (("A", plan._a_dev), ("B", plan._b_dev))
-                  if plan.kind == "block" and isinstance(t, torch.Tensor)]
+                  if ring and plan.kind == "block" and isinstance(t, torch.Tensor)]
     for name, t in staged:
         if not t.is_contiguous() or t.data_ptr() % 16:
             _err(findings, "kernel.block-align",
@@ -246,7 +264,7 @@ def lint_plan_kernel_specs(
         runs_by_part = {0: stage_runs(plan.schedule, "cpu")} if not sharded else {
             i: stage_runs(sh.schedule, "cpu")
             for i, sh in enumerate(plan._shards) if sh.num_triples}
-    chunks = bk // k1_config(bm, bk, bn)[2] if _tile_dim_ok(bk) else 1
+    chunks = bk // k1_config(bm, bk, bn)[2] if ring else 1
     for i, runs in sorted(runs_by_part.items()):
         local_a = (plan._shards[i].a_hi - plan._shards[i].a_lo) if sharded else nnzb_a
         label = f"shard {i} " if sharded else ""
@@ -286,18 +304,18 @@ def _dotted(node: ast.AST) -> str:
     return ".".join(reversed(parts))
 
 
-def _wrapper_launch_fn():
+def _wrapper_fn(name: str = "_launch"):
     from repro_torch.kernels import gustavson_spgemm
 
     tree = ast.parse(inspect.getsource(gustavson_spgemm))
     for node in ast.walk(tree):
-        if isinstance(node, ast.FunctionDef) and node.name == "_launch":
+        if isinstance(node, ast.FunctionDef) and node.name == name:
             return node
     return None
 
 
 def _lint_wrapper(findings: List[Finding]) -> None:
-    fn = _wrapper_launch_fn()
+    fn = _wrapper_fn()
     if fn is None:
         _err(findings, "kernel.launch-geometry", "_launch not found in the wrapper")
         return
@@ -322,9 +340,13 @@ def _lint_wrapper(findings: List[Finding]) -> None:
              f"_launch passes n_tiles = {tiles_arg!r}; grid x must be "
              f"runs.n_panels * runs.group, one block per output tile")
     src = ast.unparse(fn)
-    for needle, what in (("d % 16 or not 16 <= d <= 128", "tile dims outside [16, 128] step 16"),
-                         ("bsz > 65535", "bsz past grid y")):
-        if needle not in src:
+    rule = _wrapper_fn("k1_kernel")
+    rule = ast.unparse(rule) if rule is not None else ""
+    for text, needle, what in (
+            (src, "kernel is None", "tiles k1_kernel gives no kernel"),
+            (rule, "16 <= d <= 128 and d % 16 == 0", "ring tile dims outside [16, 128] step 16"),
+            (src, "bsz > 65535", "bsz past grid y")):
+        if needle not in text:
             _err(findings, "kernel.refusals", f"_launch does not refuse {what}")
 
 
@@ -343,6 +365,8 @@ _SOURCE_RULES = (
     ("kernel.refusals", r"d >= 16 && d <= 128 && d % 16 == 0",
      "tile_dim_ok does not take multiples of 16 from 16 to 128"),
     ("kernel.refusals", r"bsz > 65535", "the library does not refuse bsz past grid y"),
+    ("kernel.refusals", r"d >= 1 && d <= kSmallMax",
+     "small_tile_ok does not take dims from 1 to kSmallMax"),
     ("kernel.smem-mirror", r"bk % 32 == 0 \? 32 : 16", "the stage depth rule differs from k1_config"),
     ("kernel.smem-mirror", r"bm \* bn >= 64 \* 64", "the thread-tile rule differs from k1_config"),
     ("kernel.smem-mirror", r"kLda = KC \+ kVec", "the stage row pad differs from k1_smem_bytes"),
@@ -353,7 +377,9 @@ def _lint_source(findings: List[Finding], text: str) -> None:
     for check, pattern, message in _SOURCE_RULES:
         if re.search(pattern, text) is None:
             _err(findings, check, f"{_SOURCE.name}: {message}")
-    for name, want in (("kStages", K1_STAGES), ("kMaxThreads", K1_MAX_THREADS)):
+    for name, want in (("kStages", K1_STAGES), ("kMaxThreads", K1_MAX_THREADS),
+                       ("kElemThreads", K1_ELEMENT_THREADS),
+                       ("kSmallThreads", K1_SMALL_THREADS), ("kSmallMax", K1_SMALL_MAX)):
         m = re.search(rf"constexpr int {name} = (\d+);", text)
         if m is None or int(m.group(1)) != want:
             got = None if m is None else int(m.group(1))

@@ -37,7 +37,7 @@ with tensor ops on a device, where a CUDA plan builds it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,7 +120,12 @@ class SpGEMMSchedule:
 
 
 def build_spgemm_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
-    """Symbolic block-Gustavson: structure of C + the triple schedule."""
+    """Symbolic block-Gustavson: structure of C + the triple schedule.
+
+    At group 1 the schedule is :func:`build_exact_schedule`'s over the block
+    patterns, built in vectorized steps (:func:`_group1_schedule`); other
+    groups, and block patterns out of canonical order, take the loop below.
+    Both give the same arrays bit for bit."""
     bm, bk = a.block_shape
     bk2, bn = b.block_shape
     if bk != bk2:
@@ -130,6 +135,10 @@ def build_spgemm_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
     grid_m, grid_k = a.grid
     grid_n = b.grid[1]
     group = a.group
+    if group == 1:
+        schedule = _group1_schedule(a, b)
+        if schedule is not None:
+            return schedule
 
     # Index A blocks by (group, k) -> [(sub_row, slot)...], preserving BCSV
     # (vector-major) order inside each group.
@@ -204,6 +213,36 @@ def build_spgemm_schedule(a: BCSV, b: BCSR) -> SpGEMMSchedule:
         grid_n=grid_n,
         grid_k=grid_k,
     )
+
+
+def _strictly_ascending(major: np.ndarray, minor: np.ndarray, width: int) -> bool:
+    key = major.astype(np.int64) * width + minor.astype(np.int64)
+    return key.size < 2 or bool((key[1:] > key[:-1]).all())
+
+
+def _group1_schedule(a: BCSV, b: BCSR) -> Optional[SpGEMMSchedule]:
+    """:func:`build_spgemm_schedule` at group 1, in O(triples) vectorized
+    steps, or ``None`` where the loop must build it.
+
+    At group 1 a block-row group is one block row, so ``sub_row`` is 0, a
+    panel is one C block and the panels ascend in (row, column). BCSV's
+    vector-major order is then (brow, bcol) ascending, and the loop emits
+    each panel's triples with k ascending: the construction of
+    :func:`build_exact_schedule` over the two block patterns, whose A
+    positions are A's slots and B positions B's. That holds where A's
+    blocks ascend strictly in (brow, bcol) and B's columns strictly within
+    each block row (no duplicate block, which the loop resolves on its
+    own terms), and where the triples fit the element builder's int32
+    slots."""
+    grid_k, grid_n = a.grid[1], b.grid[1]
+    b_row = np.repeat(np.arange(b.indptr.shape[0] - 1, dtype=np.int64), np.diff(b.indptr))
+    if not (_strictly_ascending(a.brow, a.bcol, grid_k)
+            and _strictly_ascending(b_row, b.indices, grid_n)):
+        return None
+    b_len = np.diff(np.asarray(b.indptr, np.int64))
+    if int(b_len[np.asarray(a.bcol, np.int64)].sum()) > np.iinfo(np.int32).max:
+        return None
+    return build_exact_schedule(a.brow, a.bcol, b_row, b.indices, a.grid, (grid_k, grid_n))
 
 
 def build_exact_schedule(

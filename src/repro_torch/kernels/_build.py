@@ -98,9 +98,6 @@ def load_gustavson() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     fn.restype = i32
-    fn = lib.gustavson_elements_launch
-    fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    fn.restype = i32
     for name in ("gustavson_spgemm_smem_bytes", "gustavson_spgemm_blocks_per_sm",
                  "gustavson_spgemm_threads"):
         getattr(lib, name).argtypes = [i32] * 4

@@ -56,6 +56,11 @@
 //   buffer (a second barrier) and multiplies from there, so each value is
 //   widened once rather than at each of its TN or TM uses.
 //
+// Two specializations share the source (after the ring kernel), and
+// gustavson_spgemm_launch picks one by tile: one thread per entry at tile
+// 1 x 1 x 1 and one thread per C block at tiles whose dims are all at
+// most 8. Each sums in the order below.
+//
 // Summation order. Each output's sum runs over the triples in run order
 // and, within a triple, k ascending, as one FMA chain starting from zero:
 // the order of the first kernel, so float32 results are bitwise equal to
@@ -401,45 +406,134 @@ cudaError_t launch_elements(const Args& g) {
   return cudaGetLastError();
 }
 
-}  // namespace
+// The small-tile specialization: tiles whose dims are all at most 8, as
+// the 3 x 3 node blocks of 3-D elasticity (3 displacement unknowns a
+// node). At such a tile a thread block per C block would leave most of
+// its threads idle (9 outputs at 3 x 3), and the element kernel would read
+// bm*bk*bn slots where one triple's two slots do. Here one thread owns one
+// C block, as the element kernel owns one entry: it walks its run of
+// (a_slot, b_slot) triples, loads the two small blocks (36 bytes each at
+// tile 3 in float32, so no 16-byte alignment is assumed: scalar loads),
+// and keeps the bm x bn sums in registers; it writes its block once. The
+// sum of each entry is one float32 FMA chain from zero over the run in
+// order, kk ascending inside a triple: the ring kernel's order, so an
+// entry equals its value at tile 1 x 1 x 1 bit for bit (block fill adds
+// exact zeros). BM > 0 fixes the tile at compile time (the 3 x 3 x 3
+// instance); BM = 0 reads bm, bk and bn at run time, every loop unrolled
+// to kSmallMax and predicated, so the sums stay in registers.
+// blockIdx.y is the batch element.
+//
+// What bounds it: the gathers of the blocks from device memory. A triple
+// reads two 36-byte blocks at 3 x 3 in float32 (two or three 32-byte
+// sectors each), scattered by their slots, and a B block is reused from
+// L2 only where C blocks that need it run close in time. Loading the
+// warp's blocks together into shared memory, each load a few neighbouring
+// blocks, changed nothing on the 72^3 elasticity chain (the sectors
+// fetched stay the same), so each thread loads its own.
+constexpr int kSmallThreads = 128;
+constexpr int kSmallMax = 8;
 
-// Launches the 1 x 1 x 1 specialization on `stream`; returns a cudaError_t
-// (0 on success). Arguments as gustavson_spgemm_launch's, without the tile:
-// a and b are [bsz][nnz_a] and [bsz][nnz_b] values, out is float32
-// [bsz][n_tiles], one entry per tile.
-extern "C" int gustavson_elements_launch(const void* a, const void* b, const void* run_ptr,
-                                         const void* run_a, const void* run_b, void* out,
-                                         int dtype, int bsz, int n_tiles, int nnz_a, int nnz_b,
-                                         void* stream) {
-  if (bsz < 1 || bsz > 65535 || n_tiles < 1 || nnz_a < 0 || nnz_b < 0)
-    return (int)cudaErrorInvalidValue;
-  const Args g{a, b, run_ptr, run_a, run_b, out, bsz, n_tiles, nnz_a, nnz_b, 1, 1, 1,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_elements<float>(g);
-  if (dtype == 1) return (int)launch_elements<__nv_bfloat16>(g);
-  return (int)cudaErrorInvalidValue;
+bool small_tile_ok(int d) { return d >= 1 && d <= kSmallMax; }
+
+template <typename T, int BM, int BK, int BN>
+__global__ void __launch_bounds__(kSmallThreads)
+gustavson_small_tile_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                            const int* __restrict__ run_ptr, const int* __restrict__ run_a,
+                            const int* __restrict__ run_b, float* __restrict__ out,
+                            int n_tiles, int nnzb_a, int nnzb_b, int bm_rt, int bk_rt,
+                            int bn_rt) {
+  constexpr bool kFixed = BM > 0;
+  constexpr int MM = kFixed ? BM : kSmallMax;
+  constexpr int KK = kFixed ? BK : kSmallMax;
+  constexpr int NN = kFixed ? BN : kSmallMax;
+  const int bm = kFixed ? BM : bm_rt;
+  const int bk = kFixed ? BK : bk_rt;
+  const int bn = kFixed ? BN : bn_rt;
+  const long long e = blockIdx.y;
+  const int tile = blockIdx.x * kSmallThreads + threadIdx.x;
+  if (tile >= n_tiles) return;
+  const T* const ae = a + e * nnzb_a * (long long)(bm * bk);
+  const T* const be = b + e * nnzb_b * (long long)(bk * bn);
+
+  float acc[MM][NN];
+#pragma unroll
+  for (int i = 0; i < MM; ++i)
+#pragma unroll
+    for (int j = 0; j < NN; ++j) acc[i][j] = 0.0f;
+
+  const int hi = run_ptr[tile + 1];
+  for (int t = run_ptr[tile]; t < hi; ++t) {
+    const T* const ab = ae + (long long)__ldg(run_a + t) * (bm * bk);
+    const T* const bb = be + (long long)__ldg(run_b + t) * (bk * bn);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      if (kk >= bk) break;
+      float av[MM], bv[NN];
+#pragma unroll
+      for (int i = 0; i < MM; ++i) av[i] = i < bm ? widen(ab[i * bk + kk]) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < NN; ++j) bv[j] = j < bn ? widen(bb[kk * bn + j]) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < MM; ++i)
+#pragma unroll
+        for (int j = 0; j < NN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  float* const o = out + (e * n_tiles + tile) * (long long)(bm * bn);
+#pragma unroll
+  for (int i = 0; i < MM; ++i)
+#pragma unroll
+    for (int j = 0; j < NN; ++j)
+      if (i < bm && j < bn) o[i * bn + j] = acc[i][j];
 }
+
+template <typename T, int BM, int BK, int BN>
+cudaError_t launch_small(const Args& g) {
+  const dim3 grid((unsigned)(((long long)g.n_tiles + kSmallThreads - 1) / kSmallThreads), g.bsz);
+  gustavson_small_tile_kernel<T, BM, BK, BN><<<grid, kSmallThreads, 0, g.stream>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b),
+      static_cast<const int*>(g.run_ptr), static_cast<const int*>(g.run_a),
+      static_cast<const int*>(g.run_b), static_cast<float*>(g.out), g.n_tiles, g.nnzb_a,
+      g.nnzb_b, g.bm, g.bk, g.bn);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_small(const Args& g) {
+  if (g.bm == 3 && g.bk == 3 && g.bn == 3) return launch_small<T, 3, 3, 3>(g);
+  return launch_small<T, 0, 0, 0>(g);
+}
+
+}  // namespace
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 on success).
 // dtype: 0 = float32, 1 = bfloat16 (A and B alike); out is float32
 // [bsz][n_tiles][bm][bn]; run_ptr is int32 [n_tiles + 1]; run_a and run_b
-// are int32 slot indices in run order. A and B 16-byte aligned; tile dims
-// multiples of 16 from 16 to 128.
+// are int32 slot indices in run order. The tile picks the kernel: the
+// element kernel at 1 x 1 x 1 (a and b are then [bsz][nnz] values), the
+// small-tile kernel where every dim is from 1 to kSmallMax, the ring
+// kernel where every dim is a multiple of 16 from 16 to 128 (A and B
+// 16-byte aligned); any other tile is refused.
 extern "C" int gustavson_spgemm_launch(const void* a, const void* b,
                                        const void* run_ptr, const void* run_a,
                                        const void* run_b, void* out, int dtype,
                                        int bsz, int n_tiles, int nnzb_a,
                                        int nnzb_b, int bm, int bk, int bn,
                                        void* stream) {
-  if (!tile_dim_ok(bm) || !tile_dim_ok(bk) || !tile_dim_ok(bn) || bsz < 1 ||
-      bsz > 65535 || n_tiles < 1 || nnzb_a < 0 || nnzb_b < 0)
+  const bool small = small_tile_ok(bm) && small_tile_ok(bk) && small_tile_ok(bn);
+  const bool ring = tile_dim_ok(bm) && tile_dim_ok(bk) && tile_dim_ok(bn);
+  if (!(small || ring) || (dtype != 0 && dtype != 1) || bsz < 1 || bsz > 65535 ||
+      n_tiles < 1 || nnzb_a < 0 || nnzb_b < 0)
     return (int)cudaErrorInvalidValue;
   const Args g{a, b, run_ptr, run_a, run_b, out, bsz, n_tiles, nnzb_a, nnzb_b, bm, bk, bn,
                static_cast<cudaStream_t>(stream)};
+  if (bm == 1 && bk == 1 && bn == 1)
+    return (int)(dtype == 0 ? launch_elements<float>(g) : launch_elements<__nv_bfloat16>(g));
+  if (small)
+    return (int)(dtype == 0 ? dispatch_small<float>(g) : dispatch_small<__nv_bfloat16>(g));
   const Config c = config(bm, bk, bn);
   if (dtype == 0) return (int)dispatch<float, Launch>(c, g);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16, Launch>(c, g);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch<__nv_bfloat16, Launch>(c, g);
 }
 
 // Dynamic shared memory (bytes) of a launch at (dtype, bm, bk, bn): the

@@ -18,14 +18,19 @@ At tile (1, 1, 1) (``output="exact"`` plans) every block is one value and
 every tile one entry of C, and the wrappers launch the kernel's element
 specialization instead: one thread per entry, which sums its run of pairs
 in the same FMA chain, so an entry equals its value at any larger tile.
+At tiles whose dims are all at most :data:`SMALL_TILE_MAX` (3-D
+elasticity's 3 x 3 node blocks) they launch its small-tile
+specialization: one thread per C block, the block's sums in registers,
+in the same FMA chain again.
 
 Each wrapper launches the CUDA kernel for CUDA tensors, on the current
 stream, and raises on anything it does not accept. For CPU tensors it
 computes the same result with the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`). Each wrapper's ``launches`` attribute
 counts its kernel launches, ``bf16_launches`` those with bfloat16 blocks,
-and ``stream_launches`` (a ``Counter`` keyed by the ``cudaStream_t``
-handle) the streams they went to.
+``small_tile_launches`` those of the small-tile specialization, and
+``stream_launches`` (a ``Counter`` keyed by the ``cudaStream_t`` handle)
+the streams they went to.
 
 :func:`compact_row_counts` and :func:`compact_csr_indptr` are the device
 half of the output bookkeeping: C's CSR row pointers from the output
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,9 +53,11 @@ from repro_torch.sparse.convert import to_bcsr, to_bcsv
 from repro_torch.sparse.formats import BCSR, BCSV
 
 __all__ = [
+    "SMALL_TILE_MAX",
     "ScheduleRuns",
     "compact_csr_indptr",
     "compact_row_counts",
+    "k1_kernel",
     "pad_schedule_arrays",
     "runs_case",
     "spgemm_scheduled",
@@ -58,6 +66,8 @@ __all__ = [
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The largest tile dim of K1's small-tile specialization.
+SMALL_TILE_MAX = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,19 +220,39 @@ def _stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _tile(a_blocks, b_blocks) -> tuple:
+    return int(a_blocks.shape[1]), int(a_blocks.shape[2]), int(b_blocks.shape[2])
+
+
+def k1_kernel(tile) -> Optional[str]:
+    """Which of the source's kernels runs ``tile`` = (bm, bk, bn):
+    ``"element"`` at 1 x 1 x 1, ``"small"`` where every dim is from 1 to
+    :data:`SMALL_TILE_MAX`, ``"ring"`` where every dim is a multiple of 16
+    from 16 to 128; ``None`` for a tile none of them takes."""
+    tile = tuple(int(d) for d in tile)
+    if tile == (1, 1, 1):
+        return "element"
+    if all(1 <= d <= SMALL_TILE_MAX for d in tile):
+        return "small"
+    if all(16 <= d <= 128 and d % 16 == 0 for d in tile):
+        return "ring"
+    return None
+
+
 def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
-    """Launch the kernel on the current stream; the schedule has tiles."""
-    bm, bk = int(a_blocks.shape[1]), int(a_blocks.shape[2])
-    bn = int(b_blocks.shape[2])
-    if (bm, bk, bn) == (1, 1, 1):
-        return _launch_elements(a_blocks, b_blocks, runs, bsz)
-    for name, d in (("bm", bm), ("bk", bk), ("bn", bn)):
-        if d % 16 or not 16 <= d <= 128:
-            raise ValueError(f"the CUDA kernel takes tile dims that are multiples "
-                             f"of 16 up to 128; {name}={d}")
+    """Launch the kernel on the current stream; the schedule has tiles.
+    The library picks one of three kernels by tile (:func:`k1_kernel`);
+    only the ring kernel's 16-byte copies ask for aligned blocks."""
+    bm, bk, bn = _tile(a_blocks, b_blocks)
+    kernel = k1_kernel((bm, bk, bn))
+    if kernel is None:
+        raise ValueError(
+            f"the CUDA kernel takes tiles whose dims are all 1 (its element kernel), "
+            f"all from 1 to {SMALL_TILE_MAX} (its small-tile kernel) or all multiples "
+            f"of 16 up to 128 (its ring kernel); not ({bm}, {bk}, {bn})")
     if bsz > 65535:
         raise ValueError(f"bsz={bsz} exceeds the grid's 65535 batch elements")
-    for t in (a_blocks, b_blocks):
+    for t in (a_blocks, b_blocks) if kernel == "ring" else ():
         if t.data_ptr() % 16:
             raise ValueError("block arrays must be 16-byte aligned")
     for t in (runs.ptr, runs.a_slot, runs.b_slot):
@@ -242,32 +272,7 @@ def _launch(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
             bm, bk, bn, _stream_handle(a_blocks),
         )
     if err != 0:
-        raise RuntimeError(f"gustavson_spgemm kernel launch failed: cudaError_t {err}")
-    return out
-
-
-def _launch_elements(a_blocks, b_blocks, runs: ScheduleRuns, bsz: int) -> torch.Tensor:
-    """Launch the kernel's 1 x 1 x 1 specialization on the current stream:
-    one thread per output entry (tile), which sums its run of pairs."""
-    if bsz > 65535:
-        raise ValueError(f"bsz={bsz} exceeds the grid's 65535 batch elements")
-    for t in (runs.ptr, runs.a_slot, runs.b_slot):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("schedule runs must be contiguous int32")
-    n_tiles = runs.n_panels * runs.group
-    out = torch.empty((bsz, runs.n_panels, runs.group, 1), dtype=torch.float32,
-                      device=a_blocks.device)
-    lib = load_gustavson()
-    with torch.cuda.device(a_blocks.device):
-        err = lib.gustavson_elements_launch(
-            a_blocks.data_ptr(), b_blocks.data_ptr(), runs.ptr.data_ptr(),
-            runs.a_slot.data_ptr(), runs.b_slot.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[a_blocks.dtype], bsz, n_tiles,
-            int(a_blocks.shape[0]) // bsz, int(b_blocks.shape[0]) // bsz,
-            _stream_handle(a_blocks),
-        )
-    if err != 0:
-        raise RuntimeError(f"gustavson_spgemm element launch failed: cudaError_t {err}")
+        raise RuntimeError(f"gustavson_spgemm {kernel} kernel launch failed: cudaError_t {err}")
     return out
 
 
@@ -290,6 +295,7 @@ def spgemm_scheduled(
         )
     out = _launch(a_blocks, b_blocks, runs, 1)
     spgemm_scheduled.launches += 1
+    spgemm_scheduled.small_tile_launches += k1_kernel(_tile(a_blocks, b_blocks)) == "small"
     spgemm_scheduled.bf16_launches += a_blocks.dtype == torch.bfloat16
     spgemm_scheduled.stream_launches[_stream_handle(a_blocks)] += 1
     return out[0]
@@ -319,6 +325,8 @@ def spgemm_scheduled_batch(
         )
     out = _launch(a_blocks, b_blocks, runs, bsz)
     spgemm_scheduled_batch.launches += 1
+    spgemm_scheduled_batch.small_tile_launches += (
+        k1_kernel(_tile(a_blocks, b_blocks)) == "small")
     spgemm_scheduled_batch.bf16_launches += a_blocks.dtype == torch.bfloat16
     spgemm_scheduled_batch.stream_launches[_stream_handle(a_blocks)] += 1
     return out
@@ -341,7 +349,9 @@ def compact_csr_indptr(row_ids: torch.Tensor, *, m: int) -> torch.Tensor:
 
 spgemm_scheduled.launches = 0
 spgemm_scheduled.bf16_launches = 0
+spgemm_scheduled.small_tile_launches = 0
 spgemm_scheduled.stream_launches = collections.Counter()
 spgemm_scheduled_batch.launches = 0
 spgemm_scheduled_batch.bf16_launches = 0
+spgemm_scheduled_batch.small_tile_launches = 0
 spgemm_scheduled_batch.stream_launches = collections.Counter()

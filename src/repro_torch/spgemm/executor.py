@@ -401,7 +401,8 @@ class SpGEMMExecutor(_Executor):
     (an element plan), it binds ``[nnz]`` value vectors into packed blocks
     on the device; without them its operands are the packed blocks.
     ``pairs`` is the scalar products one launch computes: the element pairs
-    at tile 1, the block fill included at larger tiles.
+    at tile 1, the block fill included at larger tiles; ``triples`` the
+    block products (``pairs`` is ``triples`` x bm·bk·bn).
     ``backend="cuda"`` runs the hand-written kernel on every path,
     ``backend="torch"`` its plain version.
     """
@@ -436,7 +437,8 @@ class SpGEMMExecutor(_Executor):
             schedule.n_panels * schedule.group + schedule.num_triples
         ) * bm
         bk = a_shape[2] if len(a_shape) == 3 else 0
-        self.pairs = schedule.num_triples * bm * bk * self._bn
+        self.triples = schedule.num_triples
+        self.pairs = self.triples * bm * bk * self._bn
         self._runs = stage_runs(schedule, self.device)
         # The assembly map is the plan's *active* output map: the block-
         # structural map for output="block", the element-exact compact map
@@ -602,8 +604,10 @@ class ShardedSpGEMMExecutor(_Executor):
         bm = a_shape[1] if len(a_shape) == 3 else 0
         block = tuple(a_shape[1:])
         self._bn = b_shape[2] if len(b_shape) == 3 else 0
-        # Scalar products of one run over every shard (as SpGEMMExecutor's).
-        self.pairs = sum(sh.num_triples for sh in shards) * int(np.prod(block)) * self._bn
+        # Block and scalar products of one run over every shard (as
+        # SpGEMMExecutor's).
+        self.triples = sum(sh.num_triples for sh in shards)
+        self.pairs = self.triples * int(np.prod(block)) * self._bn
         self._assemblies = list(assemblies)
         element = self._element = a_scatter is not None and b_scatter is not None
         if element and a_val_bounds is None:

@@ -950,7 +950,7 @@ class SpGEMMPlan:
             self.report.executes += 1
         if ex is None:
             return None
-        with span("spgemm.execute.launch", pairs=ex.pairs):
+        with span("spgemm.execute.launch", pairs=ex.pairs, triples=ex.triples):
             return ex.run(a_dev, b_dev)
 
     def _bind(self, a_vals=None, b_vals=None) -> None:
@@ -1082,7 +1082,7 @@ class SpGEMMPlan:
             )
         if ex is None:
             return None
-        with span("spgemm.chain.launch", pairs=ex.pairs, stage=stage):
+        with span("spgemm.chain.launch", pairs=ex.pairs, triples=ex.triples, stage=stage):
             return ex.run(c_packed.to(self._a_dtype), b_dev)
 
     def execute_batch(self, a_vals, b_vals) -> list:
@@ -2292,14 +2292,16 @@ def execute_chain(plans, a_vals=None, b_vals=None) -> CSR:
     here); ``a_vals``/``b_vals`` optionally rebind stage 1's operands
     (a tensor on a CUDA plan's device is bound there, with no copy
     through the host). The span ``spgemm.chain`` covers the run and
-    counts its ``stages`` and ``pairs`` (the products of every stage).
+    counts its ``stages``, ``pairs`` (the scalar products of every stage)
+    and ``triples`` (their block products).
     """
     if isinstance(plans, SpGEMMChain):
         plans = plans.plans
     else:
         plans = SpGEMMChain(plans).plans
-    pairs = sum(p._executor.pairs for p in plans if p._executor is not None)
-    with span("spgemm.chain", stages=len(plans), pairs=pairs):
+    executors = [p._executor for p in plans if p._executor is not None]
+    with span("spgemm.chain", stages=len(plans), pairs=sum(ex.pairs for ex in executors),
+              triples=sum(ex.triples for ex in executors)):
         packed = plans[0]._run_packed(a_vals, b_vals)
         for s, stage in enumerate(plans[1:], 2):
             packed = stage._run_packed_chained(packed, s)

@@ -57,7 +57,7 @@ from repro_torch.kernels.gustavson_spgemm import (
 )
 from repro_torch.sparse.convert import to_bcsr, to_bcsv
 from repro_torch.sparse.formats import COO, CSR
-from repro_torch.sparse.random import random_block_sparse, suite_matrix
+from repro_torch.sparse.random import random_block_sparse, random_coo, suite_matrix
 from repro_torch.models import transformer as tr
 from repro_torch.spgemm import spgemm_plan
 
@@ -71,6 +71,9 @@ SHAPES = [
 ]
 # Tiles of the run-length cases: the JAX package's three and a 128^3 tile.
 RUN_TILES = [(32, 32, 32), (64, 64, 64), (64, 64, 128), (128, 128, 128)]
+# Tiles of K1's small-tile kernel: its compiled 3^3 instance and the
+# run-time dims (up to 8) of its other.
+SMALL_TILES = [(3, 3, 3), (2, 3, 4), (8, 8, 8), (1, 2, 1)]
 
 
 @pytest.fixture
@@ -142,14 +145,15 @@ def test_batch_equals_looped_single_bitwise(cuda, shape, blocks, group):
         assert torch.equal(batch[i], spgemm_scheduled(a_sets[i], b_sets[i], runs))
 
 
-@pytest.mark.parametrize("tile", RUN_TILES)
+@pytest.mark.parametrize("tile", RUN_TILES + SMALL_TILES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("integer", [False, True])
 def test_kernel_runs_of_0_1_3_8_triples(cuda, tile, dtype, integer):
     """Tiles whose runs hold 0, 1, 3 and 8 triples (the ring's prologue
-    longer than, equal to and shorter than the run): K1 against its plain
-    version (bitwise on small integers), the empty tile zero, and K2 over
-    three value sets bitwise equal to looped K1."""
+    longer than, equal to and shorter than the run; at small tiles the
+    small-tile kernel's loop): K1 against its plain version (bitwise on
+    small integers), the empty tile zero, and K2 over three value sets
+    bitwise equal to looped K1."""
     a, b, sch = runs_case(tile, integer)
     runs = stage_runs(sch, cuda)
     assert np.diff(runs.ptr.cpu().numpy()).tolist() == [0, 1, 3, 8]
@@ -177,6 +181,114 @@ def test_kernel_rejects_unsupported_tiles(cuda):
     bt = torch.from_numpy(b.blocks).to(cuda)
     with pytest.raises(ValueError, match="multiples of 16"):
         spgemm_scheduled(at, bt, stage_runs(sch, cuda))
+
+
+@pytest.mark.parametrize("tile", [(17, 16, 16), (3, 3, 12), (16, 16, 8), (9, 9, 9)])
+def test_kernel_refuses_tiles_none_of_its_kernels_takes(cuda, tile):
+    """A tile neither all 1, nor all at most 8, nor all multiples of 16
+    up to 128 is refused before any launch, by a message that names the
+    three kernels' tiles."""
+    a, b, sch = _case(tuple(8 * d for d in tile), tile, 1, seed=4)
+    at, bt = (torch.from_numpy(x.blocks).to(cuda) for x in (a, b))
+    before = spgemm_scheduled.launches
+    with pytest.raises(ValueError, match=r"all 1 \(its element kernel\), all from 1 to 8 "
+                                         r"\(its small-tile kernel\) or all multiples of 16"):
+        spgemm_scheduled(at, bt, stage_runs(sch, cuda))
+    assert spgemm_scheduled.launches == before
+
+
+def test_small_tile_kernel_equals_the_element_kernel_bitwise(cuda):
+    """A tile-3 block plan (compact output: its exact entries) and a tile-1
+    exact plan on the same operands and values: the small-tile kernel's
+    entries equal the element kernel's bit for bit (the same FMA chain, k
+    ascending; the block fill adds exact zeros). Each execute launches one
+    small-tile kernel; the exact plan's none."""
+    from repro_torch.spgemm import PlanCache
+
+    a = random_coo(900, 700, 0.01, "fem", seed=31)
+    b = random_coo(700, 800, 0.012, "graph", seed=32)
+    blocks = spgemm_plan(a, b, tile=3, group=1, output="compact", device=cuda,
+                         cache=PlanCache())
+    exact = spgemm_plan(a, b, tile=1, group=1, output="exact", device=cuda, cache=PlanCache())
+    rng = np.random.default_rng(33)
+    for _ in range(2):
+        av = rng.standard_normal(a.nnz).astype(np.float32)
+        bv = rng.standard_normal(b.nnz).astype(np.float32)
+        small = spgemm_scheduled.small_tile_launches
+        got = blocks.execute(av, bv)
+        assert spgemm_scheduled.small_tile_launches == small + 1
+        want = exact.execute(av, bv)
+        assert spgemm_scheduled.small_tile_launches == small + 1
+        assert np.array_equal(got.indptr, want.indptr)
+        assert np.array_equal(got.indices, want.indices)
+        assert np.array_equal(got.data, want.data)
+
+
+def test_small_tile_batch_equals_looped_execute_bitwise(cuda):
+    """``execute_batch`` of a tile-3 plan (one K2 launch on the small-tile
+    kernel) equals looped ``execute`` bit for bit; within 1e-5 of the plan
+    on the CPU."""
+    from repro_torch.kernels.gustavson_spgemm import spgemm_scheduled_batch as k2
+    from repro_torch.spgemm import PlanCache
+
+    a = random_coo(600, 600, 0.02, "fem", seed=34)
+    plan = spgemm_plan(a, a, tile=3, group=1, device=cuda, cache=PlanCache())
+    cpu = spgemm_plan(a, a, tile=3, group=1, device="cpu", cache=PlanCache())
+    vals = np.random.default_rng(35).standard_normal((3, 2, a.nnz)).astype(np.float32)
+    small = k2.small_tile_launches
+    batch = plan.execute_batch(vals[:, 0], vals[:, 1])
+    assert k2.small_tile_launches == small + 1
+    for i, got in enumerate(batch):
+        assert np.array_equal(got.data, plan.execute(vals[i, 0], vals[i, 1]).data)
+        np.testing.assert_allclose(got.data, cpu.execute(vals[i, 0], vals[i, 1]).data,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_a_tile_3_chain_binds_values_from_the_card_on_the_card(cuda):
+    """A chain of tile-3 block plans handed stage 1's B values as a CUDA
+    tensor: nothing copied host to device, two small-tile launches, C equal
+    to the same values handed over from the host and to the stages with a
+    host round trip, bitwise, and within 1e-5 of the chain on the CPU
+    relative to each entry's Σ|r|·|a|·|p|."""
+    from repro_torch.runtime.heartbeat import default_registry
+    from repro_torch.sparse.formats import COO
+    from repro_torch.spgemm import PlanCache, execute_chain
+    from repro_torch.spgemm.plain import chain_product
+
+    r = random_coo(150, 420, 0.02, "uniform", seed=36)
+    a = random_coo(420, 420, 0.03, "fem", seed=37)
+    p = random_coo(420, 120, 0.02, "uniform", seed=38)
+
+    def chain(device):
+        return spgemm_plan(r, a, tile=3, group=1, device=device, cache=PlanCache()).then(
+            p, cache=PlanCache())
+
+    on_card, on_cpu = chain(cuda), chain("cpu")
+    on_card.execute()  # R and P on the card
+    av = np.random.default_rng(39).standard_normal(a.nnz).astype(np.float32)
+    h2d = default_registry().counter("spgemm.h2d_bytes")
+    before, small = h2d.value, spgemm_scheduled.small_tile_launches
+    got = execute_chain(on_card, b_vals=torch.from_numpy(av).to(cuda))
+    assert h2d.value == before and spgemm_scheduled.small_tile_launches == small + 2
+    assert on_card.plans[0]._b_host is None and on_card.plans[0]._b_dev.is_cuda
+    assert np.array_equal(got.data, execute_chain(on_card, b_vals=av).data)
+    ra = spgemm_plan(r, a, tile=3, group=1, device=cuda, cache=PlanCache()).execute(b_vals=av)
+    rows = np.repeat(np.arange(ra.shape[0]), np.diff(ra.indptr))
+    trip = spgemm_plan(COO(rows, ra.indices, ra.data, ra.shape), p, tile=3, group=1,
+                       device=cuda, cache=PlanCache()).execute()
+    assert np.array_equal(got.indices, trip.indices) and np.array_equal(got.data, trip.data)
+    want = execute_chain(on_cpu, b_vals=av)
+    assert np.array_equal(got.indices, want.indices)
+
+    def absolute(m):
+        return COO(m.row, m.col, np.abs(m.val), m.shape)
+
+    scale = chain_product([absolute(r), absolute(COO(a.row, a.col, av, a.shape)), absolute(p)])
+    block_scale = np.zeros(got.shape)
+    block_scale[scale.row, scale.col] = scale.val
+    rows = np.repeat(np.arange(got.shape[0]), np.diff(got.indptr))
+    bound = 1e-5 * np.maximum(block_scale[rows, got.indices], 1e-30)
+    assert np.all(np.abs(got.data - want.data) <= bound)
 
 
 def _element_case(structure, m, k, n, seed):

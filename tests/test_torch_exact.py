@@ -223,7 +223,7 @@ def test_spans_and_the_pairs_count():
     for name in ("spgemm.execute", "spgemm.execute.rebind", "spgemm.execute.upload",
                  "spgemm.execute.launch", "spgemm.execute.download", "spgemm.execute.wrap"):
         assert got[name]["count"] == 2, name
-    assert got["spgemm.execute.launch"]["counts"] == {"pairs": 2 * pairs}
+    assert got["spgemm.execute.launch"]["counts"] == {"pairs": 2 * pairs, "triples": 2 * pairs}
 
 
 def test_block_plans_count_their_block_fill_as_pairs():
@@ -232,7 +232,8 @@ def test_block_plans_count_their_block_fill_as_pairs():
     hb.set_tracing(True)
     plan.execute(a.val, a.val)
     counts = hb.totals()["spans"]["spgemm.execute.launch"]["counts"]
-    assert counts == {"pairs": plan.report.num_triples * 16 ** 3}
+    assert counts == {"pairs": plan.report.num_triples * 16 ** 3,
+                      "triples": plan.report.num_triples}
 
 
 def test_batch_pipeline_and_no_arg_execute_equal_execute_bitwise():

@@ -304,13 +304,14 @@ def test_each_result_owns_its_values(surface):
     assert not np.shares_memory(first.data, second.data)
 
 
-@pytest.mark.parametrize("output", ["exact", "compact"])
+@pytest.mark.parametrize("output", ["exact", "compact", "block"])
 def test_a_chain_records_its_root_and_a_launch_per_later_stage(output):
-    """``execute_chain`` runs under ``spgemm.chain`` (its ``stages`` and
-    ``pairs``); stage 1 records the execute stages, each later stage a
-    ``spgemm.chain.launch`` with its ``pairs`` and number, and the final
-    copy the download and the wrap. The stages' pairs sum to the root's."""
-    tile, group = (1, 1) if output == "exact" else (16, 2)
+    """``execute_chain`` runs under ``spgemm.chain`` (its ``stages``,
+    ``pairs`` and ``triples``); stage 1 records the execute stages, each
+    later stage a ``spgemm.chain.launch`` with its ``pairs``, ``triples``
+    and number, and the final copy the download and the wrap. The stages'
+    pairs and triples sum to the root's."""
+    tile, group = {"exact": (1, 1), "compact": (16, 2), "block": (3, 1)}[output]
     a, b = _operands()
     ops = [random_coo(72, 64, 0.06, seed=5), random_coo(64, 50, 0.06, seed=6)]
     chain = spgemm_plan(a, b, tile=tile, group=group, output=output, device="cpu",
@@ -325,15 +326,41 @@ def test_a_chain_records_its_root_and_a_launch_per_later_stage(output):
     (root,) = [r for r in recs if r.name == "spgemm.chain"]
     assert root.parent == 0 and all(r.root == root.id for r in recs)
     pairs = [q._executor.pairs for q in chain.plans]
-    assert root.counts == {"stages": 3, "pairs": sum(pairs)} and min(pairs) > 0
+    triples = [q.report.num_triples for q in chain.plans]
+    assert root.counts == {"stages": 3, "pairs": sum(pairs), "triples": sum(triples)}
+    assert min(pairs) > 0 and pairs == [t * (tile ** 3) for t in triples]
     stage_names = [r.name for r in sorted(recs, key=lambda r: r.start_ns) if r is not root]
     assert stage_names == EXECUTE[1:4] + ["spgemm.chain.launch"] * 2 + EXECUTE[4:]
     launches = [r for r in recs if r.name.endswith(".launch")]
     assert [r.counts for r in sorted(launches, key=lambda r: r.start_ns)] == [
-        {"pairs": pairs[0]}, {"pairs": pairs[1], "stage": 2}, {"pairs": pairs[2], "stage": 3}]
-    assert sum(r.counts["pairs"] for r in launches) == root.counts["pairs"]
+        {"pairs": pairs[0], "triples": triples[0]},
+        {"pairs": pairs[1], "triples": triples[1], "stage": 2},
+        {"pairs": pairs[2], "triples": triples[2], "stage": 3}]
+    for count in ("pairs", "triples"):
+        assert sum(r.counts[count] for r in launches) == root.counts[count]
     if output == "exact":
         assert root.counts["pairs"] == sum(q.report.num_triples for q in chain.plans)
+
+
+def test_a_small_tile_execute_counts_triples_and_no_launch_on_the_cpu():
+    """A tile-3 plan's launch span counts its block triples and its pairs,
+    27 a triple; on the CPU the plain version runs, so neither K1's
+    launches nor its small-tile launches move (on the card each execute
+    adds one to both: ``tests/test_torch_cuda.py``)."""
+    from repro_torch.kernels.gustavson_spgemm import k1_kernel, spgemm_scheduled
+
+    a, b = _operands()
+    plan = spgemm_plan(a, b, tile=3, group=1, device="cpu", cache=PlanCache())
+    before = (spgemm_scheduled.launches, spgemm_scheduled.small_tile_launches)
+    hb.set_tracing(True)
+    plan.execute(a.val, b.val)
+    hb.set_tracing(False)
+    counts = hb.totals()["spans"]["spgemm.execute.launch"]["counts"]
+    triples = plan.report.num_triples
+    assert triples > 0 and counts == {"pairs": 27 * triples, "triples": triples}
+    assert (spgemm_scheduled.launches, spgemm_scheduled.small_tile_launches) == before
+    assert [k1_kernel(t) for t in ((3, 3, 3), (1, 1, 1), (8, 2, 8), (16, 16, 16),
+                                   (3, 3, 12))] == ["small", "element", "small", "ring", None]
 
 
 def test_pinned_download_counter_stays_zero_on_a_cpu_plan():

@@ -117,8 +117,9 @@ class TestPristinePlansVerifyClean:
         assert rep.ok, rep.summary()
         assert rep.plan_kind == "element" and not rep.sharded
         _same_report(rep, r_verify.verify_plan(ref))
-        # Tile 8 runs on the CPU only: the launch lint says why.
-        assert _checks(lint_plan_kernel_specs(plan)) == {"kernel.tile-dims"}
+        # Tile 8 runs on K1's small-tile kernel: nothing for the launch
+        # lint to flag, and no ring shared memory.
+        assert lint_plan_kernel_specs(plan) == []
 
     def test_block_plan(self):
         plan, ref = _block_plans()
@@ -653,6 +654,31 @@ class TestKernelLint:
     def test_tile_dim_24(self):
         assert _checks(lint_plan_kernel_specs(self._plan(tile=(16, 24, 16)))) == {
             "kernel.tile-dims"}
+
+    @pytest.mark.parametrize("cut", [
+        ("_launch", "    if kernel is None:", "    if False:"),
+        ("k1_kernel", "16 <= d <= 128 and d % 16 == 0", "16 <= d <= 128"),
+        ("_launch", "bsz > 65535", "bsz > 65536")])
+    def test_the_wrapper_lint_sees_a_refusal_taken_out(self, monkeypatch, cut):
+        """The wrapper's tile rule lives in ``k1_kernel``, which ``_launch``
+        refuses by: a copy of the wrapper with a refusal taken out, or the
+        ring rule widened, is flagged."""
+        import ast
+        import inspect
+        import textwrap
+
+        from repro_torch.kernels import gustavson_spgemm
+
+        name, old, new = cut
+        real = kernel_lint._wrapper_fn
+        fn = getattr(gustavson_spgemm, name)
+        src = textwrap.dedent(inspect.getsource(fn))
+        assert old in src
+        mutated = ast.parse(src.replace(old, new)).body[0]
+        monkeypatch.setattr(kernel_lint, "_wrapper_fn",
+                            lambda n="_launch": mutated if n == name else real(n))
+        found = lint_kernel_module()
+        assert _checks(found) == {"kernel.refusals"} and len(found) == 1
 
     def test_bsz_past_grid_y(self):
         plan = self._plan()
